@@ -1,0 +1,603 @@
+"""Unified event-driven serving engine over the device executors.
+
+Port of ``repro/core/engine.py`` for one card: the event loop
+(:class:`ServingEngine`), the per-class invoker pool, and the device
+executors that run Tangram's cloud side - pack crops into slots -> K1
+stitch -> ViT detector -> K2 unstitch -> per-frame routing.
+
+*Engine time* comes from a pluggable clock (:mod:`.clock`).  Three event
+kinds, processed in engine-time order: **arrivals** (fed by :meth:`run`,
+:meth:`offer` or :meth:`serve`), **invoker timers** (each batcher's
+``next_timer()``, fired at the timer's time), and **completions**.  At a
+timestamp tie a completion is delivered before a timer fires; two
+invokers sharing a timer instant fire in first-registered order.
+
+Executors expose ``submit(inv) -> ExecHandle`` and ``resolve(handle) ->
+Completion``.  :class:`DeviceExecutor` joins the device work at submit;
+:class:`AsyncDeviceExecutor` returns once the work is queued on the card
+and reports readiness through a ``torch.cuda.Event`` recorded after the
+launch, probed with ``.query()`` (on the CPU every launch is ready at
+once).  Invocation boundaries depend only on arrivals and the batcher, so
+a trace produces the same patch->invocation groupings on both.
+
+Batcher protocol (duck-typed; ``SLOAwareInvoker`` conforms):
+
+    on_patch(t, patch) -> List[Invocation]   # may fire immediately
+    poll(t)            -> Optional[Invocation]
+    flush(t)           -> Optional[Invocation]  # engine loops until None
+    next_timer()       -> float                 # inf when idle
+    on_result(inv, t_finish)                    # optional feedback
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import heapq
+import math
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.clock import Clock, VirtualClock
+from repro_torch.core.framestore import FrameStore
+from repro_torch.core.invoker import Invocation, SLOAwareInvoker
+from repro_torch.core.partitioning import Patch
+from repro_torch.core.registry import lookup
+from repro_torch.core.stitching import validate
+from repro_torch.data.video import Arrival
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.stitch import ops as stitch_ops
+
+
+# ------------------------------------------------------------- outcomes ----
+
+@dataclasses.dataclass
+class PatchOutcome:
+    patch: Patch
+    t_arrive: float
+    t_submit: float
+    t_finish: float
+
+    @property
+    def latency(self) -> float:
+        return self.t_finish - self.patch.t_gen
+
+    @property
+    def violated(self) -> bool:
+        return self.t_finish > self.patch.deadline
+
+
+@dataclasses.dataclass
+class Completion:
+    """One finished invocation, delivered at ``t_finish`` engine time."""
+    invocation: Invocation
+    t_finish: float
+    outputs: object = None    # (per-frame detections, per-frame pixels)
+
+
+@dataclasses.dataclass
+class ExecHandle:
+    """An in-flight invocation, returned by ``Executor.submit``.
+
+    ``t_finish`` is set when the executor knows the finish time at submit
+    (a sync device run): the engine then schedules delivery on its heap.
+    ``None`` means the work is still on the card; the engine resolves the
+    handle when it reports ready, the in-flight bound is hit, or the trace
+    drains.  ``seq`` (submit order) breaks ties between ready handles.
+    """
+    invocation: Invocation
+    t_finish: Optional[float] = None
+    completion: Optional[Completion] = None
+    payload: object = None            # executor-private in-flight state
+    seq: int = -1
+
+
+# ----------------------------------------------------------- invoker pool ----
+
+def slo_class(patch: Patch) -> float:
+    """Default classification: one invoker per distinct SLO value."""
+    return patch.slo
+
+
+class InvokerPool:
+    """Per-class SLO-aware invokers behind one batcher interface.
+
+    ``classify`` maps a patch to its class key; ``make_invoker(key)``
+    builds the class's invoker on first use.  Fired invocations are tagged
+    with their class ``key``.
+    """
+
+    def __init__(self, make_invoker: Callable[[object], SLOAwareInvoker],
+                 classify: Callable[[Patch], object] = slo_class):
+        self.make_invoker = make_invoker
+        self.classify = classify
+        self.invokers: Dict[object, SLOAwareInvoker] = {}
+
+    def _invoker(self, key: object) -> SLOAwareInvoker:
+        inv = self.invokers.get(key)
+        if inv is None:
+            inv = self.invokers[key] = self.make_invoker(key)
+        return inv
+
+    def _tag(self, fired, key):
+        for f in fired:
+            f.key = key
+        return fired
+
+    def on_patch(self, t_now: float, patch: Patch) -> List[Invocation]:
+        key = self.classify(patch)
+        return self._tag(self._invoker(key).on_patch(t_now, patch), key)
+
+    def queue_depth(self) -> int:
+        """Patches currently queued (unfired) across every class."""
+        return sum(len(inv.queue) for inv in self.invokers.values())
+
+    def next_timer(self) -> float:
+        return min((inv.next_timer() for inv in self.invokers.values()),
+                   default=math.inf)
+
+    def poll(self, t_now: float) -> Optional[Invocation]:
+        """Fire the due invoker with the earliest timer (ties: the
+        first-registered class)."""
+        due = [(inv.next_timer(), key) for key, inv in self.invokers.items()
+               if inv.next_timer() <= t_now]
+        if not due:
+            return None
+        _, key = min(due, key=lambda x: x[0])
+        fired = self.invokers[key].poll(t_now)
+        if fired is not None:
+            self._tag([fired], key)
+        return fired
+
+    def flush(self, t_now: float) -> Optional[Invocation]:
+        for key, inv in self.invokers.items():
+            fired = inv.flush(t_now)
+            if fired is not None:
+                self._tag([fired], key)
+                return fired
+        return None
+
+
+def uniform_pool(canvas_m: int, canvas_n: int, latency, max_canvases: int = 8,
+                 classify: Optional[Callable[[Patch], object]] = None
+                 ) -> InvokerPool:
+    """Pool where every class shares one geometry/latency spec;
+    ``classify=None`` is the paper's single shared queue."""
+    return InvokerPool(
+        lambda key: SLOAwareInvoker(canvas_m, canvas_n, latency,
+                                    max_canvases),
+        classify=classify or (lambda p: None))
+
+
+# -------------------------------------------------------------- executors ----
+
+@dataclasses.dataclass
+class ModelRuntime:
+    """One servable model on the device path: ``serve_fn(params,
+    canvases) -> (obj, boxes)``, its params, and its canvas geometry."""
+    serve_fn: Callable
+    params: object
+    canvas_m: int
+    canvas_n: int
+
+
+class DeviceExecutor:
+    """Executor over the real pipeline on one device: crop gather + slot
+    packing on the host -> K1 stitch -> detector -> K2 unstitch -> route,
+    joined synchronously at submit (``t_finish`` = ``t_submit`` + measured
+    wall time, the quantity the latency table estimates).
+
+    :meth:`_launch` queues the work and returns before the card finishes;
+    :meth:`_finalize` copies the outputs to the host (which waits for the
+    card) and routes them.  This class joins the two back to back;
+    :class:`AsyncDeviceExecutor` keeps them apart.
+
+    ``impl`` picks the stitch/unstitch implementation (``"cuda"`` kernel
+    or ``"torch"`` plain version); ``None`` follows the device, so on a
+    card the hand kernels run.  Owns the refcounted frame store: the
+    engine's completion event releases each routed patch's frame.
+    """
+
+    def __init__(self, serve_fn, params, canvas_m: int, canvas_n: int, *,
+                 device: DeviceLike = None, impl: Optional[str] = None,
+                 clock: Callable[[], float] = time.perf_counter):
+        if impl is not None and impl not in stitch_ops.IMPLS:
+            raise ValueError(f"unknown stitch impl {impl!r}; choose from "
+                             f"{list(stitch_ops.IMPLS)}")
+        self.runtime = ModelRuntime(serve_fn, params, canvas_m, canvas_n)
+        self.device = resolve_device(device)
+        self.impl = impl
+        self.clock = clock
+        self.store = FrameStore()
+        self.n_invocations = 0
+        self.n_detections = 0
+        self.evidence_bytes = 0
+
+    # ------------------------------------------------------- frame store ----
+
+    def add_frame(self, frame_id, pixels: np.ndarray, n_patches: int):
+        """Register a frame the edge cut ``n_patches`` patches from."""
+        self.store.add(frame_id, pixels, n_patches)
+
+    def on_complete(self, comp: Completion):
+        """Completion event: release every routed patch's frame ref."""
+        release = self.store.release
+        for p in comp.invocation.patches:
+            release(p.frame_id)
+
+    @property
+    def frames(self) -> Dict[object, np.ndarray]:
+        return self.store.snapshot()
+
+    # --------------------------------------------------------- execution ----
+
+    def _launch(self, inv: Invocation) -> dict:
+        """Host-side packing + queueing of the device work; nothing here
+        waits for the card (the host-to-device copies aside)."""
+        t0 = self.clock()
+        rt = self.runtime
+        plan = inv.batch_plan()
+        stitch_ops.check_records(plan)
+        crops = []
+        store = self.store
+        for patch in inv.patches:
+            frame = store.get(patch.frame_id)
+            if frame is None:
+                crops.append(np.zeros((patch.h, patch.w, 3), np.float32))
+            else:
+                crops.append(frame[patch.y0:patch.y1, patch.x0:patch.x1])
+        slots = torch.from_numpy(stitch_ops.pack_plan_host(crops, plan))
+        slots = slots.to(self.device)
+        records = torch.from_numpy(plan.records).to(self.device)
+        canvases = stitch_ops.stitch_canvases(
+            slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
+        obj, boxes = rt.serve_fn(rt.params, canvases)
+        # inverse gather: the box head has no pixel-space output, so the
+        # canvases stand in for a per-pixel head; the gathered slots equal
+        # the input crops and are routed back as evidence
+        patch_out = stitch_ops.unstitch_patches(
+            canvases, records, plan.slot_capacity, plan.hmax, plan.wmax,
+            impl=self.impl)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        self.n_invocations += 1
+        return {"plan": plan, "obj": obj, "boxes": boxes,
+                "patch_out": patch_out, "done": done, "t0": t0}
+
+    def _finalize(self, inv: Invocation, payload: dict) -> Completion:
+        """Copy the outputs to the host (waits for the card) and route."""
+        plan = payload["plan"]
+        per_frame = stitch_ops.route_detections(
+            plan, inv.patches, payload["obj"].cpu().numpy(),
+            payload["boxes"].cpu().numpy())
+        evidence = payload["patch_out"].cpu().numpy()
+        per_frame_pixels: Dict[object, List[np.ndarray]] = {}
+        for i, patch in enumerate(inv.patches):
+            # copy: a view would pin the whole pow2-padded batch in memory
+            per_frame_pixels.setdefault(patch.frame_id, []).append(
+                np.ascontiguousarray(evidence[i, :patch.h, :patch.w]))
+        wall = self.clock() - payload["t0"]
+
+        self.n_detections += sum(len(v) for v in per_frame.values())
+        self.evidence_bytes += sum(
+            a.nbytes for v in per_frame_pixels.values() for a in v)
+        return Completion(inv, inv.t_submit + wall,
+                          outputs=(per_frame, per_frame_pixels))
+
+    def submit(self, inv: Invocation) -> ExecHandle:
+        comp = self._finalize(inv, self._launch(inv))
+        return ExecHandle(inv, t_finish=comp.t_finish, completion=comp)
+
+    def resolve(self, handle: ExecHandle) -> Completion:
+        if handle.completion is None:
+            handle.completion = self._finalize(handle.invocation,
+                                               handle.payload)
+            handle.payload = None
+        return handle.completion
+
+
+class AsyncDeviceExecutor(DeviceExecutor):
+    """Overlapped device execution: submit returns once the work is queued
+    on the card, so the engine keeps ingesting arrivals and restitching
+    while the card works through its stream.
+
+    ``max_inflight`` bounds the unresolved handles the engine may hold
+    (each pins device memory for its canvases and outputs).  Readiness is
+    the ``torch.cuda.Event`` recorded after the launch (``.query()``);
+    on the CPU every launch is ready.
+    """
+
+    def __init__(self, *args, max_inflight: int = 4, **kwargs):
+        super().__init__(*args, **kwargs)
+        if max_inflight < 1:
+            raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+        self.max_inflight = max_inflight
+
+    def submit(self, inv: Invocation) -> ExecHandle:
+        return ExecHandle(inv, t_finish=None, payload=self._launch(inv))
+
+    def ready(self, handle: ExecHandle) -> bool:
+        if handle.completion is not None:
+            return True
+        done = handle.payload["done"]
+        return done is None or done.query()
+
+
+_EXECUTORS = {
+    "device": DeviceExecutor,
+    "async_device": AsyncDeviceExecutor,
+}
+
+
+def make_executor(name: str, **cfg):
+    """Executor-name -> instance (``device`` | ``async_device``).  ``cfg``
+    forwards to the constructor; ``max_inflight`` is accepted, and
+    dropped, for the sync executor so one config dict drives either."""
+    cls = lookup("executor", _EXECUTORS, name)
+    if cls is DeviceExecutor:
+        cfg = {k: v for k, v in cfg.items() if k != "max_inflight"}
+    return cls(**cfg)
+
+
+# ------------------------------------------------------------ event loop ----
+
+class ServingEngine:
+    """The one event loop.  Feed arrivals; timers and completions fire at
+    their scheduled engine times; fired invocations run on the executor.
+
+    ``clock`` defaults to a fresh :class:`VirtualClock`.
+    ``ingestion_window`` is an advisory backlog bound, in patches, that
+    live sources read through :meth:`overloaded`.
+    """
+
+    def __init__(self, pool, executor, clock: Optional[Clock] = None,
+                 check_invariants: bool = False,
+                 ingestion_window: Optional[int] = None):
+        if ingestion_window is not None and ingestion_window < 1:
+            raise ValueError(f"ingestion_window must be >= 1, got "
+                             f"{ingestion_window}")
+        self.pool = pool
+        self.executor = executor
+        self.clock = clock if clock is not None else VirtualClock()
+        self.check_invariants = check_invariants
+        self.ingestion_window = ingestion_window
+        self.backlog_high_water = 0
+        self.outcomes: List[PatchOutcome] = []
+        self.invocations: List[Invocation] = []
+        self.completions: List[Completion] = []
+        # arrival bookkeeping in reused slots, sized to the peak backlog
+        self._slot_patch: List[Optional[Patch]] = []
+        self._slot_t: List[float] = []
+        self._free_slots: List[int] = []
+        self._slot_of: Dict[int, int] = {}    # id(patch) -> live slot
+        self.arrivals_total = 0
+        # incremental backlog counters: offered -> _queued, fired ->
+        # _inflight_count, delivered -> retired
+        self._queued = 0
+        self._inflight_count = 0
+        self._ready_probe = getattr(executor, "ready", None)
+        self._scheduled: List = []   # heap of (t_finish, seq, ExecHandle)
+        self._inflight: collections.deque = collections.deque()
+        self._event_seq = 0
+        self._last_async_finish = 0.0
+        self.inflight_high_water = 0
+
+    @property
+    def now(self) -> float:
+        """Engine time of the last event processed."""
+        return self.clock.now()
+
+    # ----------------------------------------------------------- feeding ----
+
+    def run(self, arrivals: Sequence[Arrival]) -> List[PatchOutcome]:
+        """Drive a whole (sorted-by-``t_arrive``) arrival trace to empty."""
+        self.offer_batch(arrivals)
+        self.finish()
+        return self.outcomes
+
+    def serve(self, source) -> List[PatchOutcome]:
+        """Pull loop over a :mod:`repro_torch.sources` source, which gets
+        this engine as its backpressure handle."""
+        for arr in source.events(self):
+            self.offer(arr)
+        self.finish()
+        return self.outcomes
+
+    def offer(self, arrival: Arrival):
+        """One arrival: first fire everything due strictly before it."""
+        self.advance(arrival.t_arrive)
+        self.clock.advance_to(arrival.t_arrive)
+        self._ingest(arrival)
+
+    def offer_batch(self, arrivals: Sequence[Arrival]):
+        """:meth:`offer` in a loop, minus the per-arrival event probe when
+        nothing is due before the arrival (and no async work is in
+        flight, where the per-event harvest matters)."""
+        for arr in arrivals:
+            if self._ready_probe is not None and self._inflight:
+                self.offer(arr)
+                continue
+            t = arr.t_arrive
+            if self._next_event() < t:
+                self.advance(t)
+            self.clock.advance_to(t)
+            self._ingest(arr)
+
+    def _ingest(self, arrival: Arrival):
+        """Arrival bookkeeping + batcher feed (clock already advanced)."""
+        patch = arrival.patch
+        if self._free_slots:
+            slot = self._free_slots.pop()
+            self._slot_patch[slot] = patch
+            self._slot_t[slot] = arrival.t_arrive
+        else:
+            slot = len(self._slot_patch)
+            self._slot_patch.append(patch)
+            self._slot_t.append(arrival.t_arrive)
+        self._slot_of[id(patch)] = slot
+        self.arrivals_total += 1
+        self._queued += 1
+        for inv in self.pool.on_patch(arrival.t_arrive, patch):
+            self._dispatch(inv)
+        backlog = self._queued + self._inflight_count
+        if backlog > self.backlog_high_water:
+            self.backlog_high_water = backlog
+        if self.check_invariants:
+            depth = getattr(self.pool, "queue_depth", None)
+            if depth is not None and self._queued != depth():
+                raise AssertionError(f"queued {self._queued} != pool "
+                                     f"depth {depth()}")
+
+    def _next_event(self) -> float:
+        """Engine time of the next due timer or scheduled completion."""
+        t = self.pool.next_timer()
+        if self._scheduled:
+            t_comp = self._scheduled[0][0]
+            if t_comp < t:
+                return t_comp
+        return t
+
+    # ------------------------------------------------- ingestion window ----
+
+    def backlog(self) -> int:
+        """Unfinished patches (queued + in flight), O(1)."""
+        return self._queued + self._inflight_count
+
+    def overloaded(self) -> bool:
+        """True when the backlog has filled the ingestion window."""
+        return (self.ingestion_window is not None
+                and self.backlog() >= self.ingestion_window)
+
+    def advance(self, t: float):
+        """Process every timer/completion event scheduled before ``t``;
+        at a tie the completion is delivered first."""
+        while True:
+            self._harvest_ready()
+            t_timer = self.pool.next_timer()
+            t_comp = self._scheduled[0][0] if self._scheduled else math.inf
+            t_next = min(t_timer, t_comp)
+            if t_next >= t:
+                return
+            self.clock.advance_to(t_next)
+            if t_comp <= t_timer:
+                self._deliver_scheduled()
+            else:
+                fired = self.pool.poll(t_timer)
+                if fired is None:       # defensive: a policy may decline
+                    return
+                self._dispatch(fired)
+
+    def finish(self, t_end: Optional[float] = None):
+        """Drain timers at their scheduled times, flush stragglers, and
+        deliver every remaining completion."""
+        self.advance(math.inf)
+        t = self.now if t_end is None else t_end
+        while True:
+            fired = self.pool.flush(t)
+            if fired is None:
+                break
+            self._dispatch(fired)
+        while self._inflight:
+            self._resolve_one()
+        while self._scheduled:
+            self.clock.advance_to(self._scheduled[0][0])
+            self._deliver_scheduled()
+
+    # --------------------------------------------------------- internals ----
+
+    def _dispatch(self, inv: Invocation):
+        if self.check_invariants:
+            validate(inv.canvases)
+            placed = sorted(p.patch_idx for c in inv.canvases
+                            for p in c.placements)
+            if placed != list(range(len(inv.patches))):
+                raise AssertionError(f"patches not placed once: {placed}")
+        self.invocations.append(inv)
+        n = len(inv.patches)
+        self._queued -= n
+        self._inflight_count += n
+        bound = getattr(self.executor, "max_inflight", None)
+        if bound is not None:
+            # make room before submitting: take any finished handle first,
+            # block on the oldest only when none is
+            while len(self._inflight) >= bound:
+                self._resolve_one()
+        handle = self.executor.submit(inv)
+        self._event_seq += 1
+        handle.seq = self._event_seq
+        if handle.t_finish is not None:
+            heapq.heappush(self._scheduled,
+                           (handle.t_finish, self._event_seq, handle))
+        else:
+            self._inflight.append(handle)
+            self.inflight_high_water = max(self.inflight_high_water,
+                                           len(self._inflight))
+
+    def _harvest_ready(self):
+        """Deliver async completions the card has already finished
+        (non-blocking; every in-flight handle is probed, ready ones are
+        delivered in submit order)."""
+        ready = self._ready_probe
+        if ready is None:
+            return
+        while True:
+            done = [h for h in self._inflight if ready(h)]
+            if not done:
+                return
+            for handle in sorted(done, key=lambda h: h.seq):
+                self._inflight.remove(handle)
+                self._resolve_inflight(handle)
+
+    def _resolve_one(self):
+        """Retire one in-flight handle: the oldest ready one, else block
+        on the FIFO head."""
+        ready = self._ready_probe
+        if ready is not None:
+            done = [h for h in self._inflight if ready(h)]
+            if done:
+                handle = min(done, key=lambda h: h.seq)
+                self._inflight.remove(handle)
+                self._resolve_inflight(handle)
+                return
+        self._resolve_inflight(self._inflight.popleft())
+
+    def _resolve_inflight(self, handle: ExecHandle):
+        comp = self.executor.resolve(handle)
+        # one card is one serial stream: clamp finishes monotone
+        comp.t_finish = max(self._last_async_finish, comp.t_finish)
+        self._last_async_finish = comp.t_finish
+        self._deliver(comp)
+
+    def _deliver_scheduled(self):
+        _, _, handle = heapq.heappop(self._scheduled)
+        self._deliver(self.executor.resolve(handle))
+
+    def _deliver(self, comp: Completion):
+        """Completion delivery: executor bookkeeping, outcome recording,
+        then batcher feedback - all observing the actual finish."""
+        on_complete = getattr(self.executor, "on_complete", None)
+        if on_complete is not None:
+            on_complete(comp)
+        inv = comp.invocation
+        self._inflight_count -= len(inv.patches)
+        for p in inv.patches:
+            slot = self._slot_of.pop(id(p), None)
+            if slot is None:
+                t_arrive = inv.t_submit
+            else:
+                t_arrive = self._slot_t[slot]
+                self._slot_patch[slot] = None
+                self._free_slots.append(slot)
+            self.outcomes.append(
+                PatchOutcome(p, t_arrive, inv.t_submit, comp.t_finish))
+        on_result = getattr(self.pool, "on_result", None)
+        if on_result is not None:
+            on_result(inv, comp.t_finish)
+        # on_complete is the delivery point for outputs; dropping them
+        # keeps the retained completion log light
+        comp.outputs = None
+        self.completions.append(comp)

@@ -1,0 +1,156 @@
+"""Model registry: named :class:`ModelSpec` records behind ``make_model``.
+
+Port of ``repro/core/models.py`` with the full-precision ``tangram``
+entry (the paper's detector: ViT-B/32 trunk on 1024^2 canvases, bf16).
+A spec carries identity, canvas geometry, weight economics
+(``weight_bytes`` / ``load_s``), a latency profile (explicit, or the
+analytical model over the trunk dims on an H100), and :meth:`build`,
+which makes a servable detector on a device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import DetectorConfig
+from repro_torch.core.latency import LatencyTable, detector_latency_model
+from repro_torch.core.registry import lookup
+from repro_torch.device import DeviceLike, resolve_device
+
+__all__ = ["ModelSpec", "make_model", "register_model", "model_names"]
+
+#: bytes per parameter by param dtype (weight-size estimates)
+_DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+#: default host->device weight-load bandwidth (PCIe gen4 x16-ish)
+_DEFAULT_LOAD_BW = 12.5e9
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """One servable model: identity, geometry, economics, and builder.
+
+    ``canvas_m`` / ``canvas_n`` / ``weight_bytes`` default from ``arch``;
+    specs without an ``arch`` must state them and carry a ``table``.
+    """
+
+    name: str
+    arch: Optional[DetectorConfig] = None
+    canvas_m: Optional[int] = None
+    canvas_n: Optional[int] = None
+    weight_bytes: Optional[float] = None
+    table: Optional[LatencyTable] = None
+    load_bw: float = _DEFAULT_LOAD_BW
+    description: str = ""
+
+    def __post_init__(self):
+        if self.arch is not None:
+            if self.canvas_m is None:
+                object.__setattr__(self, "canvas_m", self.arch.canvas)
+            if self.canvas_n is None:
+                object.__setattr__(self, "canvas_n", self.arch.canvas)
+            if self.weight_bytes is None:
+                per_param = _DTYPE_BYTES.get(self.arch.param_dtype, 4)
+                object.__setattr__(self, "weight_bytes",
+                                   float(self.arch.n_params * per_param))
+        if self.canvas_m is None or self.canvas_n is None:
+            raise ValueError(f"ModelSpec {self.name!r} needs canvas "
+                             f"geometry (canvas_m/canvas_n or an arch)")
+        if self.weight_bytes is None:
+            raise ValueError(f"ModelSpec {self.name!r} needs weight_bytes "
+                             f"(explicit or derivable from an arch)")
+        if self.table is None and self.arch is None:
+            raise ValueError(f"ModelSpec {self.name!r} needs a latency "
+                             f"source (an explicit table or an arch)")
+        if self.load_bw <= 0:
+            raise ValueError(f"load_bw must be positive, got {self.load_bw}")
+
+    @property
+    def load_s(self) -> float:
+        """Modeled seconds to move the weights onto the card."""
+        return float(self.weight_bytes) / self.load_bw
+
+    def latency_table(self, max_batch: int = 16,
+                      slack_sigmas: float = 3.0) -> LatencyTable:
+        """The explicit ``table``, else the analytical roofline model over
+        the trunk dims at this spec's canvas geometry on one H100."""
+        if self.table is not None:
+            return self.table
+        a = self.arch
+        model = detector_latency_model(
+            self.canvas_m, self.canvas_n, patch=a.patch,
+            n_layers=a.n_layers, d_model=a.d_model, d_ff=a.d_ff)
+        return model.build_table(max_batch, slack_sigmas=slack_sigmas)
+
+    def reduced_arch(self, canvas: int) -> DetectorConfig:
+        """A small, CPU-runnable stand-in for the trunk: same family and
+        patching, dims scaled down."""
+        a = self.arch
+        if a is None:
+            raise ValueError(f"ModelSpec {self.name!r} has no arch to build")
+        patch = a.patch if canvas % a.patch == 0 else 32
+        while canvas % patch:
+            patch //= 2
+        d_model = max(32, a.d_model // 12)
+        return DetectorConfig(
+            name=f"{self.name}-reduced", canvas=canvas, patch=patch,
+            n_layers=max(1, a.n_layers // 6), d_model=d_model,
+            n_heads=4, d_ff=2 * d_model,
+            param_dtype="float32", compute_dtype="float32")
+
+    def build(self, canvas: Optional[int] = None, reduced: bool = True,
+              device: DeviceLike = None):
+        """A servable detector for this spec on ``device`` (default cuda).
+
+        Returns ``(cfg, params, serve_fn)``.  ``reduced=True`` builds the
+        scaled-down trunk at ``canvas`` (default 256); ``reduced=False``
+        the full trunk at the spec's native canvas.  Weights come from a
+        ``torch.Generator`` seeded by the model name.
+        """
+        from repro_torch.models import detector as detector_lib
+
+        dev = resolve_device(device)
+        if reduced:
+            cfg = self.reduced_arch(canvas or 256)
+        else:
+            cfg = (self.arch if canvas is None
+                   else dataclasses.replace(self.arch, canvas=canvas))
+        gen = torch.Generator().manual_seed(
+            zlib.crc32(self.name.encode()) & 0x7FFFFFFF)
+        params = detector_lib.init_params(cfg, gen, dev)
+        return cfg, params, detector_lib.serve_fn(cfg)
+
+
+_MODELS: Dict[str, ModelSpec] = {}
+
+
+def register_model(spec: ModelSpec) -> ModelSpec:
+    """Register (or replace: last registration wins) a named spec."""
+    _MODELS[spec.name] = spec
+    return spec
+
+
+def _ensure_seeded():
+    if "tangram" in _MODELS:
+        return
+    from repro_torch.configs import tangram_detector
+
+    register_model(ModelSpec(
+        name="tangram", arch=tangram_detector.ARCH,
+        description="the paper's detector (ViT-B/32 trunk, 1024^2 canvas)"))
+
+
+def make_model(name: str) -> ModelSpec:
+    """Model-name -> :class:`ModelSpec` with the unified unknown-name
+    error."""
+    _ensure_seeded()
+    return lookup("model", _MODELS, name)
+
+
+def model_names() -> Tuple[str, ...]:
+    """Registered model names."""
+    _ensure_seeded()
+    return tuple(sorted(_MODELS))

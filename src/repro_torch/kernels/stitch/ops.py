@@ -1,0 +1,125 @@
+"""Public entries for canvas stitch/unstitch + host-side packing and routing.
+
+Port of ``repro/kernels/stitch/ops.py`` (unfused path).  ``impl`` picks
+the implementation: ``"cuda"`` launches the hand-written kernel,
+``"torch"`` runs the plain version.  The default follows the tensor's
+device, so a CUDA tensor always reaches the kernel and a CPU tensor (the
+tests) the plain version; ``impl="cuda"`` on a CPU tensor raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.partitioning import Patch
+from repro_torch.core.stitching import BatchPlan
+from repro_torch.kernels.stitch.ref import (stitch_reference,
+                                            unstitch_reference)
+from repro_torch.kernels.stitch.stitch import stitch_cuda, unstitch_cuda
+
+IMPLS = ("cuda", "torch")
+
+
+def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+    """``None`` -> by device; otherwise a checked name."""
+    if impl is None:
+        return "cuda" if x.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown stitch impl {impl!r}; choose from "
+                         f"{list(IMPLS)}")
+    return impl
+
+
+def stitch_canvases(patch_pixels: torch.Tensor, records: torch.Tensor,
+                    m: int, n: int, impl: Optional[str] = None
+                    ) -> torch.Tensor:
+    """Assemble a batch of canvases from padded patch slots."""
+    if resolve_impl(impl, patch_pixels) == "cuda":
+        return stitch_cuda(patch_pixels, records, m, n)
+    return stitch_reference(patch_pixels, records, m, n)
+
+
+def unstitch_patches(canvases: torch.Tensor, records: torch.Tensor,
+                     num_patches: int, hmax: int, wmax: int,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Inverse of :func:`stitch_canvases`: canvases -> padded patch slots."""
+    if resolve_impl(impl, canvases) == "cuda":
+        return unstitch_cuda(canvases, records, num_patches, hmax, wmax)
+    return unstitch_reference(canvases, records, num_patches, hmax, wmax)
+
+
+def check_records(plan: BatchPlan) -> None:
+    """Host-side contract of both kernels, checked on the plan's numpy
+    records before launch: valid placements lie inside the canvas, fit
+    their slot, and index a slot below ``slot_capacity``."""
+    r = plan.records[plan.records[..., 0] > 0]          # (valid, 6)
+    slot, x, y, w, h = (r[:, i] for i in range(1, 6))
+    bad = ((slot < 0) | (slot >= plan.slot_capacity) | (w <= 0) | (h <= 0)
+           | (w > plan.wmax) | (h > plan.hmax) | (x < 0) | (y < 0)
+           | (x + w > plan.canvas_n) | (y + h > plan.canvas_m))
+    if bad.any():
+        raise ValueError(f"plan has {int(bad.sum())} placement(s) outside "
+                         f"the kernels' contract: {r[bad][:4].tolist()}")
+
+
+def pack_plan_host(frame_pixels: Sequence[np.ndarray],
+                   plan: BatchPlan) -> np.ndarray:
+    """Host prep: copy patch crops into the plan's padded slot array.
+
+    frame_pixels[i] is the (h, w, C) crop for queue patch i.  Returns
+    (slot_capacity, hmax, wmax, C) float32, zero-padded.
+    """
+    c = frame_pixels[0].shape[-1] if frame_pixels else 3
+    slots = np.zeros((plan.slot_capacity, plan.hmax, plan.wmax, c),
+                     np.float32)
+    for i, px in enumerate(frame_pixels):
+        h, w = px.shape[:2]
+        if h > plan.hmax or w > plan.wmax:
+            raise ValueError(f"crop {i} ({h}x{w}) exceeds the plan's slot "
+                             f"({plan.hmax}x{plan.wmax})")
+        slots[i, :h, :w] = px
+    return slots
+
+
+def route_detections(plan: BatchPlan, patches: Sequence[Patch],
+                     obj: np.ndarray, boxes: np.ndarray,
+                     obj_threshold: float = 0.5
+                     ) -> Dict[int, List[Tuple[float, Tuple[float, ...]]]]:
+    """Route canvas-space detector outputs back to their source frames.
+
+    obj: (B, s, s) objectness, boxes: (B, s, s, 4) xyxy in canvas pixels.
+    A detection belongs to the placement whose rectangle contains its box
+    centre; its box is clipped to the placement and translated to the
+    patch's frame coordinates.  Returns {frame_id: [(score, box_xyxy)]}.
+    """
+    obj = np.asarray(obj, np.float32)
+    boxes = np.asarray(boxes, np.float32)
+    b = obj.shape[0]
+    bcx = (boxes[..., 0] + boxes[..., 2]) / 2     # (B, s, s) box centres
+    bcy = (boxes[..., 1] + boxes[..., 3]) / 2
+
+    out: Dict[int, List[Tuple[float, Tuple[float, ...]]]] = {}
+    for bi, patch_idx, x, y, w, h in plan.placements():
+        if bi >= b:
+            continue
+        patch = patches[patch_idx]
+        hit = ((obj[bi] >= obj_threshold)
+               & (bcx[bi] >= x) & (bcx[bi] < x + w)
+               & (bcy[bi] >= y) & (bcy[bi] < y + h))
+        if not hit.any():
+            continue
+        dx = patch.x0 - x
+        dy = patch.y0 - y
+        dests = out.setdefault(patch.frame_id, [])
+        for score, bx in zip(obj[bi][hit], boxes[bi][hit]):
+            # clip to the placement rect: pixels past it belong to a
+            # neighbouring placement (possibly another frame entirely)
+            x0 = min(max(float(bx[0]), x), x + w)
+            y0 = min(max(float(bx[1]), y), y + h)
+            x1 = min(max(float(bx[2]), x), x + w)
+            y1 = min(max(float(bx[3]), y), y + h)
+            dests.append((float(score),
+                          (x0 + dx, y0 + dy, x1 + dx, y1 + dy)))
+    return out

@@ -1,0 +1,132 @@
+"""Hand-written CUDA kernels for batched canvas stitch (K1) and unstitch (K2).
+
+Port of ``repro/kernels/stitch/stitch.py`` (``stitch_pallas``,
+``unstitch_pallas``).  The kernels live in ``csrc/stitch.cu`` (design and
+byte bound in its header); this module builds them on first use, checks
+every argument, launches on PyTorch's current stream, and counts launches.
+
+A CUDA tensor always goes to the kernel; anything the kernel does not take
+raises.  The plain PyTorch versions (``stitch_reference`` /
+``unstitch_reference``, from :mod:`.ref`) are re-exported here: they are
+what a CPU tensor runs and what the kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.stitch.ref import (  # noqa: F401  (re-export)
+    stitch_reference, unstitch_reference)
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "stitch.cu"
+LIBRARY = "tangram_stitch"
+
+#: the kernels keep records of one canvas in shared memory (20 B each)
+MAX_RECORDS_PER_CANVAS = 2048
+_MAX_GRID_Y = 65535
+
+#: kernel launches since the last :func:`reset_launches`
+LAUNCHES = {"stitch": 0, "unstitch": 0}
+
+_ELEM_BYTES = (1, 2, 4)
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def library() -> ctypes.CDLL:
+    """Build (first call) and load the kernel library."""
+    lib = _build.load_library(LIBRARY, [SOURCE])
+    if not getattr(lib, "_typed", False):
+        args = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                + [ctypes.c_void_p])
+        for fn in (lib.tangram_stitch, lib.tangram_unstitch):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check(name: str, pixels: torch.Tensor, records: torch.Tensor):
+    if pixels.device.type != "cuda" or records.device != pixels.device:
+        raise ValueError(f"{name}: tensors must share one CUDA device, got "
+                         f"{pixels.device} and {records.device}")
+    if pixels.dim() != 4 or not pixels.is_contiguous():
+        raise ValueError(f"{name}: pixels must be a contiguous 4-d tensor, "
+                         f"got shape {tuple(pixels.shape)}")
+    if pixels.element_size() not in _ELEM_BYTES or pixels.is_complex():
+        raise ValueError(f"{name}: unsupported dtype {pixels.dtype}")
+    if (records.dtype != torch.int32 or records.dim() != 3
+            or records.shape[-1] != 6 or not records.is_contiguous()):
+        raise ValueError(f"{name}: records must be contiguous (B, K, 6) "
+                         f"int32, got {records.dtype} "
+                         f"{tuple(records.shape)}")
+    if records.shape[1] > MAX_RECORDS_PER_CANVAS:
+        raise ValueError(f"{name}: {records.shape[1]} records per canvas "
+                         f"exceeds {MAX_RECORDS_PER_CANVAS}")
+
+
+def _launch(fn, src, records, out, hmax, wmax, c, b, k, m, n):
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), records.data_ptr(), out.data_ptr(),
+                hmax, wmax, c, b, k, m, n, src.element_size(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+def stitch_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
+                m: int, n: int) -> torch.Tensor:
+    """K1: slots (P, Hmax, Wmax, C) + records (B, K, 6) -> (B, M, N, C).
+
+    The valid records must keep the kernels' contract, which the kernels do
+    not re-check: inside the canvas, within the slot, slot index below P
+    (:func:`repro_torch.kernels.stitch.ops.check_records` on the plan)."""
+    _check("stitch", patch_pixels, records)
+    p, hmax, wmax, c = patch_pixels.shape
+    b, k, _ = records.shape
+    if hmax > m or wmax > n:
+        raise ValueError(f"stitch: slot {hmax}x{wmax} exceeds canvas {m}x{n}")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"stitch: {b} canvases exceed {_MAX_GRID_Y}")
+    if b == 0 or k == 0 or p == 0:
+        # empty packing: a zero canvas batch, no degenerate launch
+        return torch.zeros((b, m, n, c), dtype=patch_pixels.dtype,
+                           device=patch_pixels.device)
+    out = torch.empty((b, m, n, c), dtype=patch_pixels.dtype,
+                      device=patch_pixels.device)   # every element written
+    _launch(library().tangram_stitch, patch_pixels, records, out, hmax,
+            wmax, c, b, k, m, n)
+    LAUNCHES["stitch"] += 1
+    return out
+
+
+def unstitch_cuda(canvases: torch.Tensor, records: torch.Tensor,
+                  num_patches: int, hmax: int, wmax: int) -> torch.Tensor:
+    """K2: canvases (B, M, N, C) + records -> (num_patches, hmax, wmax, C).
+
+    The output is allocated zeroed and the kernel copies each valid
+    placement's (h, w) region into it, so slot padding and slots no valid
+    record references are zero.  Records keep K1's contract."""
+    _check("unstitch", canvases, records)
+    b, m, n, c = canvases.shape
+    k = records.shape[1]
+    if records.shape[0] != b:
+        raise ValueError(f"unstitch: {records.shape[0]} record rows for "
+                         f"{b} canvases")
+    if hmax > m or wmax > n:
+        raise ValueError(f"unstitch: slot {hmax}x{wmax} exceeds canvas "
+                         f"{m}x{n}")
+    out = torch.zeros((num_patches, hmax, wmax, c), dtype=canvases.dtype,
+                      device=canvases.device)
+    if num_patches == 0 or b == 0 or k == 0:
+        return out
+    _launch(library().tangram_unstitch, canvases, records, out, hmax, wmax,
+            c, b, k, m, n)
+    LAUNCHES["unstitch"] += 1
+    return out

@@ -1,0 +1,77 @@
+"""The port stands alone: importing every ``repro_torch`` module and
+``chip_smoke`` pulls in neither JAX nor the JAX package, needs no CUDA
+compiler, and builds no kernel; entry points default to CUDA and never
+fall back to the CPU."""
+import json
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.kernels import _build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from repro_torch.kernels import _build
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({{"modules": len(names), "bad": bad,
+                   "builds": len(_build.BUILDS)}}))
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["modules"] >= 25
+    assert out["bad"] == []
+    assert out["builds"] == 0          # nothing compiled at import
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_source_names_no_jax_or_reference_import(path):
+    text = (ROOT / path).read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", text,
+                         re.M), path
+    assert not re.search(r"^\s*from\s+repro\.", text, re.M), path
+
+
+def test_resolve_device_defaults_to_cuda_and_never_falls_back():
+    assert device_lib.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert device_lib.resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            device_lib.resolve_device()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            device_lib.resolve_device("cuda:0")
+
+
+def test_kernel_build_needs_nvcc():
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        assert _build.nvcc_path()
+    else:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.nvcc_path()

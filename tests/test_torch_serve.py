@@ -1,0 +1,205 @@
+"""The slice as a whole: the port's serving engine + device executors on
+the CPU against the JAX package's, fed the same arrivals and frames (from
+the JAX synthetic camera), the same detector weights (converted) and one
+fixed latency table, so invocation boundaries cannot depend on timing.
+
+Required: identical invocation boundaries, equal routed detections
+(scores within 1e-4, boxes within 1e-3 px; detections whose score lies
+within 1e-3 of the 0.5 threshold are excluded, since float32 summation
+order may move them across it), bit-equal evidence pixels, 0 frames held.
+"""
+import dataclasses
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import DeviceExecutor as JDeviceExecutor
+from repro.core.engine import ServingEngine as JServingEngine
+from repro.core.engine import uniform_pool as juniform_pool
+from repro.core.latency import LatencyTable as JLatencyTable
+from repro.launch import serve as jserve
+from repro.sources import make_source as jmake_source
+from repro_torch.config import DetectorConfig
+from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
+from repro_torch.core.latency import LatencyTable
+from repro_torch.core.partitioning import Patch
+from repro_torch.data.video import Arrival
+from repro_torch.launch import serve as tserve
+from repro_torch.models import detector as tdet
+
+CANVAS = 128
+TABLE = {1: (0.02, 0.002), 2: (0.03, 0.002), 4: (0.05, 0.004)}
+TRACES = {
+    "loose": dict(n_frames=16, canvas=CANVAS, slo=5.0),
+    "tight": dict(n_frames=24, canvas=CANVAS, slo=0.3, n_cameras=2,
+                  scene=3),
+}
+
+
+@pytest.fixture(scope="module")
+def detector():
+    """The JAX driver's detector, its zero/one inits perturbed so that the
+    head fires on some cells (the raw init routes no detections)."""
+    cfg, params, serve_fn, _ = jserve.build_detector(canvas=CANVAS)
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_unflatten(tree, [
+        x + jnp.asarray(rng.normal(size=x.shape) * 0.3, x.dtype)
+        for x in leaves])
+    tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(DetectorConfig)})
+    tparams = tdet.convert_params(jax.tree_util.tree_map(np.asarray, params),
+                                  tcfg, torch.device("cpu"))
+    return (params, serve_fn), (tparams, tdet.serve_fn(tcfg))
+
+
+@pytest.fixture(scope="module", params=sorted(TRACES))
+def trace(request):
+    frames = {}
+    src = jmake_source("synthetic", frame_sink=lambda f, px, n:
+                       frames.__setitem__(f, (px, n)),
+                       **TRACES[request.param])
+    return list(src.events(None)), frames
+
+
+def _capture(ex):
+    routed, pixels = {}, {}
+    release = ex.on_complete
+
+    def on_complete(comp):
+        per_frame, per_frame_pixels = comp.outputs
+        for fid, dets in per_frame.items():
+            routed.setdefault(fid, []).extend(dets)
+        for fid, px in per_frame_pixels.items():
+            pixels.setdefault(fid, []).extend(px)
+        release(comp)
+
+    ex.on_complete = on_complete
+    return routed, pixels
+
+
+def _result(engine, ex, routed, pixels):
+    return {"bounds": [[(p.frame_id, p.x0, p.y0, p.x1, p.y1)
+                        for p in inv.patches] for inv in engine.invocations],
+            "routed": routed, "pixels": pixels, "held": len(ex.frames),
+            "patches": len(engine.outcomes)}
+
+
+def _run_jax(trace, detector, use_pallas):
+    arrivals, frames = trace
+    params, serve_fn = detector[0]
+    ex = JDeviceExecutor(serve_fn, params, CANVAS, CANVAS,
+                         use_pallas=use_pallas, clock=lambda: 0.0)
+    routed, pixels = _capture(ex)
+    for fid, (px, n) in frames.items():
+        ex.add_frame(fid, px, n)
+    engine = JServingEngine(juniform_pool(CANVAS, CANVAS,
+                                          JLatencyTable(dict(TABLE)),
+                                          max_canvases=4), ex)
+    engine.run(arrivals)
+    return _result(engine, ex, routed, pixels)
+
+
+def _run_port(trace, detector, executor):
+    arrivals, frames = trace
+    params, serve_fn = detector[1]
+    ex = make_executor(executor, serve_fn=serve_fn, params=params,
+                       canvas_m=CANVAS, canvas_n=CANVAS, device="cpu",
+                       clock=lambda: 0.0, max_inflight=2)
+    routed, pixels = _capture(ex)
+    for fid, (px, n) in frames.items():
+        ex.add_frame(fid, px, n)
+    engine = ServingEngine(uniform_pool(CANVAS, CANVAS,
+                                        LatencyTable(dict(TABLE)),
+                                        max_canvases=4), ex,
+                           check_invariants=True)
+    engine.run([Arrival(a.t_arrive, Patch(**dataclasses.asdict(a.patch)),
+                        a.n_bytes) for a in arrivals])
+    return _result(engine, ex, routed, pixels)
+
+
+def _margin_filter(per_frame, threshold=0.5, margin=1e-3):
+    out = {}
+    for fid, dets in per_frame.items():
+        kept = [(s, b) for s, b in dets if abs(s - threshold) >= margin]
+        if kept:
+            out[fid] = kept
+    return out
+
+
+def _assert_same(got, want):
+    assert got["bounds"] == want["bounds"]
+    assert got["held"] == want["held"] == 0
+    assert got["patches"] == want["patches"]
+    g, w = _margin_filter(got["routed"]), _margin_filter(want["routed"])
+    assert set(g) == set(w)
+    for fid in w:
+        assert len(g[fid]) == len(w[fid]), fid
+        for (gs, gb), (ws, wb) in zip(g[fid], w[fid]):
+            assert gs == pytest.approx(ws, abs=1e-4)
+            assert gb == pytest.approx(wb, abs=1e-3)
+    assert set(got["pixels"]) == set(want["pixels"])
+    for fid in want["pixels"]:
+        assert len(got["pixels"][fid]) == len(want["pixels"][fid])
+        for a, b in zip(got["pixels"][fid], want["pixels"][fid]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("executor", ["device", "async_device"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_port_engine_matches_jax_engine(trace, detector, use_pallas,
+                                        executor):
+    want = _run_jax(trace, detector, use_pallas)
+    got = _run_port(trace, detector, executor)
+    assert len(want["bounds"]) >= 1 and want["patches"] > 0
+    assert sum(len(v) for v in want["routed"].values()) > 0
+    _assert_same(got, want)
+
+
+def _served(out: str):
+    m = re.search(r"served (\d+) patches in (\d+) invocations.*"
+                  r"\((\d+) frames still held", out)
+    assert m, out
+    return tuple(int(x) for x in m.groups())
+
+
+@pytest.mark.parametrize("frames", ["16", "2"])
+def test_serve_cli_matches_jax_driver(frames, capsys):
+    args = ["--frames", frames, "--canvas", "128", "--slo", "5.0"]
+    jserve.main(args)
+    want = _served(capsys.readouterr().out)
+    tserve.main(["--device", "cpu"] + args)
+    got = _served(capsys.readouterr().out)
+    assert got[0] == want[0]                     # patches served
+    assert got[2] == want[2] == 0                # frames still held
+    if frames == "2":
+        assert got[:2] == want[:2] == (0, 0)     # the zero-patch path
+
+
+def test_serve_cli_async_and_live_source(capsys):
+    tserve.main(["--device", "cpu", "--frames", "16", "--canvas", "128",
+                 "--slo", "5.0", "--async-device", "--source", "synthetic",
+                 "--use-pallas-stitch"])
+    out = capsys.readouterr().out
+    assert "async, in-flight high water" in out
+    assert _served(out)[2] == 0
+
+
+@pytest.mark.parametrize("flag", [
+    ["--fuse"], ["--quantize"], ["--workers", "2"], ["--shards", "2"],
+    ["--parallel"], ["--online-latency"], ["--model", "tangram"],
+    ["--model-map", "0.5=tangram"]])
+def test_unported_options_name_their_roadmap_item(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.main(["--device", "cpu", "--frames", "2"] + flag)
+
+
+def test_serve_cli_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--frames", "2", "--canvas", "64"])
