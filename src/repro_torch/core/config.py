@@ -39,6 +39,7 @@ class ServeConfig:
 
     # --- execution ------------------------------------------------------
     executor: str = "device"         # device | async_device
+    fuse: bool = False               # fused stitch->embed / decode->gather
     max_inflight: int = 4            # async in-flight bound (device memory)
     clock: str = "virtual"           # virtual | wall
     wall_speed: float = 1.0          # engine seconds per wall second

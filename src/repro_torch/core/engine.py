@@ -3,7 +3,9 @@
 Port of ``repro/core/engine.py`` for one card: the event loop
 (:class:`ServingEngine`), the per-class invoker pool, and the device
 executors that run Tangram's cloud side - pack crops into slots -> K1
-stitch -> ViT detector -> K2 unstitch -> per-frame routing.
+stitch -> ViT detector -> K2 unstitch -> per-frame routing, or, with
+``fuse=True``, K4 stitch->embed -> trunk from tokens -> K3 decode->gather
+-> per-frame routing, where no canvas batch exists in device memory.
 
 *Engine time* comes from a pluggable clock (:mod:`.clock`).  Three event
 kinds, processed in engine-time order: **arrivals** (fed by :meth:`run`,
@@ -176,11 +178,20 @@ def uniform_pool(canvas_m: int, canvas_n: int, latency, max_canvases: int = 8,
 @dataclasses.dataclass
 class ModelRuntime:
     """One servable model on the device path: ``serve_fn(params,
-    canvases) -> (obj, boxes)``, its params, and its canvas geometry."""
+    canvases) -> (obj, boxes)``, its params, and its canvas geometry.
+
+    The fused path's fields: ``tokens_fn(params, tokens) -> raw head`` is
+    the trunk minus the patch embed, ``embed_kernel`` / ``embed_bias`` the
+    patch-embed projection in the compute dtype (K4 applies it), and
+    ``patch`` the detector's patch size."""
     serve_fn: Callable
     params: object
     canvas_m: int
     canvas_n: int
+    tokens_fn: Optional[Callable] = None
+    embed_kernel: Optional[torch.Tensor] = None
+    embed_bias: Optional[torch.Tensor] = None
+    patch: Optional[int] = None
 
 
 class DeviceExecutor:
@@ -194,24 +205,48 @@ class DeviceExecutor:
     card) and routes them.  This class joins the two back to back;
     :class:`AsyncDeviceExecutor` keeps them apart.
 
-    ``impl`` picks the stitch/unstitch implementation (``"cuda"`` kernel
-    or ``"torch"`` plain version); ``None`` follows the device, so on a
-    card the hand kernels run.  Owns the refcounted frame store: the
-    engine's completion event releases each routed patch's frame.
+    ``impl`` picks the kernels' implementation (``"cuda"`` kernel or
+    ``"torch"`` plain version); ``None`` follows the device, so on a card
+    the hand kernels run.  ``fuse=True`` runs the fused path (K4 -> trunk
+    from tokens -> K3) and needs ``tokens_fn``, ``embed_kernel``,
+    ``embed_bias`` and ``patch``: without them construction raises (the
+    JAX executor silently falls back to the unfused path, which here would
+    hide the kernels).  Owns the refcounted frame store: the engine's
+    completion event releases each routed patch's frame.
     """
 
     def __init__(self, serve_fn, params, canvas_m: int, canvas_n: int, *,
                  device: DeviceLike = None, impl: Optional[str] = None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 fuse: bool = False, tokens_fn: Optional[Callable] = None,
+                 embed_kernel: Optional[torch.Tensor] = None,
+                 embed_bias: Optional[torch.Tensor] = None,
+                 patch: Optional[int] = None):
         if impl is not None and impl not in stitch_ops.IMPLS:
             raise ValueError(f"unknown stitch impl {impl!r}; choose from "
                              f"{list(stitch_ops.IMPLS)}")
-        self.runtime = ModelRuntime(serve_fn, params, canvas_m, canvas_n)
+        if fuse:
+            missing = [k for k, v in (("tokens_fn", tokens_fn),
+                                      ("embed_kernel", embed_kernel),
+                                      ("embed_bias", embed_bias),
+                                      ("patch", patch)) if v is None]
+            if missing:
+                raise ValueError(f"fuse=True needs the fused fields; "
+                                 f"missing {missing}")
+            if canvas_m % patch or canvas_n % patch:
+                raise ValueError(f"fuse=True needs the canvas "
+                                 f"{canvas_m}x{canvas_n} to be a multiple "
+                                 f"of the patch {patch}")
+        self.runtime = ModelRuntime(serve_fn, params, canvas_m, canvas_n,
+                                    tokens_fn, embed_kernel, embed_bias,
+                                    patch)
         self.device = resolve_device(device)
         self.impl = impl
+        self.fuse = fuse
         self.clock = clock
         self.store = FrameStore()
         self.n_invocations = 0
+        self.n_fused = 0
         self.n_detections = 0
         self.evidence_bytes = 0
 
@@ -248,9 +283,22 @@ class DeviceExecutor:
                 crops.append(np.zeros((patch.h, patch.w, 3), np.float32))
             else:
                 crops.append(frame[patch.y0:patch.y1, patch.x0:patch.x1])
-        slots = torch.from_numpy(stitch_ops.pack_plan_host(crops, plan))
-        slots = slots.to(self.device)
+        host_slots = stitch_ops.pack_plan_host(crops, plan)
+        slots = torch.from_numpy(host_slots).to(self.device)
         records = torch.from_numpy(plan.records).to(self.device)
+        if self.fuse:
+            # K4 emits the token batch straight from the slots, the trunk
+            # runs from tokens, and K3 decodes the head into per-slot grids
+            tokens = stitch_ops.stitch_embed(
+                slots, records, rt.embed_kernel, rt.embed_bias, rt.canvas_m,
+                rt.canvas_n, rt.patch, impl=self.impl)
+            raw = rt.tokens_fn(rt.params, tokens)
+            fused = stitch_ops.unstitch_decode(
+                raw, records, rt.patch, plan.slot_capacity, impl=self.impl)
+            self.n_invocations += 1
+            self.n_fused += 1
+            return {"plan": plan, "fused": fused, "slots": host_slots,
+                    "done": self._record_done(), "t0": t0}
         canvases = stitch_ops.stitch_canvases(
             slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
         obj, boxes = rt.serve_fn(rt.params, canvases)
@@ -260,21 +308,33 @@ class DeviceExecutor:
         patch_out = stitch_ops.unstitch_patches(
             canvases, records, plan.slot_capacity, plan.hmax, plan.wmax,
             impl=self.impl)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
         self.n_invocations += 1
         return {"plan": plan, "obj": obj, "boxes": boxes,
-                "patch_out": patch_out, "done": done, "t0": t0}
+                "patch_out": patch_out, "done": self._record_done(),
+                "t0": t0}
+
+    def _record_done(self) -> Optional[torch.cuda.Event]:
+        """An event after the queued work on a card; ``None`` on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
 
     def _finalize(self, inv: Invocation, payload: dict) -> Completion:
         """Copy the outputs to the host (waits for the card) and route."""
         plan = payload["plan"]
-        per_frame = stitch_ops.route_detections(
-            plan, inv.patches, payload["obj"].cpu().numpy(),
-            payload["boxes"].cpu().numpy())
-        evidence = payload["patch_out"].cpu().numpy()
+        if "fused" in payload:
+            per_frame = stitch_ops.route_fused(
+                plan, inv.patches, payload["fused"].cpu().numpy())
+            # the unfused evidence (gathered slots) equals the input crops,
+            # so the fused path serves it from the host slots it packed
+            evidence = payload["slots"]
+        else:
+            per_frame = stitch_ops.route_detections(
+                plan, inv.patches, payload["obj"].cpu().numpy(),
+                payload["boxes"].cpu().numpy())
+            evidence = payload["patch_out"].cpu().numpy()
         per_frame_pixels: Dict[object, List[np.ndarray]] = {}
         for i, patch in enumerate(inv.patches):
             # copy: a view would pin the whole pow2-padded batch in memory

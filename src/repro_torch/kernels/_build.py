@@ -24,7 +24,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()   # guards _BUILD_LOCKS
+#: one lock per library, so builds of different libraries run in parallel
+_BUILD_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: per library: {"path", "seconds", "log"} of the build that produced it
 #: (seconds 0.0 and an empty log when an earlier build was reused)
@@ -71,8 +73,11 @@ def compile_library(name: str,
 
 
 def load_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library; cached per process."""
+    """Build (if needed) and load one kernel library; cached per process.
+    Threads loading different libraries compile them concurrently."""
     with _LOCK:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             path = compile_library(name, sources)

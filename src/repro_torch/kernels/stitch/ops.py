@@ -1,6 +1,7 @@
-"""Public entries for canvas stitch/unstitch + host-side packing and routing.
+"""Public entries for canvas stitch/unstitch, the fused stitch->embed and
+decode->gather, and host-side packing and routing.
 
-Port of ``repro/kernels/stitch/ops.py`` (unfused path).  ``impl`` picks
+Port of ``repro/kernels/stitch/ops.py``.  ``impl`` picks
 the implementation: ``"cuda"`` launches the hand-written kernel,
 ``"torch"`` runs the plain version.  The default follows the tensor's
 device, so a CUDA tensor always reaches the kernel and a CPU tensor (the
@@ -15,7 +16,11 @@ import torch
 
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import BatchPlan
-from repro_torch.kernels.stitch.ref import (stitch_reference,
+from repro_torch.kernels.stitch.fused_embed import (stitch_embed_cuda,
+                                                    unstitch_decode_cuda)
+from repro_torch.kernels.stitch.ref import (stitch_embed_reference,
+                                            stitch_reference,
+                                            unstitch_decode_reference,
                                             unstitch_reference)
 from repro_torch.kernels.stitch.stitch import stitch_cuda, unstitch_cuda
 
@@ -48,6 +53,28 @@ def unstitch_patches(canvases: torch.Tensor, records: torch.Tensor,
     if resolve_impl(impl, canvases) == "cuda":
         return unstitch_cuda(canvases, records, num_patches, hmax, wmax)
     return unstitch_reference(canvases, records, num_patches, hmax, wmax)
+
+
+def stitch_embed(patch_pixels: torch.Tensor, records: torch.Tensor,
+                 kernel: torch.Tensor, bias: torch.Tensor, m: int, n: int,
+                 patch: int, impl: Optional[str] = None) -> torch.Tensor:
+    """Fused stitch -> patchify -> patch embed: slots to (B, seq, d)
+    tokens without a canvas batch in device memory."""
+    if resolve_impl(impl, patch_pixels) == "cuda":
+        return stitch_embed_cuda(patch_pixels, records, kernel, bias, m, n,
+                                 patch)
+    return stitch_embed_reference(patch_pixels, records, kernel, bias, m, n,
+                                  patch)
+
+
+def unstitch_decode(raw: torch.Tensor, records: torch.Tensor, patch: int,
+                    num_patches: int, impl: Optional[str] = None
+                    ) -> torch.Tensor:
+    """Fused head decode + placement gather: raw (B, s, s, 5) head outputs
+    to per-slot (num_patches, s, s, 5) decoded grids."""
+    if resolve_impl(impl, raw) == "cuda":
+        return unstitch_decode_cuda(raw, records, patch, num_patches)
+    return unstitch_decode_reference(raw, records, patch, num_patches)
 
 
 def check_records(plan: BatchPlan) -> None:
@@ -122,4 +149,34 @@ def route_detections(plan: BatchPlan, patches: Sequence[Patch],
             y1 = min(max(float(bx[3]), y), y + h)
             dests.append((float(score),
                           (x0 + dx, y0 + dy, x1 + dx, y1 + dy)))
+    return out
+
+
+def route_fused(plan: BatchPlan, patches: Sequence[Patch],
+                fused: np.ndarray, obj_threshold: float = 0.5
+                ) -> Dict[int, List[Tuple[float, Tuple[float, ...]]]]:
+    """Route :func:`unstitch_decode` outputs back to their source frames.
+
+    fused: (num_patches, s, s, 5) per-slot decoded grids, already assigned
+    to placements, clipped and placement-local, so routing thresholds each
+    slot's grid and adds the patch's frame origin.  Emits detections in
+    the same per-frame order as :func:`route_detections`.
+    """
+    fused = np.asarray(fused, np.float32)
+    out: Dict[int, List[Tuple[float, Tuple[float, ...]]]] = {}
+    for _, patch_idx, _, _, _, _ in plan.placements():
+        if patch_idx >= fused.shape[0]:
+            continue
+        grid = fused[patch_idx]
+        hit = grid[..., 0] >= obj_threshold
+        if not hit.any():
+            continue
+        patch = patches[patch_idx]
+        dx = float(patch.x0)
+        dy = float(patch.y0)
+        dests = out.setdefault(patch.frame_id, [])
+        for row in grid[hit]:
+            dests.append((float(row[0]),
+                          (float(row[1]) + dx, float(row[2]) + dy,
+                           float(row[3]) + dx, float(row[4]) + dy)))
     return out

@@ -28,8 +28,10 @@ LIBRARY = "tangram_stitch"
 MAX_RECORDS_PER_CANVAS = 2048
 _MAX_GRID_Y = 65535
 
-#: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {"stitch": 0, "unstitch": 0}
+#: kernel launches since the last :func:`reset_launches`, for K1/K2 here
+#: and K4/K3 in :mod:`.fused_embed`
+LAUNCHES = {"stitch": 0, "unstitch": 0, "stitch_embed": 0,
+            "unstitch_decode": 0}
 
 _ELEM_BYTES = (1, 2, 4)
 

@@ -5,7 +5,8 @@ side per frame: GMM background subtraction -> RoI extraction -> adaptive
 frame partitioning (Alg. 1).  Cloud side: the serving engine drives the
 SLO-aware invoker pool over bandwidth-shaped arrivals and runs every fired
 invocation on the device pipeline - K1 stitch -> ViT detector -> K2
-unstitch -> per-frame routing.
+unstitch -> per-frame routing, or with ``--fuse`` K4 stitch->embed ->
+trunk from tokens -> K3 decode->gather -> per-frame routing.
 
 ``--source trace`` (default) runs the edge pipeline up front and replays
 the arrivals; ``--source synthetic`` runs ``--cameras`` live cameras
@@ -39,7 +40,6 @@ from repro_torch.sources import RateProfile, make_source
 
 #: options of the JAX driver this port does not run yet -> ROADMAP item
 UNPORTED = {
-    "fuse": "ROADMAP queue 1, item 7 (fused stitch->embed path, K3/K4)",
     "quantize": "ROADMAP queue 1, item 8 (int8-resident weights)",
     "workers": "ROADMAP queue 1, item 10 (worker pools)",
     "shards": "ROADMAP queue 1, item 11 (fleet sharding)",
@@ -60,6 +60,14 @@ def build_detector(canvas: int = 256, device: DeviceLike = None):
     params = detector_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                       resolve_device(device))
     return cfg, params, detector_lib.serve_fn(cfg)
+
+
+def fused_kwargs(cfg, params) -> dict:
+    """The executor's fused-path fields for one detector: the trunk from
+    tokens and the patch-embed projection K4 applies."""
+    kernel, bias = detector_lib.embed_params(cfg, params)
+    return dict(fuse=True, tokens_fn=detector_lib.tokens_fn(cfg),
+                embed_kernel=kernel, embed_bias=bias, patch=cfg.patch)
 
 
 def profile(serve_fn, params, m: int, n: int, device: torch.device,
@@ -103,6 +111,8 @@ def summary_line(engine: ServingEngine, executor, stats, config: ServeConfig,
                    f"{engine.inflight_high_water}/{config.max_inflight}")
     else:
         overlap = "sync"
+    if config.fuse:
+        overlap += ", fused"
     violated = sum(o.violated for o in engine.outcomes)
     return (f"served {stats.patches_emitted} patches in "
             f"{executor.n_invocations} invocations ({overlap}, "
@@ -145,9 +155,11 @@ def main(argv=None):
     p.add_argument("--clock", choices=("virtual", "wall"), default="virtual")
     p.add_argument("--wall-speed", type=float, default=1.0)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--fuse", action="store_true",
+                   help="fused path: K4 stitch->embed and K3 "
+                        "decode->gather, no canvas batch on the card")
     # JAX driver options this port does not run yet: accepted so the
     # error names the ROADMAP item instead of an unknown flag
-    p.add_argument("--fuse", action="store_true")
     p.add_argument("--quantize", action="store_true")
     p.add_argument("--workers", type=int, default=1)
     p.add_argument("--shards", type=int, default=None)
@@ -174,6 +186,7 @@ def main(argv=None):
     config = ServeConfig(
         max_canvases=4, classify="slo" if len(slos) > 1 else None,
         executor="async_device" if args.async_device else "device",
+        fuse=args.fuse,
         max_inflight=args.max_inflight, clock=args.clock,
         wall_speed=args.wall_speed, ingestion_window=args.ingestion_window)
     m = n = args.canvas
@@ -181,6 +194,8 @@ def main(argv=None):
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {device} ({name})")
+    # the table profiles the unfused serve_fn on canvases, as
+    # repro.launch.serve does for both paths
     table = profile(serve_fn, params, m, n, device)
     print("latency table:", {k: (round(mu, 4), round(sd, 4))
                              for k, (mu, sd) in table.table.items()})
@@ -188,7 +203,9 @@ def main(argv=None):
     t_start = time.time()
     executor = make_executor(config.executor, serve_fn=serve_fn,
                              params=params, canvas_m=m, canvas_n=n,
-                             device=device, max_inflight=config.max_inflight)
+                             device=device, max_inflight=config.max_inflight,
+                             **(fused_kwargs(cfg, params) if config.fuse
+                                else {}))
     source = build_source(args, frame_sink=executor.add_frame, slos=slos,
                           device=device)
     engine = ServingEngine(

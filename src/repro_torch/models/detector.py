@@ -135,6 +135,15 @@ def convert_params(tree: dict, cfg: DetectorConfig,
     return _map(lambda a: _from_numpy(a, dtype, device), out)
 
 
+def embed_params(cfg: DetectorConfig, params: dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The patch-embed projection as (kernel, bias) in the compute dtype,
+    the weights the fused stitch->embed kernel applies."""
+    cdt = dtype_of(cfg.compute_dtype)
+    pe = params["trunk"]["patch_embed"]
+    return pe["kernel"].to(cdt), pe["bias"].to(cdt)
+
+
 # ---------------------------------------------------------------- forward ----
 
 def forward_tokens(cfg: DetectorConfig, params: dict, tokens: torch.Tensor
@@ -181,6 +190,15 @@ def serve(cfg: DetectorConfig, params: dict, canvases: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The serverless function body: canvases -> (obj, boxes)."""
     return decode_boxes(cfg, forward(cfg, params, canvases))
+
+
+def tokens_fn(cfg: DetectorConfig) -> Callable:
+    """``fn(params, tokens) -> raw head``: the trunk from embedded tokens,
+    the shape the fused device executors call."""
+    @torch.inference_mode()
+    def fn(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        return forward_tokens(cfg, params, tokens)
+    return fn
 
 
 def serve_fn(cfg: DetectorConfig) -> Callable:

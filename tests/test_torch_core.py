@@ -136,12 +136,12 @@ def test_frame_store_refcounts_and_evicts():
 
 def test_serve_config_round_trips_and_validates():
     cfg = ServeConfig(max_canvases=4, classify="slo",
-                      executor="async_device", ingestion_window=8)
+                      executor="async_device", ingestion_window=8, fuse=True)
     assert ServeConfig.from_dict(cfg.to_dict()) == cfg
     assert cfg.replace(max_inflight=2).max_inflight == 2
     assert make_classify("slo") is slo_class and make_classify(None) is None
     with pytest.raises(ValueError, match="unknown ServeConfig"):
-        ServeConfig.from_dict({"fuse": True})
+        ServeConfig.from_dict({"quantize": True})
     with pytest.raises(ValueError):
         ServeConfig(max_inflight=0)
     with pytest.raises(ValueError, match="unknown classifier"):

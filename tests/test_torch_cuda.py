@@ -15,7 +15,7 @@ from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import build_batch_plan, stitch
 from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
-from repro_torch.launch.serve import build_detector
+from repro_torch.launch.serve import build_detector, fused_kwargs
 from repro_torch.sources import make_source
 
 pytestmark = pytest.mark.cuda
@@ -80,24 +80,132 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.stitch_canvases(slots, rec.cpu(), 64, 64)
 
 
+@pytest.mark.parametrize("kind", ["random", "flush", "invalid", "empty"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_fused_kernels_against_plain(cuda, dtype, tol, kind):
+    """K4 within 1e-4 (f32 weights, TF32 off in the plain matmul) or 2e-2
+    (bf16, one output ulp) of its plain version; K3 within 1e-5 with equal
+    hit masks, on the main path's widths (canvas 1024, patch 32, d 768)."""
+    m, patch, d = 1024, 32, 768
+    rng = np.random.default_rng(12)
+    plan, patches = _plan("random" if kind == "invalid" else kind, m, rng)
+    crops = [rng.normal(size=(p.h, p.w, 3)).astype(np.float32)
+             for p in patches]
+    slots = torch.from_numpy(ops.pack_plan_host(crops, plan)).to(cuda)
+    records = plan.records.copy()
+    if kind == "invalid":
+        records[..., 0] = 0
+    rec = torch.from_numpy(records).to(cuda)
+    wdt = DTYPES[dtype]
+    kernel = torch.from_numpy(
+        rng.normal(size=(patch * patch * 3, d)).astype(np.float32)
+        / np.sqrt(patch * patch * 3)).to(cuda, wdt)
+    bias = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        cuda, wdt)
+    before = dict(kernels.LAUNCHES)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = ops.stitch_embed(slots, rec, kernel, bias, m, m, patch,
+                               impl="cuda")
+        want = ops.stitch_embed(slots, rec, kernel, bias, m, m, patch,
+                                impl="torch")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.dtype == wdt and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if kind == "invalid":
+        assert torch.equal(got, bias.expand_as(got))
+
+    side = m // patch
+    raw = torch.from_numpy(rng.normal(
+        size=(plan.num_canvases, side, side, 5)).astype(np.float32)).to(
+            cuda, wdt)
+    grids = ops.unstitch_decode(raw, rec, patch, plan.slot_capacity,
+                                impl="cuda")
+    plain = ops.unstitch_decode(raw, rec, patch, plan.slot_capacity,
+                                impl="torch")
+    assert torch.equal(grids[..., 0] > 0, plain[..., 0] > 0)
+    torch.testing.assert_close(grids, plain, atol=1e-5, rtol=1e-5)
+    launched = 0 if kind == "empty" else 1
+    assert kernels.LAUNCHES["stitch_embed"] == (before["stitch_embed"]
+                                                + launched)
+    assert kernels.LAUNCHES["unstitch_decode"] == (before["unstitch_decode"]
+                                                   + launched)
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    slots = torch.zeros((2, 8, 8, 3), device=cuda)
+    rec = torch.zeros((1, 2, 6), dtype=torch.int32, device=cuda)
+    kernel = torch.zeros((32 * 32 * 3, 16), device=cuda)
+    bias = torch.zeros((16,), device=cuda)
+    cases = [
+        ((slots.double(), rec, kernel, bias, 64, 64), "dtype"),
+        ((slots, rec, kernel.half(), bias.half(), 64, 64), "dtype"),
+        ((slots, rec, kernel, bias.bfloat16(), 64, 64), "dtype"),
+        ((slots, rec.long(), kernel, bias, 64, 64), "dtype"),
+        ((slots, rec.cpu(), kernel, bias, 64, 64), "expected"),
+        ((slots, rec, kernel.t(), bias, 64, 64), "contiguous"),
+        ((slots, rec, kernel[:100], bias, 64, 64), "fit"),
+        ((slots, rec, kernel, bias, 48, 64), "multiple"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            ops.stitch_embed(*args, 32, impl="cuda")
+    raw = torch.zeros((1, 2, 2, 5), device=cuda)
+    with pytest.raises(ValueError, match="5 channels"):
+        ops.unstitch_decode(raw[..., :4].contiguous(), rec, 32, 2)
+    with pytest.raises(ValueError, match="record rows"):
+        ops.unstitch_decode(raw, torch.cat([rec, rec]), 32, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.unstitch_decode(raw.half(), rec, 32, 2)
+
+
+def _unmatched(a, b, score_tol, box_tol, threshold=0.5):
+    """Detections of ``a`` without a partner in ``b`` (same frame, score
+    within ``score_tol``, box within ``box_tol`` px) whose score is not
+    within ``score_tol`` of the threshold."""
+    bad = []
+    for fid, dets in a.items():
+        free = list(b.get(fid, []))
+        for score, box in dets:
+            hit = next((i for i, (s, bx) in enumerate(free)
+                        if abs(s - score) <= score_tol and max(
+                            abs(x - y) for x, y in zip(box, bx)) <= box_tol),
+                       None)
+            if hit is not None:
+                free.pop(hit)
+            elif abs(score - threshold) > score_tol:
+                bad.append((fid, score, box))
+    return bad
+
+
+@pytest.mark.parametrize("fuse", [False, True])
 @pytest.mark.parametrize("executor", ["device", "async_device"])
-def test_executor_on_card_matches_plain_run(cuda, executor):
+def test_executor_on_card_matches_plain_run(cuda, executor, fuse):
     """The small driver detector served on the card: kernels and plain
     versions route the same detections and evidence.  The executors' clock
     is pinned so completions deliver in submit order in both runs (with
-    measured wall times, two invocations may finish in either order)."""
+    measured wall times, two invocations may finish in either order).
+    Unfused, the kernels are copies and the detections equal; fused, K4
+    sums in another order than the plain matmul (float32 here), so each
+    detection must have a partner within 1e-4 in score and 1e-3 px, or
+    lie within 1e-4 of the threshold."""
     frames = {}
     src = make_source("synthetic", n_frames=16, canvas=128, slo=0.3,
                       device=cuda, frame_sink=lambda f, px, n:
                       frames.__setitem__(f, (px, n)))
     arrivals = list(src.events(None))
-    _, params, serve_fn = build_detector(128, cuda)
+    cfg, params, serve_fn = build_detector(128, cuda)
     table = LatencyTable({1: (0.02, 0.002), 4: (0.05, 0.004)})
+    fused = fused_kwargs(cfg, params) if fuse else {}
     outs = []
     for impl in (None, "torch"):
+        before = dict(kernels.LAUNCHES)
         ex = make_executor(executor, serve_fn=serve_fn, params=params,
                            canvas_m=128, canvas_n=128, device=cuda,
-                           impl=impl, clock=lambda: 0.0)
+                           impl=impl, clock=lambda: 0.0, **fused)
         routed = []
         release = ex.on_complete
 
@@ -111,10 +219,20 @@ def test_executor_on_card_matches_plain_run(cuda, executor):
         ServingEngine(uniform_pool(128, 128, table, max_canvases=4),
                       ex).run(arrivals)
         assert len(ex.frames) == 0
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        paths = (("stitch_embed", "unstitch_decode") if fuse
+                 else ("stitch", "unstitch"))
+        assert all((launched[k] > 0) == (impl is None and k in paths)
+                   for k in launched), launched
         outs.append(routed)
     assert len(outs[0]) == len(outs[1]) > 0
     for (dets_k, px_k), (dets_p, px_p) in zip(*outs):
-        assert dets_k == dets_p
+        if fuse:
+            assert not _unmatched(dets_k, dets_p, 1e-4, 1e-3)
+            assert not _unmatched(dets_p, dets_k, 1e-4, 1e-3)
+        else:
+            assert dets_k == dets_p
+        assert set(px_k) == set(px_p)
         for fid in px_p:
             for a, b in zip(px_k[fid], px_p[fid]):
                 np.testing.assert_array_equal(a, b)

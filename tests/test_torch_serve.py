@@ -7,6 +7,8 @@ Required: identical invocation boundaries, equal routed detections
 (scores within 1e-4, boxes within 1e-3 px; detections whose score lies
 within 1e-3 of the 0.5 threshold are excluded, since float32 summation
 order may move them across it), bit-equal evidence pixels, 0 frames held.
+The fused path (``fuse=True``) is held against the JAX fused executor on
+its XLA path (its Pallas stitch->embed cannot run here, ROADMAP F1).
 """
 import dataclasses
 import re
@@ -22,6 +24,7 @@ from repro.core.engine import ServingEngine as JServingEngine
 from repro.core.engine import uniform_pool as juniform_pool
 from repro.core.latency import LatencyTable as JLatencyTable
 from repro.launch import serve as jserve
+from repro.models import detector as jdet
 from repro.sources import make_source as jmake_source
 from repro_torch.config import DetectorConfig
 from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
@@ -44,7 +47,7 @@ TRACES = {
 def detector():
     """The JAX driver's detector, its zero/one inits perturbed so that the
     head fires on some cells (the raw init routes no detections)."""
-    cfg, params, serve_fn, _ = jserve.build_detector(canvas=CANVAS)
+    cfg, params, serve_fn, rules = jserve.build_detector(canvas=CANVAS)
     leaves, tree = jax.tree_util.tree_flatten(params)
     rng = np.random.default_rng(0)
     params = jax.tree_util.tree_unflatten(tree, [
@@ -54,7 +57,8 @@ def detector():
                              for f in dataclasses.fields(DetectorConfig)})
     tparams = tdet.convert_params(jax.tree_util.tree_map(np.asarray, params),
                                   tcfg, torch.device("cpu"))
-    return (params, serve_fn), (tparams, tdet.serve_fn(tcfg))
+    return (params, serve_fn, cfg, rules), (tparams, tdet.serve_fn(tcfg),
+                                            tcfg)
 
 
 @pytest.fixture(scope="module", params=sorted(TRACES))
@@ -86,14 +90,21 @@ def _result(engine, ex, routed, pixels):
     return {"bounds": [[(p.frame_id, p.x0, p.y0, p.x1, p.y1)
                         for p in inv.patches] for inv in engine.invocations],
             "routed": routed, "pixels": pixels, "held": len(ex.frames),
-            "patches": len(engine.outcomes)}
+            "patches": len(engine.outcomes),
+            "fused": getattr(ex, "n_fused", 0)}
 
 
-def _run_jax(trace, detector, use_pallas):
+def _run_jax(trace, detector, use_pallas, fuse=False):
     arrivals, frames = trace
-    params, serve_fn = detector[0]
+    params, serve_fn, cfg, rules = detector[0]
+    fused = {}
+    if fuse:
+        kernel, bias = jdet.embed_params(cfg, params)
+        fused = dict(fuse=True, embed_kernel=kernel, embed_bias=bias,
+                     patch=cfg.patch, tokens_fn=jax.jit(
+                         lambda p, t: jdet.forward_tokens(cfg, p, t, rules)))
     ex = JDeviceExecutor(serve_fn, params, CANVAS, CANVAS,
-                         use_pallas=use_pallas, clock=lambda: 0.0)
+                         use_pallas=use_pallas, clock=lambda: 0.0, **fused)
     routed, pixels = _capture(ex)
     for fid, (px, n) in frames.items():
         ex.add_frame(fid, px, n)
@@ -104,12 +115,13 @@ def _run_jax(trace, detector, use_pallas):
     return _result(engine, ex, routed, pixels)
 
 
-def _run_port(trace, detector, executor):
+def _run_port(trace, detector, executor, fuse=False):
     arrivals, frames = trace
-    params, serve_fn = detector[1]
+    params, serve_fn, cfg = detector[1]
+    fused = tserve.fused_kwargs(cfg, params) if fuse else {}
     ex = make_executor(executor, serve_fn=serve_fn, params=params,
                        canvas_m=CANVAS, canvas_n=CANVAS, device="cpu",
-                       clock=lambda: 0.0, max_inflight=2)
+                       clock=lambda: 0.0, max_inflight=2, **fused)
     routed, pixels = _capture(ex)
     for fid, (px, n) in frames.items():
         ex.add_frame(fid, px, n)
@@ -160,6 +172,19 @@ def test_port_engine_matches_jax_engine(trace, detector, use_pallas,
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("executor", ["device", "async_device"])
+def test_port_fused_engine_matches_jax_fused_engine(trace, detector,
+                                                    executor):
+    """The same engine parity with ``fuse=True`` on both sides: K4/K3's
+    plain versions behind the port's executors against the JAX fused
+    executor's XLA path."""
+    want = _run_jax(trace, detector, use_pallas=False, fuse=True)
+    got = _run_port(trace, detector, executor, fuse=True)
+    assert want["fused"] == got["fused"] == len(want["bounds"]) >= 1
+    assert sum(len(v) for v in want["routed"].values()) > 0
+    _assert_same(got, want)
+
+
 def _served(out: str):
     m = re.search(r"served (\d+) patches in (\d+) invocations.*"
                   r"\((\d+) frames still held", out)
@@ -180,6 +205,18 @@ def test_serve_cli_matches_jax_driver(frames, capsys):
         assert got[:2] == want[:2] == (0, 0)     # the zero-patch path
 
 
+@pytest.mark.parametrize("executor", [[], ["--async-device"]])
+def test_serve_cli_fused_matches_jax_serve(executor, capsys):
+    args = ["--fuse", "--frames", "16", "--canvas", "128", "--slo", "5.0"]
+    jserve.main(args + executor)
+    want = capsys.readouterr().out
+    tserve.main(["--device", "cpu"] + args + executor)
+    got = capsys.readouterr().out
+    assert ", fused" in want and ", fused" in got
+    assert _served(got)[0] == _served(want)[0] > 0    # patches served
+    assert _served(got)[2] == _served(want)[2] == 0   # frames still held
+
+
 def test_serve_cli_async_and_live_source(capsys):
     tserve.main(["--device", "cpu", "--frames", "16", "--canvas", "128",
                  "--slo", "5.0", "--async-device", "--source", "synthetic",
@@ -190,7 +227,7 @@ def test_serve_cli_async_and_live_source(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fuse"], ["--quantize"], ["--workers", "2"], ["--shards", "2"],
+    ["--quantize"], ["--workers", "2"], ["--shards", "2"],
     ["--parallel"], ["--online-latency"], ["--model", "tangram"],
     ["--model-map", "0.5=tangram"]])
 def test_unported_options_name_their_roadmap_item(flag):
