@@ -1,16 +1,23 @@
 """Stauffer-Grimson adaptive background mixture model (plain PyTorch).
 
-Port of ``repro/core/gmm.py`` (the ``update`` the edge pipeline runs; the
-JAX live path calls ``update_jit``, not the Pallas GMM kernel).  Per-pixel
-K-component Gaussian mixture over luminance; state tensors are (H, W, K):
-weight ``w``, mean ``mu``, variance ``var``, float32 on the caller's
-device.  Ties keep the reference's rules: first index in argmax/argmin and
-the ``kj < ki`` rank tie-break.
+Port of ``repro/core/gmm.py``.  Per-pixel K-component Gaussian mixture
+over luminance; state tensors are (H, W, K): weight ``w``, mean ``mu``,
+variance ``var``, float32 on the caller's device.  Ties keep the
+reference's rules: first index in argmax/argmin and the ``kj < ki`` rank
+tie-break.
+
+:func:`update` is the plain version of K5, the hand-written GMM kernel in
+``repro_torch/kernels/gmm``, which the edge pipeline runs on the card.
+Every op rounds once, in float32, and the two sums over components are
+written as left folds in index order (``(c0 + c1) + c2``): a reduction
+kernel may add in another order (on the card, PyTorch's ``sum`` over a
+3-wide last dimension can split it across lanes), and the fold keeps the
+result the same on every device and bit-equal to the kernel.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterable, Tuple
 
 import torch
 
@@ -79,7 +86,7 @@ def update(state: dict, frame: torch.Tensor, cfg: GMMConfig = GMMConfig()
     var_new = torch.where(replace, cfg.init_var, var_new)
 
     # renormalize weights
-    w_new = w_new / w_new.sum(dim=-1, keepdim=True)
+    w_new = w_new / _fold_sum(w_new)[..., None]
 
     # background = components whose strictly-fitter components weigh less
     # than the threshold (sort-free rank form, index tie-break)
@@ -88,8 +95,27 @@ def update(state: dict, frame: torch.Tensor, cfg: GMMConfig = GMMConfig()
     fitter = ((fit_new[..., None, :] > fit_new[..., :, None])
               | ((fit_new[..., None, :] == fit_new[..., :, None])
                  & (ki[None, :] < ki[:, None])))       # (H, W, K, K')
-    cum_before = torch.where(fitter, w_new[..., None, :], 0.0).sum(dim=-1)
+    cum_before = _fold_sum(torch.where(fitter, w_new[..., None, :], 0.0))
     is_bg = cum_before < cfg.background_ratio
 
     fg = ~(matched & is_bg).any(dim=-1)
     return {"w": w_new, "mu": mu_new, "var": var_new}, fg
+
+
+def _fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension as a left fold in index order."""
+    total = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        total = total + x[..., j]
+    return total
+
+
+def warmup(state: dict, frames: Iterable[torch.Tensor],
+           cfg: GMMConfig = GMMConfig()) -> Tuple[dict, torch.Tensor]:
+    """Run the model over a stack of frames (T, H, W) in order (the
+    reference's ``lax.scan``).  Returns (final state, masks (T, H, W))."""
+    masks = []
+    for frame in frames:
+        state, fg = update(state, frame, cfg)
+        masks.append(fg)
+    return state, torch.stack(masks)

@@ -5,7 +5,7 @@ Port of ``repro/kernels/stitch/fused_embed.py`` (``stitch_embed_pallas``,
 ``unstitch_decode_pallas``).  The kernels live in ``csrc/fused_embed.cu``
 (design and bounds in its header); this module builds them on first use,
 checks every argument, launches on PyTorch's current stream, and counts
-launches in :data:`repro_torch.kernels.stitch.stitch.LAUNCHES`.
+launches in :data:`repro_torch.kernels.launches.LAUNCHES`.
 
 A CUDA tensor always goes to the kernel; anything the kernel does not take
 raises.  The plain PyTorch versions (``stitch_embed_reference`` /
@@ -21,10 +21,10 @@ import pathlib
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import LAUNCHES
 from repro_torch.kernels.stitch.ref import (  # noqa: F401  (re-export)
     stitch_embed_reference, unstitch_decode_reference)
-from repro_torch.kernels.stitch.stitch import (LAUNCHES,
-                                               MAX_RECORDS_PER_CANVAS)
+from repro_torch.kernels.stitch.stitch import MAX_RECORDS_PER_CANVAS
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "fused_embed.cu"
 LIBRARY = "tangram_fused"

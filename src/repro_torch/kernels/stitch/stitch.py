@@ -3,7 +3,8 @@
 Port of ``repro/kernels/stitch/stitch.py`` (``stitch_pallas``,
 ``unstitch_pallas``).  The kernels live in ``csrc/stitch.cu`` (design and
 byte bound in its header); this module builds them on first use, checks
-every argument, launches on PyTorch's current stream, and counts launches.
+every argument, launches on PyTorch's current stream, and counts launches
+in :data:`repro_torch.kernels.launches.LAUNCHES` (re-exported here).
 
 A CUDA tensor always goes to the kernel; anything the kernel does not take
 raises.  The plain PyTorch versions (``stitch_reference`` /
@@ -18,6 +19,8 @@ import pathlib
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import (  # noqa: F401  (re-export)
+    LAUNCHES, reset_launches)
 from repro_torch.kernels.stitch.ref import (  # noqa: F401  (re-export)
     stitch_reference, unstitch_reference)
 
@@ -28,17 +31,7 @@ LIBRARY = "tangram_stitch"
 MAX_RECORDS_PER_CANVAS = 2048
 _MAX_GRID_Y = 65535
 
-#: kernel launches since the last :func:`reset_launches`, for K1/K2 here
-#: and K4/K3 in :mod:`.fused_embed`
-LAUNCHES = {"stitch": 0, "unstitch": 0, "stitch_embed": 0,
-            "unstitch_decode": 0}
-
 _ELEM_BYTES = (1, 2, 4)
-
-
-def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 def library() -> ctypes.CDLL:

@@ -11,8 +11,11 @@ trunk from tokens -> K3 decode->gather -> per-frame routing.
 ``--source trace`` (default) runs the edge pipeline up front and replays
 the arrivals; ``--source synthetic`` runs ``--cameras`` live cameras
 during serving, throttled per ``--overload`` against
-``--ingestion-window``.  ``--async-device`` overlaps device work with
-ingestion (:class:`~repro_torch.core.engine.AsyncDeviceExecutor`).
+``--ingestion-window``; ``--source file`` streams the recording at
+``--frames-path`` (any frame size, 4K included) through the same live
+edge pipeline.  On the card every camera's GMM update is K5.
+``--async-device`` overlaps device work with ingestion
+(:class:`~repro_torch.core.engine.AsyncDeviceExecutor`).
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
 PyTorch versions of the kernels.
 
@@ -20,6 +23,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --frames 40 --slo 1.0
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
     --frames 16 --canvas 128 --slo 5.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --source file \
+    --frames-path clip.npy --frames 16 --canvas 1024 --fuse
 """
 from __future__ import annotations
 
@@ -84,11 +89,13 @@ def build_source(args, frame_sink, slos, device: torch.device):
     """CLI -> source through ``make_source``.  ``trace`` runs the camera
     pipeline eagerly and replays its arrivals; several ``--slo`` values
     run one camera per class merged into one trace."""
-    live = dict(n_frames=args.frames, canvas=args.canvas, slo=slos[0],
-                bandwidth_bps=args.bandwidth_mbps * 1e6,
-                overload=args.overload, frame_sink=frame_sink,
-                rate=RateProfile(fps=args.fps), scene=args.scene,
-                n_cameras=args.cameras, device=device)
+    common = dict(n_frames=args.frames, canvas=args.canvas, slo=slos[0],
+                  bandwidth_bps=args.bandwidth_mbps * 1e6,
+                  overload=args.overload, frame_sink=frame_sink,
+                  rate=RateProfile(fps=args.fps), device=device)
+    if args.source == "file":
+        return make_source("file", path=args.frames_path, **common)
+    live = dict(scene=args.scene, n_cameras=args.cameras, **common)
     if args.source == "synthetic":
         return make_source("synthetic", **live)
     if len(slos) == 1:
@@ -134,11 +141,15 @@ def main(argv=None):
     p.add_argument("--fps", type=float, default=10.0)
     p.add_argument("--bandwidth-mbps", type=float, default=40.0,
                    help="uplink shaping for the virtual arrival clock")
-    p.add_argument("--source", choices=("trace", "synthetic"),
+    p.add_argument("--source", choices=("trace", "synthetic", "file"),
                    default="trace",
                    help="trace replays a pre-generated edge run; synthetic "
-                        "ingests live from --cameras synthetic cameras")
+                        "ingests live from --cameras synthetic cameras; "
+                        "file streams --frames-path")
     p.add_argument("--cameras", type=int, default=1)
+    p.add_argument("--frames-path",
+                   help="recorded frame stack for --source file "
+                        "(.npy/.npz or a directory of .npy frames)")
     p.add_argument("--ingestion-window", type=int, default=None,
                    help="backlog bound, in patches, that live sources "
                         "throttle against (advisory; default: unbounded)")
@@ -175,6 +186,8 @@ def main(argv=None):
                 f"--{flag.replace('_', '-')} is not ported yet: {item}")
     if args.cameras < 1:
         p.error("--cameras must be >= 1")
+    if args.source == "file" and not args.frames_path:
+        p.error("--source file requires --frames-path")
     try:
         slos = [float(s) for s in str(args.slo).split(",")]
     except ValueError:

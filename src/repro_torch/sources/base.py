@@ -94,7 +94,7 @@ def register_source(name: str, factory: Callable[..., Source]) -> None:
 
 
 def make_source(name: str, **cfg) -> Source:
-    """Source-name -> instance (``trace`` | ``synthetic``); ``cfg``
-    forwards to the registered factory."""
+    """Source-name -> instance (``trace`` | ``synthetic`` | ``file``);
+    ``cfg`` forwards to the registered factory."""
     factory = lookup("source", _SOURCES, name)
     return factory(**cfg)

@@ -3,8 +3,11 @@
 Port of ``repro/sources/camera.py``.  Each camera runs the per-frame edge
 pipeline - GMM background subtraction -> RoI extraction -> adaptive frame
 partitioning (Alg. 1) - and ships the patches over its own FIFO uplink.
-GMM and RoI extraction run as plain PyTorch on the source's ``device``
-(default ``cuda``); frames are rendered and partitioned on the host.
+GMM and RoI extraction run on the source's ``device`` (default ``cuda``):
+on the card the GMM update is the hand-written kernel K5
+(:func:`repro_torch.kernels.gmm.ops.gmm_update`; ``gmm_impl="torch"`` asks
+for its plain version), RoI extraction is plain PyTorch.  Frames are
+rendered and partitioned on the host.
 
 Frame timing comes from a seeded :class:`RateProfile`.  Between frames the
 source reads the engine's backlog against its ingestion window and applies
@@ -26,6 +29,7 @@ from repro_torch.core.rois import RoIConfig, extract_rois
 from repro_torch.data.synthetic import Scene, preset
 from repro_torch.data.video import Arrival, Uplink
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.sources.base import SourceStats
 
 
@@ -70,12 +74,14 @@ class RateProfile:
 class EdgePipeline:
     """Per-camera frame -> patches: GMM -> RoIs -> Alg. 1 -> canvas clamp.
     Holds the GMM background state (on ``device``, ``None`` -> ``cuda``)
-    across frames."""
+    across frames.  ``gmm_impl`` picks the GMM update as
+    :func:`~repro_torch.kernels.gmm.ops.gmm_update` does (``None``: K5 on
+    the card, the plain version on the CPU)."""
 
     def __init__(self, height: int, width: int, canvas: int,
                  slo: float = 1.0, roi_cfg: RoIConfig = RoIConfig(),
                  zones: Tuple[int, int] = (4, 4), warmup_s: float = 1.0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, gmm_impl: Optional[str] = None):
         device = resolve_device(device)
         self.height, self.width = height, width
         self.canvas = canvas
@@ -86,10 +92,13 @@ class EdgePipeline:
         self.warmup_s = warmup_s
         self.device = device
         self.state = gmm.init_state(height, width, device=device)
+        # checked now: an unknown name, or "cuda" on the CPU, raises here
+        self.gmm_impl = gmm_ops.resolve_impl(gmm_impl, self.state["w"])
 
     def _update(self, frame: np.ndarray) -> torch.Tensor:
         pixels = torch.from_numpy(np.ascontiguousarray(frame, np.float32))
-        self.state, fg = gmm.update(self.state, pixels.to(self.device))
+        self.state, fg = gmm_ops.gmm_update(
+            self.state, pixels.to(self.device), impl=self.gmm_impl)
         return fg
 
     def observe(self, frame: np.ndarray) -> None:
@@ -133,7 +142,7 @@ class LiveSource:
                  overload: str = "drop", warmup_s: float = 1.0,
                  roi_cfg: RoIConfig = RoIConfig(),
                  frame_sink: Optional[Callable] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, gmm_impl: Optional[str] = None):
         if overload not in ("drop", "degrade", "none"):
             raise ValueError(f"unknown overload policy {overload!r}; "
                              f"choose from ['degrade', 'drop', 'none']")
@@ -146,7 +155,7 @@ class LiveSource:
         self.frame_sink = frame_sink
         self.pipeline = EdgePipeline(height, width, canvas, slo=slo,
                                      roi_cfg=roi_cfg, warmup_s=warmup_s,
-                                     device=device)
+                                     device=device, gmm_impl=gmm_impl)
         self.uplink = Uplink(bandwidth_bps)
         self._stats = SourceStats(kind=self.kind)
 

@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import gmm
 from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
 from repro_torch.core.latency import LatencyTable
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import build_batch_plan, stitch
+from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
 from repro_torch.launch.serve import build_detector, fused_kwargs
@@ -236,3 +238,101 @@ def test_executor_on_card_matches_plain_run(cuda, executor, fuse):
         for fid in px_p:
             for a, b in zip(px_k[fid], px_p[fid]):
                 np.testing.assert_array_equal(a, b)
+
+
+def _gmm_case(kind, h, w, rng):
+    """A mixture state and a frame as numpy arrays: random (weights
+    normalised, half the pixels near a component's mean), or full of ties
+    (equal weights and variances with x == mu; equal weights with nothing
+    matched; a 2-way tie behind an unmatched heavy component)."""
+    n = h * w
+    if kind == "random":
+        wt = rng.random((n, 3)).astype(np.float32) + 0.01
+        wt /= wt.sum(axis=1, keepdims=True)
+        mu = rng.random((n, 3)).astype(np.float32)
+        var = rng.uniform(1e-4, 0.05, (n, 3)).astype(np.float32)
+        near = mu[np.arange(n), rng.integers(0, 3, n)]
+        x = np.where(rng.random(n) < 0.5, near + rng.normal(0, 0.05, n),
+                     rng.random(n)).astype(np.float32)
+    else:
+        k = np.arange(n) % 3
+        x = np.linspace(0.1, 0.9, n, dtype=np.float32)
+        wt = np.full((n, 3), np.float32(1) / np.float32(3), np.float32)
+        mu = np.repeat(x[:, None], 3, axis=1)
+        var = np.full((n, 3), 0.04, np.float32)
+        mu[k == 1] += 2.0
+        wt[k == 2] = np.array([0.5, 0.25, 0.25], np.float32)
+        mu[k == 2, 0] += 0.6
+    state = {"w": wt.reshape(h, w, 3), "mu": mu.reshape(h, w, 3),
+             "var": var.reshape(h, w, 3)}
+    return state, x.reshape(h, w)
+
+
+@pytest.mark.parametrize("kind,h,w", [
+    ("random", 1, 1), ("random", 7, 13), ("random", 2160, 3840),
+    ("ties", 7, 13), ("ties", 2160, 3840)])
+def test_gmm_kernel_bit_equal_to_plain(cuda, kind, h, w):
+    """K5 against its plain version over 3 frames, state carried: w, mu,
+    var and the mask equal to the bit, at ragged and 4K sizes."""
+    rng = np.random.default_rng(13)
+    state, x = _gmm_case(kind, h, w, rng)
+    got = want = gmm_ops.state_from_numpy(state, cuda)
+    for i in range(3):
+        frame = torch.from_numpy(x if i == 0 else rng.random(
+            (h, w)).astype(np.float32)).to(cuda)
+        before = kernels.LAUNCHES["gmm_update"]
+        got, fg = gmm_ops.gmm_update(got, frame)           # CUDA -> K5
+        assert kernels.LAUNCHES["gmm_update"] == before + 1
+        want, fg_plain = gmm_ops.gmm_update(want, frame, impl="torch")
+        assert kernels.LAUNCHES["gmm_update"] == before + 1
+        for key in ("w", "mu", "var"):
+            assert torch.equal(got[key], want[key]), (key, i)
+        assert fg.dtype == torch.bool and torch.equal(fg, fg_plain)
+
+
+def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    state = gmm.init_state(4, 8, device=cuda)
+    frame = torch.full((4, 8), 0.5, device=cuda)
+    bad = [
+        (dict(state, w=state["w"].double()), frame, "dtype"),
+        (state, frame.double(), "dtype"),
+        (dict(state, mu=state["mu"].transpose(0, 1).contiguous()
+              .transpose(0, 1)), frame, "contiguous"),
+        (state, frame.t().contiguous(), "shape"),
+        (dict(state, var=state["var"][..., :2].contiguous()), frame,
+         "shape"),
+        (dict(state, w=state["w"].cpu()), frame, "expected"),
+        (state, frame[None], "frame must be"),
+    ]
+    for st, fr, match in bad:
+        with pytest.raises(ValueError, match=match):
+            gmm_ops.gmm_update(st, fr)
+    with pytest.raises(ValueError, match="components"):
+        gmm_ops.gmm_update(state, frame, cfg=gmm.GMMConfig(n_components=4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gmm_ops.gmm_update(state, frame.cpu(), impl="cuda")
+
+
+def test_camera_on_card_runs_k5_once_per_frame(cuda):
+    """The synthetic camera on the card launches K5 once per frame and
+    gives the arrivals and frames of its plain run."""
+    runs = []
+    for impl in (None, "torch"):
+        frames = {}
+        before = kernels.LAUNCHES["gmm_update"]
+        src = make_source("synthetic", n_frames=14, canvas=128, slo=1.0,
+                          device=cuda, gmm_impl=impl,
+                          frame_sink=lambda f, px, n:
+                          frames.__setitem__(f, (px, n)))
+        arrivals = list(src.events(None))
+        launched = kernels.LAUNCHES["gmm_update"] - before
+        assert launched == (14 if impl is None else 0)
+        runs.append((arrivals, frames))
+    (a_k, f_k), (a_p, f_p) = runs
+    assert len(a_k) == len(a_p) > 0
+    for x, y in zip(a_k, a_p):
+        assert (x.t_arrive, x.n_bytes, x.patch) == (y.t_arrive, y.n_bytes,
+                                                    y.patch)
+    assert set(f_k) == set(f_p)
+    for fid in f_k:
+        np.testing.assert_array_equal(f_k[fid][0], f_p[fid][0])

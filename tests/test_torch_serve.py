@@ -1,7 +1,8 @@
 """The slice as a whole: the port's serving engine + device executors on
 the CPU against the JAX package's, fed the same arrivals and frames (from
-the JAX synthetic camera), the same detector weights (converted) and one
-fixed latency table, so invocation boundaries cannot depend on timing.
+the JAX synthetic camera, or its file-stream source replaying a recording),
+the same detector weights (converted) and one fixed latency table, so
+invocation boundaries cannot depend on timing.
 
 Required: identical invocation boundaries, equal routed detections
 (scores within 1e-4, boxes within 1e-3 px; detections whose score lies
@@ -24,6 +25,8 @@ from repro.core.engine import ServingEngine as JServingEngine
 from repro.core.engine import uniform_pool as juniform_pool
 from repro.core.latency import LatencyTable as JLatencyTable
 from repro.launch import serve as jserve
+from repro.data.synthetic import Scene as JScene
+from repro.data.synthetic import preset as jpreset
 from repro.models import detector as jdet
 from repro.sources import make_source as jmake_source
 from repro_torch.config import DetectorConfig
@@ -40,6 +43,8 @@ TRACES = {
     "loose": dict(n_frames=16, canvas=CANVAS, slo=5.0),
     "tight": dict(n_frames=24, canvas=CANVAS, slo=0.3, n_cameras=2,
                   scene=3),
+    # an 8-bit recording of scene 1 through the file-stream source
+    "file": dict(n_frames=20, canvas=CANVAS, slo=1.0),
 }
 
 
@@ -61,12 +66,25 @@ def detector():
                                             tcfg)
 
 
+def _recording(path, n=16, scene=1):
+    sc = JScene(jpreset(scene, width=2 * CANVAS, height=CANVAS))
+    frames = []
+    for _ in range(n):
+        sc.step()
+        frames.append(sc.render())
+    np.save(path, np.round(np.stack(frames) * 255).astype(np.uint8))
+    return path
+
+
 @pytest.fixture(scope="module", params=sorted(TRACES))
-def trace(request):
+def trace(request, tmp_path_factory):
     frames = {}
-    src = jmake_source("synthetic", frame_sink=lambda f, px, n:
-                       frames.__setitem__(f, (px, n)),
-                       **TRACES[request.param])
+    kind, kw = "synthetic", TRACES[request.param]
+    if request.param == "file":
+        path = _recording(tmp_path_factory.mktemp("recording") / "clip.npy")
+        kind, kw = "file", dict(kw, path=path)
+    src = jmake_source(kind, frame_sink=lambda f, px, n:
+                       frames.__setitem__(f, (px, n)), **kw)
     return list(src.events(None)), frames
 
 
