@@ -9,7 +9,7 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written CUDA kernels from the sources in the checkout
-   (three libraries, one ``nvcc`` per source, all started together);
+   (four libraries, one ``nvcc`` per source, all started together);
 3. hold K1 stitch and K2 unstitch bit-exact against their plain PyTorch
    versions on packer-built plans at canvas 1024 (f32, bf16, int8, uint8,
    placements flush with the canvas edges, an empty plan);
@@ -45,10 +45,35 @@ Phases (any failure raises, so the exit code is non-zero):
    never in the plain run; print each 4K frame's seconds per edge stage;
    run the serve driver on the recording once (``--source file --fuse``);
 6. time each kernel against its plain version and its bound (K1-K4 at the
-   main path's largest invocation, K5 on 4K and 2048x1024 frames), time
-   the unfused and the fused invocation's stages, and print one JSON line
-   of kernels;
-7. print ``{"ok": true, "device": {...}}`` as the last line.
+   main path's largest invocation, K5 on 4K and 2048x1024 frames), and
+   time the unfused and the fused invocation's stages;
+7. hold K6 flash attention and K7 flash decode against their plain
+   versions (bf16 within 2e-2, float32 within 1e-4, and every output row
+   within ATTN_ROW_TOL of its own scale): K6 causal at
+   minitron-4b's per-layer shape (B=2, S=4096, 24 query heads over 8 KV
+   heads, D=128), with segment ids of requests packed into 4096-token rows
+   by ``core.sequence_packing``, non-causal at the ViT-B/16 encoder's 197
+   tokens, causal at a ragged 4095, and in float32; K7 on a 4096-position
+   cache at pos 0, 1, 511, 512 and 4095, and on a one-card decode_32k slice
+   (B=8, 32768 positions); then plant three faults through the kernels
+   themselves (K6 and K7 skipping one 64-position KV tile, K7 one chunk
+   of its split) and require the check to reject each;
+8. the LM path at full width: ``minitron-4b`` (5.10 B parameters, bf16,
+   random weights drawn on the card from a seed) prefills B=2 x 4096
+   tokens and decodes 256 teacher-forced then 32 greedy steps from an
+   empty 4096-position cache, once through the kernels (K6 on every layer
+   of prefill, K7 on every layer of every decode step) and once through
+   the plain versions; require the kernel and plain logits (last prefill
+   position, prefill positions 0-255, decode positions 0-255), and each
+   run's decode logits at positions 0-255 against its prefill logits
+   there, within LOGIT_TOL, equal greedy ids wherever the
+   plain top-2 margin is at least LOGIT_TOL, and K6 32 / K7 288 x 32
+   launches in the kernel runs and none in the plain ones; time K6 and K7
+   against the plain versions, SDPA and their bounds, and print the
+   prefill's split, a decode step against its byte bound and the peak
+   device memory;
+9. print one JSON line of kernels (K1-K7) and, last,
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -56,6 +81,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -71,9 +97,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import configs, param  # noqa: E402
 from repro_torch.config import HardwareConfig  # noqa: E402
 from repro_torch.core import gmm as gmm_core  # noqa: E402
 from repro_torch.core import partitioning  # noqa: E402
+from repro_torch.core import sequence_packing  # noqa: E402
 from repro_torch.core.config import ServeConfig  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
     ServingEngine, make_executor, uniform_pool)
@@ -84,6 +112,8 @@ from repro_torch.core.stitching import build_batch_plan, stitch  # noqa: E402
 from repro_torch.data.synthetic import Scene, preset  # noqa: E402
 from repro_torch.data.video import load_frames  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.attention import flash as flash_kernels  # noqa: E402
+from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.gmm import gmm as gmm_kernels  # noqa: E402
 from repro_torch.kernels.gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.launches import (  # noqa: E402
@@ -94,6 +124,8 @@ from repro_torch.kernels.stitch import stitch as stitch_kernels  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     fused_kwargs, profile, summary_line)
 from repro_torch.models import detector as detector_lib  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
 from repro_torch.sources import make_source  # noqa: E402
 
@@ -131,6 +163,33 @@ BOX_TOL = 8.0
 EDGE_TOL = PATCH * 0.25 * RAW_TOL
 
 
+# Phases 7 and 8: minitron-4b (32 layers, d 3072, 24 query heads over 8
+# KV heads, head_dim 128, d_ff 9216, vocab 256000, bf16) at full width.
+LM_ARCH = "minitron-4b"
+LM_SEED = 14
+LM_BATCH, LM_SEQ = 2, 4096       # prefill; the decode cache's Smax
+LM_FORCED, LM_GREEDY = 256, 32   # teacher-forced, then greedy decode steps
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The absolute limits above are as large as a typical output late in a long
+# row (its RMS is ~sqrt(e / n) over n keys: 0.026 at n = 4096, 0.009 at
+# 32768), so a kernel that skipped a KV tile there would pass them.  Each
+# output row (one query position and head, over D) is therefore also held
+# to its own scale: max_d |got - want| <= ATTN_ROW_TOL * rms_d(want).
+# A correct kernel differs by an ulp or two of a row's largest element.
+# Measured on an H100 80GB HBM3 at 700 W over phase 7's cases (PERF.md):
+# K6 0.0633 (packed rows) in bf16 and 3.33e-6 in float32, K7 0.0256 (the
+# 32k slice); each limit is three times its reading.  Phase 7's planted
+# faults read 0.72-2.7 against them.
+ATTN_ROW_TOL = {("k6", torch.bfloat16): 0.19, ("k6", torch.float32): 1e-5,
+                ("k7", torch.bfloat16): 0.077}
+# Kernel run vs plain run, and K7 decode vs K6 prefill, in logits of the
+# random full-width model (|logit| up to ~5, a bf16 ulp 0.03 there).
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md): last-position prefill
+# logits kernel vs plain 0.102, teacher-forced decode vs prefill 0.117
+# with kernels and 0.109 plain; the limit is three times the largest.
+LOGIT_TOL = 0.35
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -152,7 +211,7 @@ def card_info() -> str:
 def build_kernels() -> None:
     """Build every kernel library at once, one nvcc per source."""
     t0 = time.perf_counter()
-    modules = (stitch_kernels, fused_embed, gmm_kernels)
+    modules = (stitch_kernels, fused_embed, gmm_kernels, flash_kernels)
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         for future in [pool.submit(mod.library) for mod in modules]:
             future.result()
@@ -193,6 +252,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.float() - b.float()).abs().max())
+
+
+def row_scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest max_d |got - want| / rms_d(want) over the rows (all but
+    the last axis) of an attention output."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return float(((got - want).abs().amax(-1) / rms).max())
 
 
 def plan_cases():
@@ -1201,6 +1268,531 @@ def gmm_row(state_4k, device, launches: int, worst: dict) -> dict:
             "bound_ms_2048x1024": bound2}
 
 
+# --------------------------------------------------------------- phase 7 ----
+
+def attn_inputs(rng, shapes, dtype, device):
+    return [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(
+        device, dtype) for sh in shapes]
+
+
+def packed_segment_ids(rng, rows: int, seq: int) -> np.ndarray:
+    """Requests of random length packed into ``seq``-token rows by the
+    port's sequence packer; the first ``rows`` rows' segment ids (each
+    row's unused tail is a segment of its own)."""
+    lengths = [int(n) for n in rng.integers(16, seq // 2, size=8 * rows)]
+    packed = sequence_packing.pack(
+        [sequence_packing.Request(n, 0.0, 1.0, i)
+         for i, n in enumerate(lengths)], seq)
+    if len(packed) < rows:
+        raise AssertionError(f"packing gave {len(packed)} rows, need {rows}")
+    log(f"  packed {len(lengths)} requests into {len(packed)} rows of "
+        f"{seq} tokens (efficiency "
+        f"{sequence_packing.packing_efficiency(packed):.3f}); rows 0-"
+        f"{rows - 1}: {[len(r.spans) for r in packed[:rows]]} requests")
+    return sequence_packing.segment_ids(packed[:rows])
+
+
+def attention_cases():
+    """(name, kind, shapes and options) of phase 7; K6 on minitron-4b's
+    per-layer shape, packed rows, the ViT-B/16 encoder's 197 tokens, a
+    ragged causal length and float32; K7 on the decode cache and a
+    one-card decode_32k slice."""
+    h, kvh, d = 24, 8, 128
+    cases = [("K6 causal", "k6", dict(b=2, s=LM_SEQ, h=h, kvh=kvh, d=d,
+                                      causal=True)),
+             ("K6 packed rows", "k6", dict(b=2, s=LM_SEQ, h=h, kvh=kvh, d=d,
+                                           causal=True, packed=True)),
+             ("K6 ViT-B/16", "k6", dict(b=4, s=197, h=12, kvh=12, d=64,
+                                        causal=False)),
+             ("K6 causal ragged", "k6", dict(b=1, s=LM_SEQ - 1, h=h, kvh=kvh,
+                                             d=d, causal=True)),
+             ("K6 float32", "k6", dict(b=2, s=300, h=6, kvh=2, d=64,
+                                       causal=True, dtype=torch.float32))]
+    for pos in (0, 1, 511, 512, LM_SEQ - 1):
+        cases.append((f"K7 pos {pos}", "k7", dict(b=2, smax=LM_SEQ, h=h,
+                                                  kvh=kvh, d=d, pos=pos)))
+    cases.append(("K7 decode_32k slice", "k7",
+                  dict(b=8, smax=8 * LM_SEQ, h=h, kvh=kvh, d=d,
+                       pos=8 * LM_SEQ - 1)))
+    return cases
+
+
+def attn_close(got, want, kind: str, dtype):
+    """(ok, max abs err, row-scaled err) of a ``kind`` ("k6" or "k7")
+    output: within ATTN_TOL elementwise and every row within ATTN_ROW_TOL
+    of its own scale."""
+    err, scaled = max_abs_err(got, want), row_scaled_err(got, want)
+    tol = ATTN_TOL[dtype]
+    ok = (got.shape == want.shape and got.dtype == dtype
+          and bool(torch.isfinite(got.float()).all())
+          and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+          and scaled <= ATTN_ROW_TOL[kind, dtype])
+    return ok, err, scaled
+
+
+def check_attention(device) -> dict:
+    """Phase 7: K6 and K7 against their plain versions; the largest abs
+    and row-scaled errors per kernel and dtype."""
+    rng = np.random.default_rng(7)
+    worst = {}
+    for name, kind, c in attention_cases():
+        dtype = c.get("dtype", torch.bfloat16)
+        if kind == "k6":
+            b, s = c["b"], c["s"]
+            q, k, v = attn_inputs(rng, [(b, s, c["h"], c["d"]),
+                                        (b, s, c["kvh"], c["d"]),
+                                        (b, s, c["kvh"], c["d"])], dtype,
+                                  device)
+            seg = None
+            if c.get("packed"):
+                seg = torch.from_numpy(packed_segment_ids(rng, b, s)).to(
+                    device)
+            got = attn_ops.flash_attention(q, k, v, causal=c["causal"],
+                                           segment_ids=seg, impl="cuda")
+            want = attn_ops.flash_attention(q, k, v, causal=c["causal"],
+                                            segment_ids=seg, impl="torch")
+            shape = f"B={b} S={s} H={c['h']}/{c['kvh']} D={c['d']}"
+        else:
+            b, smax = c["b"], c["smax"]
+            q, k, v = attn_inputs(rng, [(b, 1, c["h"], c["d"]),
+                                        (b, smax, c["kvh"], c["d"]),
+                                        (b, smax, c["kvh"], c["d"])], dtype,
+                                  device)
+            got = attn_ops.flash_decode(q, k, v, c["pos"], impl="cuda")
+            want = attn_ops.flash_decode(q, k, v, c["pos"], impl="torch")
+            shape = (f"B={b} Smax={smax} pos={c['pos']} "
+                     f"H={c['h']}/{c['kvh']} D={c['d']}")
+        torch.cuda.synchronize()
+        ok, err, scaled = attn_close(got, want, kind, dtype)
+        key = f"{kind}_{str(dtype).split('.')[-1]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        worst[key + "_row_scaled"] = max(worst.get(key + "_row_scaled", 0.0),
+                                         scaled)
+        log(f"  {name:20s} {str(dtype):15s} {shape}: max abs err "
+            f"{err:.3g} (tol {ATTN_TOL[dtype]:g}), row-scaled {scaled:.4g} "
+            f"(tol {ATTN_ROW_TOL[kind, dtype]:g}) "
+            f"{'ok' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"max abs err {err}, row-scaled {scaled}")
+        del q, k, v, got, want
+    planted_faults(device)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _cut(x: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """x without positions [start, start + n) of axis 1."""
+    return torch.cat([x[:, :start], x[:, start + n:]], 1).contiguous()
+
+
+def planted_faults(device) -> None:
+    """Show that phase 7's check rejects the faults a long context hides
+    under an absolute limit.  Each faulty output is made by the kernels
+    themselves on inputs with positions cut out, so it is exactly what a
+    kernel that skipped them would return: K7 at pos 4095 without one
+    64-position tile, K7 on the 8 x 32768 slice without one 512-position
+    chunk of its split, and K6 causal at S=4096 without one KV tile for
+    the query rows after it."""
+    rng = np.random.default_rng(9)
+    h, kvh, d, dt = 24, 8, 128, torch.bfloat16
+    faults = []
+    for b, smax, start, n in ((LM_BATCH, LM_SEQ, LM_SEQ // 2, 64),
+                              (8, 8 * LM_SEQ, 4 * LM_SEQ, 512)):
+        pos = smax - 1
+        q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
+                                    (b, smax, kvh, d)], dt, device)
+        want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
+        bad = attn_ops.flash_decode(q, _cut(k, start, n), _cut(v, start, n),
+                                    pos - n, impl="cuda")
+        faults.append((f"K7 B={b} pos={pos} without positions {start}+{n}",
+                       "k7", bad, want))
+        del q, k, v
+    b, s, start, n = LM_BATCH, LM_SEQ, LM_SEQ // 4, 64
+    q, k, v = attn_inputs(rng, [(b, s, h, d), (b, s, kvh, d),
+                                (b, s, kvh, d)], dt, device)
+    want = attn_ops.flash_attention(q, k, v, causal=True, impl="torch")
+    bad = want.clone()
+    bad[:, start + n:] = attn_ops.flash_attention(
+        *(_cut(x, start, n) for x in (q, k, v)), causal=True,
+        impl="cuda")[:, start:]
+    faults.append((f"K6 causal B={b} S={s} without KV tile {start}+{n} "
+                   f"for later rows", "k6", bad, want))
+    del q, k, v
+    for what, kind, bad, want in faults:
+        ok, err, scaled = attn_close(bad, want, kind, dt)
+        within_abs = torch.allclose(bad.float(), want.float(),
+                                    atol=ATTN_TOL[dt], rtol=ATTN_TOL[dt])
+        log(f"  planted fault, {what}: max abs err {err:.3g} "
+            f"({'within' if within_abs else 'beyond'} "
+            f"the absolute {ATTN_TOL[dt]:g}), row-scaled {scaled:.4g} (tol "
+            f"{ATTN_ROW_TOL[kind, dt]:g}) {'MISSED' if ok else 'rejected'}")
+        if ok:
+            raise AssertionError(f"phase 7's check passes a planted fault: "
+                                 f"{what}")
+
+
+def attention_rows(device, launches: dict, worst: dict) -> list:
+    """K6/K7 rows: card time (back-to-back CUDA-event windows) against
+    the plain version, SDPA (``enable_gqa``, the yardstick; the port never
+    calls it) and the bound.  K6: 2*B*S^2*H*D operations (causal) at the
+    bf16 peak, or its bytes; K7: the cache read up to pos,
+    2*B*(pos+1)*Kv*D*2 bytes, at the HBM rate."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(8)
+    h, kvh, d = 24, 8, 128
+    before = dict(LAUNCHES)
+
+    def bound(ops, nbytes):
+        t = (ops / H100.peak_flops, nbytes / H100.hbm_bw)
+        return max(t) * 1e3, "operations" if t[0] >= t[1] else "bytes"
+
+    def k6_timing(b, s, plain: bool):
+        q, k, v = attn_inputs(rng, [(b, s, h, d), (b, s, kvh, d),
+                                    (b, s, kvh, d)], torch.bfloat16, device)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        iters = 20 if s <= LM_SEQ else 3
+        ms = time_ms(lambda: attn_ops.flash_attention(q, k, v, causal=True,
+                                                      impl="cuda"),
+                     iters=iters)
+        lib = gap = None
+        # SDPA's math backend would build the whole score matrix (103 GB
+        # at S=32768): past LM_SEQ only a fused backend may take the call
+        backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION]
+        if s <= LM_SEQ:
+            backends.append(SDPBackend.MATH)
+        try:
+            with sdpa_kernel(backends):
+                lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True), iters=iters)
+                gap = max_abs_err(
+                    attn_ops.flash_attention(q, k, v, causal=True),
+                    sdpa(qt, kt, vt, is_causal=True,
+                         enable_gqa=True).transpose(1, 2))
+        except RuntimeError as err:       # the yardstick only, not the port
+            if s <= LM_SEQ:
+                raise
+            log(f"  SDPA at B={b} S={s}: no fused backend took the call "
+                f"({str(err).splitlines()[0]}); not timed")
+        plain_ms = (time_ms(lambda: attn_ops.flash_attention(
+            q, k, v, causal=True, impl="torch"), iters=3, warmup=1)
+            if plain else None)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        return (ms, plain_ms, lib, gap) + bound(2 * b * s * s * h * d,
+                                                nbytes)
+
+    def k7_timing(b, smax, pos):
+        q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
+                                    (b, smax, kvh, d)], torch.bfloat16,
+                              device)
+        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
+                  for x in (k, v))
+        qt = q.transpose(1, 2).contiguous()
+        ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
+                                                   impl="cuda"))
+        plain_ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
+                                                         impl="torch"),
+                           iters=10)
+        lib = time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True))
+        nbytes = 2 * b * (pos + 1) * kvh * d * 2
+        return (ms, plain_ms, lib) + bound(4 * b * (pos + 1) * h * d,
+                                           nbytes)
+
+    k6 = k6_timing(LM_BATCH, LM_SEQ, plain=True)
+    k6_32k = k6_timing(1, 8 * LM_SEQ, plain=False)
+    k7 = k7_timing(LM_BATCH, LM_SEQ, LM_SEQ - 1)
+    k7_32k = k7_timing(8, 8 * LM_SEQ, 8 * LM_SEQ - 1)
+    LAUNCHES.update(before)      # timing launches not counted
+    torch.cuda.empty_cache()
+    source = "src/repro_torch/kernels/attention/csrc/flash.cu"
+    rows = [
+        {"name": "flash_attention", "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/attention/flash.py:95",
+         "launches": launches["flash_attention"],
+         "launches_counted": "phase 8: the kernel prefill of minitron-4b, "
+                             "one launch a layer",
+         "max_abs_err": worst["k6_bfloat16"],
+         "max_row_scaled_err": worst["k6_bfloat16_row_scaled"],
+         "max_abs_err_float32": worst["k6_float32"],
+         "max_row_scaled_err_float32": worst["k6_float32_row_scaled"],
+         "shape": [LM_BATCH, LM_SEQ, h, kvh, d], "ms": k6[0],
+         "plain_ms": k6[1], "bound_ms": k6[4], "bound_by": k6[5],
+         "library_ms": k6[2],
+         "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) on (B, H, S, D) copies",
+         "max_abs_diff_vs_library": k6[3],
+         "ms_1x32768": k6_32k[0], "library_ms_1x32768": k6_32k[2],
+         "bound_ms_1x32768": k6_32k[4],
+         "max_abs_diff_vs_library_1x32768": k6_32k[3]},
+        {"name": "flash_decode", "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/attention/flash.py:193",
+         "launches": launches["flash_decode"],
+         "launches_counted": f"phase 8: the kernel decode of minitron-4b, "
+                             f"{LM_FORCED + LM_GREEDY} steps of one launch "
+                             f"a layer",
+         "max_abs_err": worst["k7_bfloat16"],
+         "max_row_scaled_err": worst["k7_bfloat16_row_scaled"],
+         "shape": [LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d], "ms": k7[0],
+         "plain_ms": k7[1], "bound_ms": k7[3], "bound_by": k7[4],
+         "library_ms": k7[2],
+         "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
+                         "over the cache up to pos, (B, Kv, pos+1, D) "
+                         "copies",
+         "ms_8x32768": k7_32k[0], "plain_ms_8x32768": k7_32k[1],
+         "library_ms_8x32768": k7_32k[2], "bound_ms_8x32768": k7_32k[3]}]
+    log(f"  flash_attention B={LM_BATCH} S={LM_SEQ}: {k6[0]:.4f} ms (plain "
+        f"{k6[1]:.4f} ms, SDPA {k6[2]:.4f} ms, bound {k6[4]:.4f} ms, "
+        f"{k6[4] / k6[0]:.1%} of the bound's speed; vs SDPA max abs diff "
+        f"{k6[3]:.3g})")
+    log(f"  flash_attention B=1 S={8 * LM_SEQ}: {k6_32k[0]:.4f} ms (SDPA "
+        f"{k6_32k[2]} ms, bound {k6_32k[4]:.4f} ms, "
+        f"{k6_32k[4] / k6_32k[0]:.1%}; vs SDPA max abs diff "
+        f"{k6_32k[3]}, not gated)")
+    log(f"  flash_decode B={LM_BATCH} pos={LM_SEQ - 1}: {k7[0]:.4f} ms "
+        f"(plain {k7[1]:.4f} ms, SDPA {k7[2]:.4f} ms, bound {k7[3]:.4f} ms, "
+        f"{k7[3] / k7[0]:.1%})")
+    log(f"  flash_decode B=8 pos={8 * LM_SEQ - 1}: {k7_32k[0]:.4f} ms "
+        f"(plain {k7_32k[1]:.4f} ms, SDPA {k7_32k[2]:.4f} ms, bound "
+        f"{k7_32k[3]:.4f} ms, {k7_32k[3] / k7_32k[0]:.1%})")
+    return rows
+
+
+# --------------------------------------------------------------- phase 8 ----
+
+def lm_decode(cfg, params, tokens, impl) -> dict:
+    """Teacher-forced decode over the prompts' first LM_FORCED tokens, then
+    LM_GREEDY greedy steps, from an empty LM_SEQ cache; launches counted
+    from 0 just before, read just after."""
+    cache = transformer.init_cache(cfg, LM_BATCH, LM_SEQ, tokens.device)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forced = []
+    for pos in range(LM_FORCED):
+        logits, cache = transformer.decode_step(
+            cfg, params, tokens[:, pos:pos + 1], cache, pos, impl=impl)
+        forced.append(logits[:, 0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chosen, top2 = [], []
+    for step in range(LM_GREEDY + 1):
+        top = torch.topk(logits[:, 0].float(), 2, dim=-1)
+        chosen.append(top.indices[:, 0])
+        top2.append(top.values[:, 0] - top.values[:, 1])
+        if step == LM_GREEDY:
+            break
+        logits, cache = transformer.decode_step(
+            cfg, params, chosen[-1][:, None], cache, LM_FORCED + step,
+            impl=impl)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(LAUNCHES)
+    step_ms = time_ms(lambda: transformer.decode_step(
+        cfg, params, chosen[-1][:, None], cache, LM_FORCED + LM_GREEDY,
+        impl=impl), iters=10)
+    LAUNCHES.update(launches)
+    return {"forced": torch.stack(forced, 1), "ids": torch.stack(chosen, 1),
+            "margin": torch.stack(top2, 1), "launches": launches,
+            "forced_s": t1 - t0, "greedy_s": t2 - t1, "step_ms": step_ms}
+
+
+def greedy_agreement(kern: dict, plain: dict) -> list:
+    """Per row, how many greedy choices agree before the two runs may
+    fairly part: the ids must be equal wherever the plain run's top-2
+    margin is at least LOGIT_TOL; at a choice with a smaller margin equal
+    ids go on being compared, and different ids end the row."""
+    compared = []
+    for row in range(LM_BATCH):
+        ids_k, ids_p = kern["ids"][row].tolist(), plain["ids"][row].tolist()
+        margins = plain["margin"][row].tolist()
+        n = 0
+        for a, b, m in zip(ids_k, ids_p, margins):
+            if a != b:
+                if m < LOGIT_TOL:
+                    break
+                raise AssertionError(f"greedy row {row} choice {n}: kernel "
+                                     f"token {a}, plain {b} at plain margin "
+                                     f"{m:.4f} >= LOGIT_TOL")
+            n += 1
+        compared.append(n)
+    return compared
+
+
+def lm_phase(device, by_path: dict) -> dict:
+    """Phase 8: minitron-4b at full width, random bf16 weights drawn on
+    the card; prefill (B=2, S=4096) and decode with the kernels and
+    plain, checked against each other and decode against prefill."""
+    cfg = configs.get(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(LM_SEED), device)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  param.leaves(params))
+    log(f"  built {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+        f"{cfg.n_params / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB, drawn "
+        f"on the card in {time.perf_counter() - t0:.1f}s")
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_SEQ))).to(device)
+
+    runs = {}
+    for key, impl in (("kernels", None), ("plain", "torch")):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, h = transformer.prefill(cfg, params, tokens, impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[f"lm_prefill_{key}"] = dict(LAUNCHES)
+        early = transformer.logits(cfg, params, h[:, :LM_FORCED]).float()
+        runs[key] = {"last": last.float(), "early": early, "wall": wall}
+        del h
+        log(f"  prefill {key}: {wall * 1e3:.1f} ms wall (first call), "
+            f"launches {by_path[f'lm_prefill_{key}']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_launches({"launches": by_path["lm_prefill_kernels"]},
+                   ("flash_attention",), "LM prefill kernels")
+    check_launches({"launches": by_path["lm_prefill_plain"]}, (),
+                   "LM prefill plain")
+    if by_path["lm_prefill_kernels"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched K6 "
+                             f"{by_path['lm_prefill_kernels']} times, "
+                             f"expected {cfg.n_layers}")
+    diffs = {"prefill_last_kernel_vs_plain": max_abs_err(
+        runs["kernels"]["last"], runs["plain"]["last"]),
+        "prefill_early_kernel_vs_plain": max_abs_err(
+        runs["kernels"]["early"], runs["plain"]["early"])}
+
+    dec = {}
+    for key, impl in (("kernels", None), ("plain", "torch")):
+        dec[key] = lm_decode(cfg, params, tokens, impl)
+        by_path[f"lm_decode_{key}"] = dec[key]["launches"]
+        steps = LM_FORCED + LM_GREEDY
+        log(f"  decode {key}: {LM_FORCED} teacher-forced steps "
+            f"{dec[key]['forced_s'] * 1e3 / LM_FORCED:.3f} ms a step, "
+            f"{LM_GREEDY} greedy {dec[key]['greedy_s'] * 1e3 / LM_GREEDY:.3f}"
+            f" ms a step (host clock); one step at pos {steps}: "
+            f"{dec[key]['step_ms']:.3f} ms (CUDA events); launches "
+            f"{dec[key]['launches']}")
+    check_launches({"launches": by_path["lm_decode_kernels"]},
+                   ("flash_decode",), "LM decode kernels")
+    check_launches({"launches": by_path["lm_decode_plain"]}, (),
+                   "LM decode plain")
+    want = (LM_FORCED + LM_GREEDY) * cfg.n_layers
+    if by_path["lm_decode_kernels"]["flash_decode"] != want:
+        raise AssertionError(f"decode launched K7 "
+                             f"{by_path['lm_decode_kernels']} times, "
+                             f"expected {want}")
+    diffs["decode_vs_prefill_kernels"] = max_abs_err(
+        dec["kernels"]["forced"], runs["kernels"]["early"])
+    diffs["decode_vs_prefill_plain"] = max_abs_err(
+        dec["plain"]["forced"], runs["plain"]["early"])
+    diffs["decode_kernel_vs_plain"] = max_abs_err(dec["kernels"]["forced"],
+                                                  dec["plain"]["forced"])
+    log("  logit differences: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in diffs.items()) + f" (LOGIT_TOL "
+        f"{LOGIT_TOL})")
+    for key, diff in diffs.items():
+        if not diff <= LOGIT_TOL:
+            raise AssertionError(f"{key}: {diff} > LOGIT_TOL")
+    compared = greedy_agreement(dec["kernels"], dec["plain"])
+    log(f"  greedy ids equal over {compared} of {LM_GREEDY + 1} choices a "
+        f"row (until the ids part where the plain top-2 margin is under "
+        f"LOGIT_TOL); plain margins "
+        f"{[round(m, 3) for m in dec['plain']['margin'][:, :4].flatten().tolist()]}"
+        f"...")
+    for row in range(LM_BATCH):
+        if not torch.isfinite(dec["kernels"]["forced"][row]).all():
+            raise AssertionError("non-finite decode logits")
+    return {"cfg": cfg, "params": params, "tokens": tokens, "diffs": diffs,
+            "prefill_wall": {k: r["wall"] for k, r in runs.items()},
+            "decode": {k: {x: d[x] for x in ("forced_s", "greedy_s",
+                                             "step_ms")}
+                       for k, d in dec.items()}}
+
+
+def device_busy(fn):
+    """(ms, count) of the device activity (kernels, copies, fills) of one
+    warm call under ``torch.profiler``; None if it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3, len(device)
+
+
+def lm_split(lm: dict, k6_ms: float) -> None:
+    """The prefill's device time by part (CUDA events): embed, K6 over the
+    layers, the rest of the layers, lm_head; and a decode step against its
+    byte bound (layer and lm_head weights plus the cache read)."""
+    cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
+    cdt = params["embed"]["embedding"].dtype
+    before = dict(LAUNCHES)
+    total = time_ms(lambda: transformer.prefill(cfg, params, tokens),
+                    iters=3, warmup=1)
+    x = layers.embed_lookup(params["embed"], tokens, cdt)
+    embed = time_ms(lambda: layers.embed_lookup(params["embed"], tokens,
+                                                cdt))
+    head = time_ms(lambda: transformer.logits(cfg, params, x[:, -1:]))
+    attn = cfg.n_layers * k6_ms
+    rest = total - embed - attn - head
+    log(f"  prefill B={LM_BATCH} S={LM_SEQ} with kernels: {total:.2f} ms = "
+        f"embed {embed:.3f} + K6 {cfg.n_layers} x {k6_ms:.3f} = {attn:.2f} "
+        f"({attn / total:.1%}) + rest of the layers {rest:.2f} "
+        f"({rest / total:.1%}) + lm_head {head:.3f}; plain prefill "
+        f"{lm['prefill_wall']['plain'] * 1e3:.1f} ms wall (one run)")
+    weights = sum(t.numel() * t.element_size()
+                  for name, sub in params.items() if name != "embed"
+                  for t in param.leaves(sub))
+    pos = LM_FORCED + LM_GREEDY
+    cache = 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads * cfg.head_dim * 2 \
+        * cfg.n_layers
+    bound = (weights + cache) / H100.hbm_bw * 1e3
+    for key, d in lm["decode"].items():
+        log(f"  decode step {key}: {d['step_ms']:.3f} ms (CUDA events) vs "
+            f"byte bound {bound:.3f} ms ({(weights + cache) / 1e9:.2f} GB: "
+            f"{weights / 1e9:.2f} GB weights + {cache / 1e6:.1f} MB cache "
+            f"at pos {pos}), {bound / d['step_ms']:.1%} of the bound's "
+            f"speed")
+    kv = transformer.init_cache(cfg, LM_BATCH, LM_SEQ, tokens.device)
+    step = tokens[:, :1]
+    for what, fn, wall in (
+            ("prefill", lambda: transformer.prefill(cfg, params, tokens),
+             total),
+            ("decode step", lambda: transformer.decode_step(
+                cfg, params, step, kv, pos), lm["decode"]["kernels"]
+             ["step_ms"])):
+        busy = device_busy(fn)
+        if busy is None:
+            log(f"  {what}: the profiler recorded no device activity; idle "
+                f"share not measured")
+            continue
+        # unclamped: busy above wall would mean overlapping events or a
+        # sum counted twice, and must show as such
+        log(f"  {what} with kernels, torch.profiler: {busy[1]} device "
+            f"activities, {busy[0]:.3f} ms busy of {wall:.3f} ms (CUDA "
+            f"events, no profiler): device idle share "
+            f"{1 - busy[0] / wall:.1%}"
+            + (" (negative: the busy sum exceeds the wall time, so it is "
+               "not a measurement)" if busy[0] > wall else ""))
+    LAUNCHES.update(before)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -1334,6 +1926,25 @@ def main() -> None:
     del file_kern, file_frames, plan, slots, records
     rows.append(gmm_row(scene_state, device, launches["gmm_update"],
                         worst_gmm))
+    del build, table, runs, fused_runs, frames, arrivals, scene_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 7: K6 flash attention and K7 flash decode vs their plain "
+        "versions")
+    worst_attn = check_attention(device)
+    log(f"phase 8: {LM_ARCH} at full width: prefill B={LM_BATCH} "
+        f"S={LM_SEQ}, {LM_FORCED} teacher-forced and {LM_GREEDY} greedy "
+        f"decode steps, kernels and plain")
+    lm = lm_phase(device, by_path)
+    launches["flash_attention"] = \
+        by_path["lm_prefill_kernels"]["flash_attention"]
+    launches["flash_decode"] = by_path["lm_decode_kernels"]["flash_decode"]
+    log("  K6/K7 times (CUDA events) and the prefill / decode split:")
+    attn_rows = attention_rows(device, launches, worst_attn)
+    lm_split(lm, attn_rows[0]["ms"])
+    rows += attn_rows
+    del lm
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -1,13 +1,75 @@
-"""Config dataclasses for the detector, its ViT trunk, and the card.
+"""Config dataclasses for the decoder-only LM, the detector, its ViT
+trunk, and the card.
 
-Port of the parts of ``repro/config.py`` the serving path needs.
+Port of the parts of ``repro/config.py`` the ported paths need.
 ``dtype_of`` maps the configs' dtype names to torch dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Decoder-only LM: the JAX package's fields that the port reads.
+
+    The port runs the dense, floating-point model: ``moe``,
+    ``quant_weights`` and ``quant_kv`` raise ``NotImplementedError`` (MoE
+    blocks are ROADMAP item 13, int8 weights and caches item 8).  The JAX
+    fields for training (``remat``, ``remat_policy``, ``scan_layers``), the
+    TPU kernel's blocks (``flash_block_q`` / ``flash_block_kv``) and the
+    sharded cache's write (``cache_update``) are left out: the port serves
+    on one card, its kernels pick their own tiles, and its decode writes
+    the cache in place (ROADMAP items 13 and 14).
+    """
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    moe: Optional[object] = None
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    fused_qkv: bool = False
+    quant_weights: bool = False
+    quant_kv: bool = False
+
+    family: str = "lm"
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                f"{self.name}: MoE blocks are not ported yet (ROADMAP item "
+                f"13, models/moe.py)")
+        if self.quant_weights or self.quant_kv:
+            raise NotImplementedError(
+                f"{self.name}: int8 weights / KV cache are not ported yet "
+                f"(ROADMAP item 8)")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads {self.n_heads} is not "
+                             f"a multiple of n_kv_heads {self.n_kv_heads}")
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (embedding + layers)."""
+        d, L = self.d_model, self.n_layers
+        att = (d * self.n_heads * self.head_dim
+               + 2 * d * self.n_kv_heads * self.head_dim
+               + self.n_heads * self.head_dim * d)
+        mlp = 3 * d * self.d_ff
+        norms = 2 * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return L * (att + mlp + norms) + emb + d
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,26 @@
+"""Reduced same-family configs for CPU tests and rehearsals.
+
+Port of ``reduce_arch`` from ``repro/configs/reduced.py`` for the families
+the port runs: the same numbers, so a reduced JAX config and a reduced
+port config describe the same model.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.config import DetectorConfig, TransformerConfig
+
+
+def reduce_arch(model):
+    """A full config -> a small CPU-runnable config of the same family."""
+    if isinstance(model, TransformerConfig):
+        return dataclasses.replace(
+            model, n_layers=2, d_model=128, n_heads=4,
+            n_kv_heads=2 if model.n_kv_heads < model.n_heads else 4,
+            d_ff=256, vocab=512, head_dim=32,
+            param_dtype="float32", compute_dtype="float32")
+    if isinstance(model, DetectorConfig):
+        return dataclasses.replace(
+            model, canvas=128, patch=32, n_layers=2, d_model=64, n_heads=4,
+            d_ff=128, param_dtype="float32", compute_dtype="float32")
+    raise TypeError(type(model))

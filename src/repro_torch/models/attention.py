@@ -1,27 +1,177 @@
-"""Bidirectional multi-head attention for the ViT encoder.
+"""Grouped-query attention with RoPE: prefill, KV-cache decode, and the
+bidirectional encoder attention of the ViT trunk.
 
-Port of ``encoder_attention`` from ``repro/models/attention.py`` (the
-``"xla"`` path the detector runs): projections, scores taken in float32,
-float32 softmax, context in the compute dtype.  Weights keep the JAX
-layout: ``wq/wk/wv`` (d, H, Dh), ``wo`` (H, Dh, d), no biases.
+Port of ``repro/models/attention.py`` (floating-point weights; int8 weights
+and caches are ROADMAP item 8, the sharding constraints ROADMAP item 14).
+Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wk`` / ``wv`` (d, Kv, Dh)
+or one fused ``wqkv`` (d, H + 2 Kv, Dh), and ``wo`` (H, Dh, d), no biases.
+
+The causal ``attention`` and ``decode_attention`` always go through
+:mod:`repro_torch.kernels.attention.ops`: with ``impl=None`` a CUDA tensor
+launches the hand-written kernels (K6 in prefill, K7 in decode) and a CPU
+tensor runs their plain versions; ``impl="torch"`` asks for the plain
+versions on any device.  ``encoder_attention`` keeps the plain path by
+default (``impl="xla"``), because the JAX detector pins it; ``impl="flash"``
+takes K6, non-causal.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.attention import ops as flash_ops
+from repro_torch.param import spec
+
+
+# ------------------------------------------------------------------ RoPE ----
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
+    angles = positions[..., None].to(torch.float32) * freqs    # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------- specs ----
+
+def weight(p, compute_dtype: torch.dtype) -> torch.Tensor:
+    """A floating-point weight in the compute dtype."""
+    if isinstance(p, dict):
+        raise NotImplementedError("int8-quantised weights are not ported "
+                                  "yet (ROADMAP item 8)")
+    return p.to(compute_dtype)
+
+
+def gqa_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
+              dtype: torch.dtype, fused: bool = False) -> dict:
+    wo = spec((n_heads, head_dim, d_model), dtype=dtype, fan_in_axes=(0, 1))
+    if fused:
+        return {"wqkv": spec((d_model, n_heads + 2 * n_kv_heads, head_dim),
+                             dtype=dtype, fan_in_axes=(0,)),
+                "wo": wo}
+    return {"wq": spec((d_model, n_heads, head_dim), dtype=dtype,
+                       fan_in_axes=(0,)),
+            "wk": spec((d_model, n_kv_heads, head_dim), dtype=dtype,
+                       fan_in_axes=(0,)),
+            "wv": spec((d_model, n_kv_heads, head_dim), dtype=dtype,
+                       fan_in_axes=(0,)),
+            "wo": wo}
+
+
+# ------------------------------------------------------------- attention ----
+
+def _qkv(params: dict, x: torch.Tensor, n_kv_heads: int,
+         compute_dtype: torch.dtype
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def proj(w):
+        return torch.einsum("bsd,dhk->bshk", x,
+                            weight(w, compute_dtype)).contiguous()
+
+    if "wqkv" in params:
+        qkv = proj(params["wqkv"])
+        n_heads = qkv.shape[2] - 2 * n_kv_heads
+        return (qkv[:, :, :n_heads].contiguous(),
+                qkv[:, :, n_heads:n_heads + n_kv_heads].contiguous(),
+                qkv[:, :, n_heads + n_kv_heads:].contiguous())
+    return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+
+
+def _out(params: dict, ctx: torch.Tensor,
+         compute_dtype: torch.dtype) -> torch.Tensor:
+    """ctx (B, S, H, Dh) -> (B, S, d)."""
+    return torch.einsum("bshk,hkd->bsd", ctx,
+                        weight(params["wo"], compute_dtype))
+
+
+def attention(params: dict, x: torch.Tensor, *, n_heads: int,
+              n_kv_heads: int, rope_theta: float,
+              compute_dtype: torch.dtype,
+              positions: Optional[torch.Tensor] = None,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """Causal self-attention for prefill.  x: (B, S, d) -> (B, S, d); K6
+    on a CUDA tensor (``impl`` as in the module docstring)."""
+    _, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, n_kv_heads, compute_dtype)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    ctx = flash_ops.flash_attention(q, k, v, causal=True, impl=impl)
+    return _out(params, ctx, compute_dtype)
+
 
 def encoder_attention(params: dict, x: torch.Tensor, *,
-                      compute_dtype: torch.dtype) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d); the head count is the weights' H."""
-    def proj(w):
-        return torch.einsum("bsd,dhk->bshk", x, w.to(compute_dtype))
-
-    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+                      compute_dtype: torch.dtype,
+                      impl: str = "xla") -> torch.Tensor:
+    """Bidirectional MHA (no RoPE) for the ViT encoder.  x: (B, S, d) ->
+    (B, S, d); the head count is the weights' H.  ``impl="xla"`` (the
+    default, and what the detector runs) is the plain path: scores taken
+    in float32, a float32 softmax, the context in the compute dtype;
+    ``impl="flash"`` runs K6 non-causal (its plain version on the CPU)."""
+    n_heads = params["wq"].shape[1]
+    q, k, v = _qkv(params, x, n_heads, compute_dtype)
+    if impl == "flash":
+        return _out(params, flash_ops.flash_attention(q, k, v, causal=False),
+                    compute_dtype)
+    if impl != "xla":
+        raise ValueError(f"unknown encoder attention impl {impl!r}; choose "
+                         f"from ['xla', 'flash']")
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
-    return torch.einsum("bshk,hkd->bsd", ctx,
-                        params["wo"].to(compute_dtype))
+    return _out(params, ctx, compute_dtype)
+
+
+# ---------------------------------------------------------------- decode ----
+
+def init_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
+               dtype: torch.dtype, device: torch.device) -> dict:
+    shape = (batch, max_seq, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
+                     *, n_heads: int, n_kv_heads: int, rope_theta: float,
+                     compute_dtype: torch.dtype, impl: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, dict]:
+    """One-token decode.  x: (B, 1, d); cache k / v: (B, Smax, Kv, Dh);
+    ``pos``: the current position, a Python int.  Returns (out, cache).
+
+    The new K/V row is written into the cache tensors in place, and the
+    returned dict is ``cache`` itself: the JAX function returns a new cache
+    (its ``"dus"`` update; the ``"masked"`` one serves a cache sharded on
+    the sequence axis, which waits for ROADMAP item 14), so a decode loop
+    here moves no cache bytes but the new row.  Attention is K7 on a CUDA
+    tensor (``impl`` as in the module docstring).
+    """
+    if isinstance(pos, torch.Tensor):
+        raise TypeError("decode_attention: pos must be a Python int (a "
+                        "device scalar would sync the host every step)")
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(params, x, n_kv_heads, compute_dtype)
+    positions = torch.full((b, 1), pos, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k_new = apply_rope(k_new, positions, rope_theta)
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    ctx = flash_ops.flash_decode(q, cache["k"].to(compute_dtype),
+                                 cache["v"].to(compute_dtype), pos, impl=impl)
+    return _out(params, ctx, compute_dtype), cache

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.config import DetectorConfig, ViTConfig, dtype_of
 from repro_torch.models import layers, vit
+from repro_torch.param import from_numpy, map_tree
 
 
 def trunk_cfg(cfg: DetectorConfig) -> ViTConfig:
@@ -77,14 +78,6 @@ def param_shapes(cfg: DetectorConfig) -> dict:
     }
 
 
-def _map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def init_params(cfg: DetectorConfig, generator: torch.Generator,
                 device: torch.device) -> dict:
     """Random parameters drawn on the host from ``generator`` (so a seed
@@ -103,16 +96,7 @@ def init_params(cfg: DetectorConfig, generator: torch.Generator,
             t = torch.randn(shape, generator=generator) * std
         return t.to(device=device, dtype=dtype)
 
-    return _map(leaf, param_shapes(cfg))
-
-
-def _from_numpy(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # ml_dtypes: reinterpret the bits
-        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype)
+    return map_tree(leaf, param_shapes(cfg))
 
 
 def convert_params(tree: dict, cfg: DetectorConfig,
@@ -126,13 +110,13 @@ def convert_params(tree: dict, cfg: DetectorConfig,
     trunk = dict(tree["trunk"])
     if "layers" in trunk:
         stacked = trunk.pop("layers")
-        per_layer = [_map(lambda a, i=i: np.asarray(a)[i], stacked)
+        per_layer = [map_tree(lambda a, i=i: np.asarray(a)[i], stacked)
                      for i in range(cfg.n_layers)]
     else:
         per_layer = [trunk.pop(f"layer_{i}") for i in range(cfg.n_layers)]
     trunk["layers"] = per_layer
     out = {"trunk": trunk, "det_head": tree["det_head"]}
-    return _map(lambda a: _from_numpy(a, dtype, device), out)
+    return map_tree(lambda a: from_numpy(a, dtype, device), out)
 
 
 def embed_params(cfg: DetectorConfig, params: dict

@@ -1,0 +1,174 @@
+"""Decoder-only LM (dense): prefill and KV-cache decode.
+
+Port of the serving half of ``repro/models/transformer.py``:
+
+  param_specs(cfg)                           -> ParamSpec tree
+  init_params(cfg, generator, device)        -> parameters
+  convert_params(tree, cfg, device)          -> the JAX package's parameters
+  forward(cfg, params, tokens)               -> (hidden (B, S, d), aux)
+  prefill(cfg, params, tokens)               -> (last logits, hidden)
+  init_cache(cfg, batch, max_seq, device)    -> KV cache
+  decode_step(cfg, params, tokens, cache, pos) -> (logits (B, 1, V), cache)
+
+Parameters and the cache take the JAX package's unscanned form, one dict
+per layer under ``"layer_{i}"`` (the port runs layers in a Python loop, not
+``lax.scan``):
+
+    {"embed": {"embedding": (V, d)},
+     "layers": {"layer_0": {"ln_attn": {"scale"}, "attn": {wq, wk, wv, wo}
+                            or {wqkv, wo}, "ln_mlp": {"scale"},
+                            "mlp": {"gate", "up", "down"}}, ...},
+     "ln_f": {"scale"}, "lm_head": {"kernel": (d, V)}}
+
+Every layer's attention goes through K6 in prefill and K7 in decode on a
+CUDA tensor (``impl=None``); ``impl="torch"`` runs their plain versions, and
+a CPU tensor always does.  There are no sharding rules (ROADMAP item 14);
+``lm_loss`` comes with the training slice (ROADMAP item 13).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import TransformerConfig, dtype_of
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.param import from_numpy, map_tree
+from repro_torch.param import init_params as _init_tree
+
+
+# ----------------------------------------------------------------- specs ----
+
+def _layer_specs(cfg: TransformerConfig, dtype: torch.dtype) -> dict:
+    return {
+        "ln_attn": layers.rmsnorm_specs(cfg.d_model, dtype),
+        "attn": attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, dtype, fused=cfg.fused_qkv),
+        "ln_mlp": layers.rmsnorm_specs(cfg.d_model, dtype),
+        "mlp": layers.swiglu_specs(cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    dtype = dtype_of(cfg.param_dtype)
+    p = {
+        "embed": layers.embed_specs(cfg.vocab, cfg.d_model, dtype),
+        "layers": {f"layer_{i}": _layer_specs(cfg, dtype)
+                   for i in range(cfg.n_layers)},
+        "ln_f": layers.rmsnorm_specs(cfg.d_model, dtype),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.dense_specs(cfg.d_model, cfg.vocab,
+                                          dtype=dtype)
+    return p
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> dict:
+    """Random parameters with the JAX package's init rules, drawn from
+    ``generator`` on ``device`` (a CUDA generator draws them on the card)."""
+    return _init_tree(param_specs(cfg), generator, device)
+
+
+def convert_params(tree: dict, cfg: TransformerConfig,
+                   device: DeviceLike = None) -> dict:
+    """The JAX package's LM parameters (nested dicts of arrays, e.g. via
+    ``np.asarray``) -> the port's tree on ``device``.  A scanned tree
+    (``scan_layers=True``: every leaf under ``"layers"`` has a leading
+    ``n_layers`` axis) is unstacked into ``layer_{i}`` dicts; an unscanned
+    one is taken as it is.  Leaves are cast to ``cfg.param_dtype``."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.param_dtype)
+    out = dict(tree)
+    stacked = out["layers"]
+    if "layer_0" not in stacked:
+        out["layers"] = {f"layer_{i}": map_tree(
+            lambda a, i=i: np.asarray(a)[i], stacked)
+            for i in range(cfg.n_layers)}
+    return map_tree(lambda a: from_numpy(a, dtype, device), out)
+
+
+# --------------------------------------------------------------- forward ----
+
+def _layer(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
+           positions: Optional[torch.Tensor],
+           impl: Optional[str]) -> torch.Tensor:
+    cdt = dtype_of(cfg.compute_dtype)
+    h = layers.rmsnorm(lp["ln_attn"], x, cfg.norm_eps, cdt)
+    h = attn.attention(lp["attn"], h, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+                       compute_dtype=cdt, positions=positions, impl=impl)
+    x = x + h
+    h = layers.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps, cdt)
+    return x + layers.swiglu(lp["mlp"], h, cdt)
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int -> (hidden (B, S, d) after the final norm, aux).
+    ``aux`` is the MoE load-balancing loss of the JAX function, always 0
+    here (the port runs dense models)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = layers.embed_lookup(params["embed"], tokens, cdt)
+    for i in range(cfg.n_layers):
+        x = _layer(cfg, params["layers"][f"layer_{i}"], x, positions, impl)
+    x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps, cdt)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits(cfg: TransformerConfig, params: dict,
+           h: torch.Tensor) -> torch.Tensor:
+    """The read-out: ``lm_head``, or the tied embedding."""
+    cdt = dtype_of(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        return layers.embed_logits(params["embed"], h, cdt)
+    return layers.dense(params["lm_head"], h, cdt)
+
+
+def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
+            impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence prefill: (last-position logits (B, 1, V), hidden
+    (B, S, d))."""
+    h, _ = forward(cfg, params, tokens, impl=impl)
+    return logits(cfg, params, h[:, -1:, :]), h
+
+
+# ---------------------------------------------------------------- decode ----
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               device: DeviceLike = None) -> dict:
+    """A zeroed KV cache, ``{"layer_{i}": {"k", "v"}}`` of (batch, max_seq,
+    n_kv_heads, head_dim) in the compute dtype."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.compute_dtype)
+    return {f"layer_{i}": attn.init_cache(batch, max_seq, cfg.n_kv_heads,
+                                          cfg.head_dim, dtype, device)
+            for i in range(cfg.n_layers)}
+
+
+def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+                cache: dict, pos: int, *, impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, dict]:
+    """tokens: (B, 1) -> (logits (B, 1, V), cache).  ``pos``: a Python int.
+    The cache is updated in place and returned (see
+    ``attention.decode_attention``)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = layers.embed_lookup(params["embed"], tokens, cdt)
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"layer_{i}"]
+        h = layers.rmsnorm(lp["ln_attn"], x, cfg.norm_eps, cdt)
+        h, _ = attn.decode_attention(
+            lp["attn"], h, cache[f"layer_{i}"], pos, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+            compute_dtype=cdt, impl=impl)
+        x = x + h
+        h = layers.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps, cdt)
+        x = x + layers.swiglu(lp["mlp"], h, cdt)
+    x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps, cdt)
+    return logits(cfg, params, x), cache

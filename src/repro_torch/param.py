@@ -1,0 +1,104 @@
+"""Parameter spec trees: one source of truth for shapes and init rules.
+
+Port of ``repro/param.py``.  A model's ``param_specs(cfg)`` is a nested
+dict of :class:`ParamSpec`; :func:`init_params` materialises it with the
+JAX package's rules and :func:`count_params` counts it.  The logical
+sharding axes of the JAX specs are dropped: the port runs on one card
+(sharding is ROADMAP item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"        # normal | zeros | ones | embed | pos
+    scale: float = 1.0          # stddev multiplier
+    fan_in_axes: Tuple[int, ...] = ()  # dims of the fan-in (default: all
+    #                                    but the last)
+
+
+def spec(shape: Sequence[int], *, dtype: torch.dtype = torch.float32,
+         init: str = "normal", scale: float = 1.0,
+         fan_in_axes: Tuple[int, ...] = ()) -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, init, scale, tuple(fan_in_axes))
+
+
+def map_tree(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of nested dicts and lists (of specs,
+    arrays or tensors), keeping the structure (dicts in insertion order)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def from_numpy(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A numpy array (e.g. a JAX parameter through ``np.asarray``; bf16
+    arrays are ml_dtypes', whose bits are reinterpreted) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def leaves(tree):
+    """The leaves of nested dicts and lists, in the tree's order."""
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def count_params(specs) -> int:
+    return sum(math.prod(s.shape) for s in leaves(specs))
+
+
+def _std(s: ParamSpec) -> float:
+    if s.init == "normal":
+        axes = s.fan_in_axes or tuple(range(len(s.shape) - 1))
+        fan_in = math.prod(s.shape[a] for a in axes) or 1
+        return s.scale / math.sqrt(fan_in)
+    return 0.02 * s.scale                      # "embed", "pos"
+
+
+def init_params(specs, generator: torch.Generator, device: DeviceLike = None):
+    """Materialise a spec tree on ``device`` (default cuda).
+
+    ``normal`` leaves draw with std ``scale / sqrt(prod(fan-in dims))``,
+    ``embed`` and ``pos`` with std ``0.02 * scale``, as float32 normals
+    from ``generator`` cast to the leaf dtype; ``zeros`` and ``ones``
+    fill.  ``generator`` must live on ``device`` (a CUDA generator draws
+    the weights on the card, so no host copy of them is made).  Leaves
+    draw in the tree's order, so a seed fixes the whole tree; the numbers
+    differ from ``jax.random``'s, so tests that compare with the JAX
+    package convert its parameters instead (``convert_params``).
+    """
+    device = resolve_device(device)
+
+    def leaf(s: ParamSpec) -> torch.Tensor:
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=device)
+        if s.init not in ("normal", "embed", "pos"):
+            raise ValueError(f"unknown init {s.init!r}")
+        x = torch.randn(s.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return x.mul_(_std(s)).to(s.dtype)
+
+    return map_tree(leaf, specs)

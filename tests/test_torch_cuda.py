@@ -9,15 +9,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get
+from repro_torch.configs.reduced import reduce_arch
 from repro_torch.core import gmm
+from repro_torch.core import sequence_packing
 from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
 from repro_torch.core.latency import LatencyTable
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import build_batch_plan, stitch
+from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
 from repro_torch.launch.serve import build_detector, fused_kwargs
+from repro_torch.models import transformer
 from repro_torch.sources import make_source
 
 pytestmark = pytest.mark.cuda
@@ -336,3 +341,130 @@ def test_camera_on_card_runs_k5_once_per_frame(cuda):
     assert set(f_k) == set(f_p)
     for fid in f_k:
         np.testing.assert_array_equal(f_k[fid][0], f_p[fid][0])
+
+
+# ------------------------------------------------------------ K6 and K7 ----
+
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _qkv(rng, shapes, dtype, device):
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        device, dtype) for s in shapes]
+
+
+def _packed_segments(rng, b, s):
+    """Segment ids of requests packed into rows of ``s`` tokens by the
+    port's sequence packer, the unused tail a segment of its own."""
+    lengths = [int(n) for n in rng.integers(1, s // 2, size=4 * b)]
+    rows = sequence_packing.pack(
+        [sequence_packing.Request(n, 0.0, 1.0, i)
+         for i, n in enumerate(lengths)], s)[:b]
+    return sequence_packing.segment_ids(rows)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,dtype,segments", [
+    (2, 256, 6, 2, 128, True, torch.bfloat16, False),   # minitron's G = 3
+    (2, 512, 6, 2, 128, True, torch.bfloat16, True),    # packed rows
+    (2, 197, 12, 12, 64, False, torch.bfloat16, False),  # ViT-B/16 tokens
+    (1, 255, 4, 1, 32, True, torch.bfloat16, False),    # ragged, causal
+    (1, 130, 4, 2, 32, True, torch.float32, False),
+    (2, 200, 4, 4, 64, False, torch.float32, True),
+])
+def test_flash_attention_kernel_against_plain(cuda, b, s, h, kv, d, causal,
+                                              dtype, segments):
+    """K6 within 2e-2 (bf16) / 1e-4 (f32) of ``mha_reference``: GQA,
+    causal and not, ragged lengths, and packed segments whose rows see
+    whole 64-position tiles of other requests fully masked."""
+    rng = np.random.default_rng(14)
+    q, k, v = _qkv(rng, [(b, s, h, d), (b, s, kv, d), (b, s, kv, d)], dtype,
+                   cuda)
+    seg = (torch.from_numpy(_packed_segments(rng, b, s)).to(cuda)
+           if segments else None)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = attn_ops.flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attn_ops.flash_attention(q, k, v, causal=causal, segment_ids=seg,
+                                    impl="torch")
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("pos", [0, 1, 63, 64, 511])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_kernel_against_plain(cuda, pos, dtype):
+    """K7 within 2e-2 (bf16) / 1e-4 (f32) of ``decode_reference`` over a
+    512-position cache, positions around the tile edges."""
+    rng = np.random.default_rng(15)
+    b, h, kv, d, smax = 2, 6, 2, 128, 512
+    q, k, v = _qkv(rng, [(b, 1, h, d), (b, smax, kv, d), (b, smax, kv, d)],
+                   dtype, cuda)
+    before = kernels.LAUNCHES["flash_decode"]
+    got = attn_ops.flash_decode(q, k, v, pos)
+    assert kernels.LAUNCHES["flash_decode"] == before + 1
+    want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    kv3 = torch.zeros((1, 64, 3, 64), device=cuda, dtype=torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    bad = [
+        ((q.half(), kv.half(), kv.half()), {}, "dtype"),
+        ((q, kv.float(), kv), {}, "is torch.float32"),
+        ((q, kv3, kv3), {}, "multiple"),
+        ((q[..., :48].contiguous(), kv[..., :48].contiguous(),
+          kv[..., :48].contiguous()), {}, "head dim"),
+        ((q.transpose(1, 2), kv, kv), {}, "contiguous"),
+        ((q, kv[:, :32].contiguous(), kv[:, :32].contiguous()),
+         {"causal": True}, "Sq == Skv"),
+        ((q, kv, kv), {"segment_ids": torch.zeros((1, 64), device=cuda)},
+         "segment_ids"),
+        ((q, kv.cpu(), kv), {}, "expected"),
+    ]
+    for args, kw, match in bad:
+        with pytest.raises(ValueError, match=match):
+            attn_ops.flash_attention(*args, **kw)
+    q1 = q[:, :1].contiguous()
+    for pos, match in ((64, "pos"), (-1, "pos"),
+                       (torch.tensor(3, device=cuda), "pos")):
+        with pytest.raises(ValueError, match=match):
+            attn_ops.flash_decode(q1, kv, kv, pos)
+    with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):
+        attn_ops.flash_decode(q[:, :2].contiguous(), kv, kv, 3)
+    assert kernels.LAUNCHES == before     # nothing launched, no fallback
+
+
+def test_lm_prefill_and_decode_on_card_run_k6_and_k7(cuda):
+    """The reduced minitron-4b on the card: prefill launches K6 once a
+    layer, each decode step K7 once a layer, the plain run neither; the
+    kernel and plain logits agree, and decode logits equal prefill logits
+    position by position."""
+    cfg = reduce_arch(get("minitron-4b"))
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tok = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, size=(2, 96))).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    h, _ = transformer.forward(cfg, params, tok)
+    assert kernels.LAUNCHES["flash_attention"] == (
+        before["flash_attention"] + cfg.n_layers)
+    h_plain, _ = transformer.forward(cfg, params, tok, impl="torch")
+    assert kernels.LAUNCHES["flash_attention"] == (
+        before["flash_attention"] + cfg.n_layers)
+    torch.testing.assert_close(h, h_plain, atol=1e-4, rtol=1e-4)
+    want = transformer.logits(cfg, params, h)
+    cache = transformer.init_cache(cfg, 2, 128, cuda)
+    for pos in range(8):
+        got, cache = transformer.decode_step(cfg, params,
+                                             tok[:, pos:pos + 1], cache, pos)
+        torch.testing.assert_close(got[:, 0], want[:, pos], atol=1e-4,
+                                   rtol=1e-4)
+    assert kernels.LAUNCHES["flash_decode"] == (
+        before["flash_decode"] + 8 * cfg.n_layers)
