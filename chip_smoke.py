@@ -85,6 +85,7 @@ import gc
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -222,8 +223,12 @@ def build_kernels() -> None:
         log(f"  {mod.LIBRARY}: nvcc {info['seconds']:.2f}s -> "
             f"{info['path']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+            entry = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)(I\w*?E)?",
+                              line)
+            if entry:   # the kernel's name and template arguments, mangled
+                log(f"  ptxas: {entry.group(1)}{entry.group(2) or ''}")
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas:   {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3 ----

@@ -3,9 +3,11 @@
 Each kernel source under ``kernels/*/csrc`` has a plain C interface.  On
 first use ``nvcc`` compiles it for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (git-ignored), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  Nothing here runs at import time: a host without ``nvcc``
-imports every module of the port and only fails when a kernel is asked for.
+the source, the shared headers under ``kernels/csrc`` (``hopper.cuh``:
+mbarriers, TMA, wgmma) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Nothing here runs at import
+time: a host without ``nvcc`` imports every module of the port and only
+fails when a kernel is asked for.
 """
 from __future__ import annotations
 
@@ -20,9 +22,12 @@ import time
 from typing import Dict, Sequence
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: headers every kernel source may include (``#include "hopper.cuh"``)
+INCLUDE_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-I{INCLUDE_DIR}")
 
 _LOCK = threading.Lock()   # guards _BUILD_LOCKS
 #: one lock per library, so builds of different libraries run in parallel
@@ -50,7 +55,7 @@ def compile_library(name: str,
                     sources: Sequence[pathlib.Path]) -> pathlib.Path:
     """Compile ``sources`` into ``build/kernels/<name>-<hash>.so``."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(INCLUDE_DIR.glob("*.cuh"))]:
         digest.update(pathlib.Path(src).read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():

@@ -22,30 +22,47 @@
 // with alpha = exp(-1e30 - m) = 0, as in the Pallas kernel; with Sq == Skv
 // every row has its diagonal unmasked, so no row ends fully masked.
 // Positions past the ragged end (Skv not a multiple of the tile) are not
-// scores at all: they get p = 0 and never enter the max.
+// scores at all: they get p = 0 and never enter the max.  The bf16 kernel
+// works in base 2 (scores times sm_scale * log2(e), exp2), which changes
+// no masked case: a masked score stays -1e30 beside scores of size ~10.
 //
 // K6 bound on an H100: operations.  Causal attention does 2*B*S^2*H*D
 // FLOP (the two products over the lower triangle), 206 GFLOP at B = 2,
 // S = 4096, H = 24, D = 128: 0.208 ms at 989 TFLOP/s bf16, against 0.2 ms
-// of bytes only if every input were read once.  Design.  The TPU kernel
-// runs a sequential KV grid axis carrying (m, l, acc) in VMEM scratch; on
-// Hopper blocks carry nothing between them, so one block per (query tile
-// of 64 rows, query head, batch) loops over the KV tiles itself.  Each of
-// its 4 warps owns 16 query rows: it multiplies Q.K^T for its rows on the
-// tensor cores (WMMA 16x16x16 bf16, float32 accumulators) into a float32
-// score tile in shared memory, runs the online softmax over its rows with
-// warp shuffles, rescales its rows of the float32 output tile in shared
-// memory by alpha and adds P.V on the tensor cores.  Only the K/V tile
-// loads need the whole block.  Causal blocks stop at the diagonal tile
-// (the TPU kernel's early-out), and the heaviest query tiles start first.
-// At D = 128 the Q, K, V tiles (17 KB each), the score tile (17 KB), the
-// P tile and the output tile take 111 KB of dynamic shared memory, past
-// the 48 KB default, so the launch sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize; two blocks fit on an SM.
-// float32 inputs take an FMA variant on the CUDA cores (TF32 would miss
-// the 1e-4 tolerance).  wgmma, TMA, register-resident accumulators and a
-// pipelined K/V ring are later work: this kernel sits well above its
-// bound.
+// of bytes only if every input were read once.  Design (bf16, after
+// FlashAttention-3).  The TPU kernel runs a sequential KV grid axis
+// carrying (m, l, acc) in VMEM scratch; on Hopper blocks carry nothing
+// between them, so one block per (128 query rows, query head, batch) loops
+// over 128-position KV tiles itself, the heaviest causal query tiles first.
+// Warp roles (384 threads): warpgroups 0 and 1 are consumers, 64 query
+// rows each; warpgroup 2 is the producer, one thread of which loads Q once
+// and K/V tiles into a ring of 2 stages with TMA (3-D maps over the
+// (B, S, H, D) tensors, so a head's rows strided by H*D come in as one box,
+// zero-filled past S), completing on mbarriers; the consumers free a stage
+// on its "empty" barrier.  setmaxnreg moves registers from the producer
+// (24) to the consumers (240).  A consumer runs S = Q.K^T as wgmma
+// m64n128k16 with both operands in shared memory and the float32 scores in
+// registers; the masks, the row max and sum (quad shuffles) and the
+// rescale of the output accumulator by alpha all happen in registers; p is
+// rounded to bf16 in registers, whose layout is the A operand of the P.V
+// wgmma (m64nDk16, V read MN-major from shared memory).  Neither the
+// scores nor the output touch shared memory; the output is divided by l
+// and stored from registers.  Tiles are 128-byte swizzled (64-byte at
+// D = 32), in D / 64 column blocks of 64.  Shared memory at D = 128: Q
+// 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB of the 227 KB, one block
+// an SM.  D in {32, 64, 128}.  Each step waits for its own products, so a
+// consumer's tensor work and its softmax (64 exp2 a thread a tile on the
+// special-function unit) alternate, and only the other consumer fills the
+// gaps.  Later work: explicit ping-pong of the two consumers on named
+// barriers and, with it, overlapping a tile's softmax with its own
+// products (issuing the previous tile's P.V behind this tile's Q.K^T
+// alone ran slower on the card); the causal diagonal tile is computed
+// whole and masked, and the first consumer computes tiles its rows never
+// see; the output is stored from registers (4-byte stores), not through
+// TMA.  float32 inputs take an FMA
+// kernel on the CUDA cores (TF32 would miss the 1e-4 tolerance): one block
+// per (64 query rows, head, batch), 4 warps of 16 rows, the score and
+// output tiles in shared memory, off the main path.
 //
 // K7 bound on an H100: bytes.  A step reads the cache up to pos once,
 // 2*B*(pos+1)*Kv*D*sizeof(T): 33.6 MB at B = 2, pos = 4095 (0.010 ms at
@@ -70,17 +87,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the finite mask value of flash.py:30
-constexpr int kThreads = 128;      // 4 warps
-constexpr int kBQ = 64;            // K6 query rows per block (16 a warp)
-constexpr int kBKV = 64;           // K6 / K7 positions per KV tile
+constexpr int kThreads = 128;      // 4 warps (float32 K6, K7)
+constexpr int kBQ = 64;            // float32 K6 query rows per block
+constexpr int kBKV = 64;           // float32 K6 / K7 positions per KV tile
 constexpr int kRowsPerWarp = 16;
 
 __host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
@@ -116,27 +134,322 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ------------------------------------------------------------------ K6 ----
+// ------------------------------------------------------- K6, bf16 wgmma ----
 
-// Shared-memory layout of one K6 block.  Row strides are padded: bf16 tiles
-// by 8 elements (16-byte rows for vector stores, 32-byte aligned WMMA
-// fragments every 16 rows), float32 tiles by 1 (the FMA variant reads one
-// K row per lane: a stride of D + 1 words spreads the lanes over the banks).
-template <typename T, int D>
+constexpr int kWgThreads = 384;   // 2 consumer warpgroups + 1 producer
+constexpr int kWgBQ = 128;        // query rows a block (64 a consumer)
+constexpr int kWgBKV = 128;       // positions a KV tile
+constexpr int kWgStages = 2;      // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one bf16 K6 block (offsets from a 1024-byte aligned
+// base): Q, then the K stages, then the V stages, then the barriers.  Each
+// tile is D / kCols column blocks of (rows x kSw bytes), 128-byte swizzled
+// (64-byte at D = 32).
+template <int D>
+struct WgLayout {
+  static constexpr int kSw = D * 2 >= 128 ? 128 : D * 2;  // bytes a row
+  static constexpr int kCols = kSw / 2;                   // bf16 a block
+  static constexpr int kBlocks = D / kCols;
+  static constexpr int q_block = kWgBQ * kSw;             // bytes
+  static constexpr int kv_block = kWgBKV * kSw;
+  static constexpr int q_bytes = kBlocks * q_block;
+  static constexpr int kv_bytes = kBlocks * kv_block;     // one K or V tile
+  static constexpr int k_off = q_bytes;
+  static constexpr int v_off = k_off + kWgStages * kv_bytes;
+  static constexpr int bar_off = v_off + kWgStages * kv_bytes;
+  // q_full, full[stages], empty[stages]; plus the alignment slack
+  static constexpr int bytes = bar_off + 8 * (1 + 2 * kWgStages) + 1024;
+};
+
+// 2^x on the special-function unit (flushes denormal results to 0, whose
+// p would round to 0 in bf16 anyway).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 128) {
+    hopper::wgmma_rs_n128<1>(o, a, b, 1);
+  } else if constexpr (D == 64) {
+    hopper::wgmma_rs_n64<1>(o, a, b, 1);
+  } else {
+    hopper::wgmma_rs_n32<1>(o, a, b, 1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const int* __restrict__ seg,
+                             __nv_bfloat16* __restrict__ out, int sq, int skv,
+                             int h, int kvh, int causal, float scale_log2) {
+  using L = WgLayout<D>;
+  extern __shared__ unsigned char k6_raw[];
+  unsigned char* smem = hopper::align_1024(k6_raw);
+  unsigned char* qs = smem;
+  unsigned char* ks = smem + L::k_off;
+  unsigned char* vs = smem + L::v_off;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWgStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  // the heaviest causal query tiles (the last) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kv_head = head / (h / kvh);
+  // causal: KV tiles past the diagonal are skipped (flash.py:81-85)
+  const int kv_end = causal ? min(skv, q0 + kWgBQ) : skv;
+  const int n_tiles = (kv_end + kWgBKV - 1) / kWgBKV;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 256);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load ----
+    hopper::reg_dealloc<24>();
+    if (tid == 256) {
+      hopper::mbar_arrive_expect_tx(q_full, L::q_bytes);
+      for (int c = 0; c < L::kBlocks; ++c) {
+        hopper::tma_load_4d(qs + c * L::q_block, &qmap, q_full, c * L::kCols,
+                            head, q0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kWgStages;
+        const uint32_t phase = (t / kWgStages) & 1;
+        hopper::mbar_wait(&empty[st], phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * L::kv_bytes);
+        for (int c = 0; c < L::kBlocks; ++c) {
+          hopper::tma_load_4d(ks + st * L::kv_bytes + c * L::kv_block, &kmap,
+                              &full[st], c * L::kCols, kv_head, t * kWgBKV,
+                              b);
+          hopper::tma_load_4d(vs + st * L::kv_bytes + c * L::kv_block, &vmap,
+                              &full[st], c * L::kCols, kv_head, t * kWgBKV,
+                              b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    hopper::reg_alloc<240>();
+    const int lane = tid % 32;
+    const int row_a = q0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+    const int row_b = row_a + 8;
+    const int wg_first = q0 + wg * 64;   // this consumer's first row
+    const int use_seg = seg != nullptr;
+    const int* segb = use_seg ? seg + (int64_t)b * skv : nullptr;
+    const int qseg_a = use_seg && row_a < sq ? segb[row_a] : 0;
+    const int qseg_b = use_seg && row_b < sq ? segb[row_b] : 0;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float s[kWgBKV / 2];
+#pragma unroll
+    for (int i = 0; i < kWgBKV / 2; ++i) s[i] = 0.0f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+
+    hopper::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kWgStages;
+      const int j0 = t * kWgBKV;
+      hopper::mbar_wait(&full[st], (t / kWgStages) & 1);
+
+      // S = Q . K^T, both K-major in shared memory
+      const unsigned char* kt = ks + st * L::kv_bytes;
+      hopper::wgmma_fence();
+      hopper::fence_regs(s);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / (L::kCols / 16);
+        const int off = (kk % (L::kCols / 16)) * 32;
+        const uint64_t da = hopper::smem_desc(
+            qs + c * L::q_block + wg * 64 * L::kSw + off, 16, 8 * L::kSw,
+            L::kSw);
+        const uint64_t db = hopper::smem_desc(kt + c * L::kv_block + off, 16,
+                                              8 * L::kSw, L::kSw);
+        hopper::wgmma_ss_n128<0>(s, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+
+      // masks, in registers: element i is row (i & 2 ? b : a), column
+      // j0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1)
+      const bool edge = j0 + kWgBKV > skv;
+      const bool diag = causal && j0 + kWgBKV - 1 > wg_first;
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kWgBKV / 2; ++i) {
+        float x = s[i] * scale_log2;
+        if (edge || diag || use_seg) {
+          const int col = j0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          const int row = (i & 2) ? row_b : row_a;
+          if (col >= skv) {
+            x = -INFINITY;   // not a score: p = 0, out of the max
+          } else if ((causal && col > row) ||
+                     (use_seg && segb[col] != ((i & 2) ? qseg_b : qseg_a))) {
+            x = kNegInf;
+          }
+        }
+        s[i] = x;
+        if (i & 2) {
+          mx_b = fmaxf(mx_b, x);
+        } else {
+          mx_a = fmaxf(mx_a, x);
+        }
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float alpha_a = fast_exp2(m_a - mn_a);
+      const float alpha_b = fast_exp2(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kWgBKV / 2; ++i) {
+        const float p = fast_exp2(s[i] - ((i & 2) ? mn_b : mn_a));
+        s[i] = p;
+        if (i & 2) {
+          sum_b += p;
+        } else {
+          sum_a += p;
+        }
+      }
+      // each thread keeps its own share of l; the quad sums it at the end
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? alpha_b : alpha_a;
+
+      // p rounded to bf16: the S fragment of columns [16 kk, 16 kk + 16) is
+      // the A fragment of k-step kk
+      uint32_t pa[kWgBKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kWgBKV / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // O += P . V, V MN-major: 16 positions a k-step
+      const unsigned char* vt = vs + st * L::kv_bytes;
+      hopper::wgmma_fence();
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < kWgBKV / 16; ++kk) {
+        const uint64_t db = hopper::smem_desc(vt + kk * 16 * L::kSw,
+                                              L::kv_block, 8 * L::kSw,
+                                              L::kSw);
+        wgmma_pv<D>(o, pa[kk], db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float safe_a = l_a == 0.0f ? 1.0f : l_a;
+    const float safe_b = l_b == 0.0f ? 1.0f : l_b;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = (i & 2) ? row_b : row_a;
+      if (row >= sq) continue;
+      const float safe = (i & 2) ? safe_b : safe_a;
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + (((int64_t)b * sq + row) * h + head) * D + col) =
+          __floats2bfloat162_rn(o[i] / safe, o[i + 1] / safe);
+    }
+  }
+}
+
+// The (B, S, heads, D) bf16 tensor as a 4-D TMA map whose box is
+// (one column block, one head, `rows` positions, one batch).
+template <int D>
+int encode_qkv_map(CUtensorMap* map, const void* base, int b, int s,
+                   int heads, int rows) {
+  using L = WgLayout<D>;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)s * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::kCols, 1, (cuuint32_t)rows, 1};
+  return hopper::encode_bf16_map(map, base, 4, dims, strides, box, L::kSw);
+}
+
+template <int D>
+int launch_flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                 const int* seg, void* out, int b, int sq,
+                                 int skv, int h, int kvh, int causal,
+                                 float sm_scale, cudaStream_t stream) {
+  using L = WgLayout<D>;
+  CUtensorMap qmap, kmap, vmap;
+  int rc = encode_qkv_map<D>(&qmap, q, b, sq, h, kWgBQ);
+  if (rc == 0) rc = encode_qkv_map<D>(&kmap, k, b, skv, kvh, kWgBKV);
+  if (rc == 0) rc = encode_qkv_map<D>(&vmap, v, b, skv, kvh, kWgBKV);
+  if (rc != 0) return rc;
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + kWgBQ - 1) / kWgBQ, h, b);
+  kernel<<<grid, kWgThreads, L::bytes, stream>>>(
+      qmap, kmap, vmap, seg, static_cast<__nv_bfloat16*>(out), sq, skv, h,
+      kvh, causal, sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ K6, float32 FMA ----
+
+// Shared-memory layout of one float32 K6 block.  Row strides are padded by
+// 1 (a K row per lane: a stride of D + 1 words spreads the lanes over the
+// banks).
+template <int D>
 struct K6Layout {
-  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int ldt = kBf16 ? D + 8 : D + 1;      // Q, K, V
-  static constexpr int lds = kBKV + 4;                   // scores (f32)
-  static constexpr int ldp = kBf16 ? kBKV + 8 : kBKV + 4;  // P (T)
-  static constexpr int ldo = D + 4;                      // output (f32)
-  static constexpr size_t tile = round_up(sizeof(T) * kBQ * ldt, 128);
+  static constexpr int ldt = D + 1;       // Q, K, V
+  static constexpr int lds = kBKV + 4;    // scores
+  static constexpr int ldp = kBKV + 4;    // P
+  static constexpr int ldo = D + 4;       // output
+  static constexpr size_t tile = round_up(sizeof(float) * kBQ * ldt, 128);
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + tile;
   static constexpr size_t v_off = k_off + tile;
   static constexpr size_t s_off = v_off + tile;
   static constexpr size_t p_off =
       s_off + round_up(sizeof(float) * kBQ * lds, 128);
-  static constexpr size_t o_off = p_off + round_up(sizeof(T) * kBQ * ldp, 128);
+  static constexpr size_t o_off =
+      p_off + round_up(sizeof(float) * kBQ * ldp, 128);
   static constexpr size_t stat_off =
       o_off + round_up(sizeof(float) * kBQ * ldo, 128);
   // m, l, alpha (float) and the query / key segment ids (int)
@@ -145,22 +458,6 @@ struct K6Layout {
 
 // Rows [first, first + 64) of a sequence whose row r starts at
 // src + r * stride, into a tile with row stride ld; zero past `limit`.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src,
-                                          int64_t stride, int first,
-                                          int limit, int d) {
-  const int chunks = d / 8;  // 16-byte vectors per row
-  for (int e = threadIdx.x; e < kBQ * chunks; e += kThreads) {
-    const int r = e / chunks;
-    const int c = (e - r * chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + (first + r) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
 __device__ __forceinline__ void load_tile(float* dst, int ld,
                                           const float* src, int64_t stride,
                                           int first, int limit, int d) {
@@ -171,44 +468,12 @@ __device__ __forceinline__ void load_tile(float* dst, int ld,
   }
 }
 
-// S[rows of this warp][0, 64) = Q . K^T (unscaled), tensor cores.
-template <int D>
-__device__ __forceinline__ void tile_scores(const __nv_bfloat16* qs,
-                                            const __nv_bfloat16* ks,
-                                            float* s, int r0) {
-  namespace wmma = nvcuda::wmma;
-  using L = K6Layout<__nv_bfloat16, D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBKV / 16];
-#pragma unroll
-  for (int j = 0; j < kBKV / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, qs + r0 * L::ldt + kk, L::ldt);
-#pragma unroll
-    for (int j = 0; j < kBKV / 16; ++j) {
-      // K stored (position, d) row-major is K^T column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major>
-          b;
-      wmma::load_matrix_sync(b, ks + (16 * j) * L::ldt + kk, L::ldt);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kBKV / 16; ++j) {
-    wmma::store_matrix_sync(s + r0 * L::lds + 16 * j, acc[j], L::lds,
-                            wmma::mem_row_major);
-  }
-}
-
-// The same with float32 FMAs: lane owns score columns lane and lane + 32.
+// S[rows of this warp][0, 64) = Q . K^T (unscaled): lane owns score
+// columns lane and lane + 32.
 template <int D>
 __device__ __forceinline__ void tile_scores(const float* qs, const float* ks,
                                             float* s, int r0) {
-  using L = K6Layout<float, D>;
+  using L = K6Layout<D>;
   const int lane = threadIdx.x % 32;
   float acc[kRowsPerWarp][2];
 #pragma unroll
@@ -230,41 +495,11 @@ __device__ __forceinline__ void tile_scores(const float* qs, const float* ks,
   }
 }
 
-// O[rows of this warp] += P . V, tensor cores (O already rescaled).
-template <int D>
-__device__ __forceinline__ void tile_pv(const __nv_bfloat16* p,
-                                        const __nv_bfloat16* vs, float* o,
-                                        int r0) {
-  namespace wmma = nvcuda::wmma;
-  using L = K6Layout<__nv_bfloat16, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      a[kBKV / 16];
-#pragma unroll
-  for (int j = 0; j < kBKV / 16; ++j) {
-    wmma::load_matrix_sync(a[j], p + r0 * L::ldp + 16 * j, L::ldp);
-  }
-#pragma unroll
-  for (int c = 0; c < D; c += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, o + r0 * L::ldo + c, L::ldo,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int j = 0; j < kBKV / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          b;
-      wmma::load_matrix_sync(b, vs + (16 * j) * L::ldt + c, L::ldt);
-      wmma::mma_sync(acc, a[j], b, acc);
-    }
-    wmma::store_matrix_sync(o + r0 * L::ldo + c, acc, L::ldo,
-                            wmma::mem_row_major);
-  }
-}
-
+// O[rows of this warp] += P . V (O already rescaled).
 template <int D>
 __device__ __forceinline__ void tile_pv(const float* p, const float* vs,
                                         float* o, int r0) {
-  using L = K6Layout<float, D>;
+  using L = K6Layout<D>;
   const int lane = threadIdx.x % 32;
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + i;
@@ -280,20 +515,21 @@ __device__ __forceinline__ void tile_pv(const float* p, const float* vs,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const int* __restrict__ seg, T* __restrict__ out,
-                       int sq, int skv, int h, int kvh, int causal,
-                       float sm_scale) {
-  using L = K6Layout<T, D>;
+flash_attention_fma_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const int* __restrict__ seg,
+                           float* __restrict__ out, int sq, int skv, int h,
+                           int kvh, int causal, float sm_scale) {
+  using L = K6Layout<D>;
   extern __shared__ __align__(128) unsigned char k6_smem[];
-  T* qs = reinterpret_cast<T*>(k6_smem + L::q_off);
-  T* ks = reinterpret_cast<T*>(k6_smem + L::k_off);
-  T* vs = reinterpret_cast<T*>(k6_smem + L::v_off);
+  float* qs = reinterpret_cast<float*>(k6_smem + L::q_off);
+  float* ks = reinterpret_cast<float*>(k6_smem + L::k_off);
+  float* vs = reinterpret_cast<float*>(k6_smem + L::v_off);
   float* s = reinterpret_cast<float*>(k6_smem + L::s_off);
-  T* p = reinterpret_cast<T*>(k6_smem + L::p_off);
+  float* p = reinterpret_cast<float*>(k6_smem + L::p_off);
   float* o = reinterpret_cast<float*>(k6_smem + L::o_off);
   float* m_row = reinterpret_cast<float*>(k6_smem + L::stat_off);
   float* l_row = m_row + kBQ;
@@ -311,9 +547,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_head = head / (h / kvh);
   const int64_t q_stride = (int64_t)h * D;
   const int64_t kv_stride = (int64_t)kvh * D;
-  const T* qb = q + ((int64_t)b * sq * h + head) * D;
-  const T* kb = k + ((int64_t)b * skv * kvh + kv_head) * D;
-  const T* vb = v + ((int64_t)b * skv * kvh + kv_head) * D;
+  const float* qb = q + ((int64_t)b * sq * h + head) * D;
+  const float* kb = k + ((int64_t)b * skv * kvh + kv_head) * D;
+  const float* vb = v + ((int64_t)b * skv * kvh + kv_head) * D;
   const int use_seg = seg != nullptr;
 
   load_tile(qs, L::ldt, qb, q_stride, q0, sq, D);
@@ -364,8 +600,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p1 = in[1] ? expf(x[1] - m_new) : 0.0f;
       const float sum = warp_sum(p0 + p1);
       const float alpha = expf(m_prev - m_new);
-      p[r * L::ldp + lane] = from_float<T>(p0);
-      p[r * L::ldp + lane + 32] = from_float<T>(p1);
+      p[r * L::ldp + lane] = p0;
+      p[r * L::ldp + lane + 32] = p1;
       __syncwarp();
       if (lane == 0) {
         m_row[r] = m_new;
@@ -390,49 +626,40 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= sq) break;
     const float l = l_row[r];
     const float safe = l == 0.0f ? 1.0f : l;
-    T* dst = out + (((int64_t)b * sq + qi) * h + head) * D;
-    for (int c = lane; c < D; c += 32) {
-      dst[c] = from_float<T>(o[r * L::ldo + c] / safe);
-    }
+    float* dst = out + (((int64_t)b * sq + qi) * h + head) * D;
+    for (int c = lane; c < D; c += 32) dst[c] = o[r * L::ldo + c] / safe;
   }
 }
 
-template <typename T, int D>
-int launch_flash_attention(const void* q, const void* k, const void* v,
-                           const int* seg, void* out, int b, int sq, int skv,
-                           int h, int kvh, int causal, float sm_scale,
-                           cudaStream_t stream) {
-  using L = K6Layout<T, D>;
-  auto kernel = flash_attention_kernel<T, D>;
+template <int D>
+int launch_flash_attention_fma(const void* q, const void* k, const void* v,
+                               const int* seg, void* out, int b, int sq,
+                               int skv, int h, int kvh, int causal,
+                               float sm_scale, cudaStream_t stream) {
+  using L = K6Layout<D>;
+  auto kernel = flash_attention_fma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<T*>(out), sq, skv, h, kvh,
-      causal, sm_scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg, static_cast<float*>(out), sq, skv,
+      h, kvh, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_flash_attention(int d, const void* q, const void* k,
-                             const void* v, const int* seg, void* out, int b,
-                             int sq, int skv, int h, int kvh, int causal,
-                             float sm_scale, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch_flash_attention<T, 32>(q, k, v, seg, out, b, sq, skv, h,
+template <int D>
+int launch_flash_attention(int bf16, const void* q, const void* k,
+                           const void* v, const int* seg, void* out, int b,
+                           int sq, int skv, int h, int kvh, int causal,
+                           float sm_scale, cudaStream_t stream) {
+  if (bf16) {
+    return launch_flash_attention_wgmma<D>(q, k, v, seg, out, b, sq, skv, h,
                                            kvh, causal, sm_scale, stream);
-    case 64:
-      return launch_flash_attention<T, 64>(q, k, v, seg, out, b, sq, skv, h,
-                                           kvh, causal, sm_scale, stream);
-    case 128:
-      return launch_flash_attention<T, 128>(q, k, v, seg, out, b, sq, skv, h,
-                                            kvh, causal, sm_scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
   }
+  return launch_flash_attention_fma<D>(q, k, v, seg, out, b, sq, skv, h, kvh,
+                                       causal, sm_scale, stream);
 }
 
 // ------------------------------------------------------------------ K7 ----
@@ -691,12 +918,19 @@ extern "C" int tangram_flash_attention(const void* q, const void* k,
                                        float sm_scale, int bf16,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return dispatch_flash_attention<__nv_bfloat16>(
-        d, q, k, v, seg, out, b, sq, skv, h, kvh, causal, sm_scale, s);
+  switch (d) {
+    case 32:
+      return launch_flash_attention<32>(bf16, q, k, v, seg, out, b, sq, skv,
+                                        h, kvh, causal, sm_scale, s);
+    case 64:
+      return launch_flash_attention<64>(bf16, q, k, v, seg, out, b, sq, skv,
+                                        h, kvh, causal, sm_scale, s);
+    case 128:
+      return launch_flash_attention<128>(bf16, q, k, v, seg, out, b, sq, skv,
+                                         h, kvh, causal, sm_scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return dispatch_flash_attention<float>(d, q, k, v, seg, out, b, sq, skv, h,
-                                         kvh, causal, sm_scale, s);
 }
 
 // K7.  part_ml (B, H, n_chunks, 2) and part_acc (B, H, n_chunks, D) float32

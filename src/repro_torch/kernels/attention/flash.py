@@ -34,7 +34,10 @@ HEAD_DIMS = (32, 64, 128)
 #: q / k / v dtypes the kernels take -> the C interface's bf16 flag
 _BF16_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
-_TILE = 64              # positions per KV tile (kBKV in the source)
+_TILE = 64              # positions per K7 / float32 K6 tile (kBKV)
+#: the bf16 K6 kernel's tiles (kWgBQ, kWgBKV, kWgStages in the source):
+#: query rows a block, positions a KV tile, K/V ring stages
+WG_ROWS, WG_TILE, WG_STAGES = 128, 128, 2
 _MAX_CHUNK_TILES = 8    # K7 chunks of at most 512 positions
 _SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block can have
 
@@ -55,6 +58,17 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def wgmma_plan(b: int, sq: int, h: int, d: int):
+    """Grid and dynamic shared-memory bytes of the bf16 K6 launch, as the
+    source's ``WgLayout`` lays a block out: Q (``WG_ROWS`` x D bf16), the
+    K and V rings, 1 + 2 per stage barriers and 1024 bytes of alignment
+    slack.  Blocks run the last query tile first (the heaviest when
+    causal): block x takes query rows from ``(grid[0] - 1 - x) * WG_ROWS``."""
+    smem = (WG_ROWS * d * 2 + 2 * WG_STAGES * WG_TILE * d * 2
+            + 8 * (1 + 2 * WG_STAGES) + 1024)
+    return (-(-sq // WG_ROWS), h, b), smem
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -120,6 +134,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.device}, got {segment_ids.dtype} "
                              f"{tuple(segment_ids.shape)} on "
                              f"{segment_ids.device}")
+    if q.dtype == torch.bfloat16:
+        _, smem = wgmma_plan(b, sq, h, d)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"{name}: head dim {d} needs {smem} bytes of "
+                             f"shared memory, more than {_SMEM_LIMIT}")
     out = torch.empty_like(q)
     if out.numel() == 0 or skv == 0:
         return out.zero_()

@@ -30,7 +30,12 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "fused_embed.cu"
 LIBRARY = "tangram_fused"
 
 _MAX_GRID_YZ = 65535
-_SEGMENT = 32       # tokens of a token row per K4 block (kBM in the source)
+_SEGMENT = 32       # tokens of a token row per f32 K4 block (kBM)
+_SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block can have
+#: the bf16 K4 kernel's tiles (kWgBM, kWgBN, kWgBK, kWgStages in the
+#: source): tokens and columns of d a block, K step, weight ring depth
+WG_TOKENS, WG_COLS, WG_K, WG_STAGES = 128, 192, 64, 3
+_REC_BYTES = 20     # a live record in shared memory (slot, x, y, w, h)
 #: weight / raw-head dtypes the kernels take -> the C interface's bf16 flag
 _BF16_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,6 +52,41 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def wgmma_plan(b: int, seq: int, d: int, k: int, patch: int):
+    """Grid and dynamic shared-memory bytes of the bf16 K4 launch, as the
+    source's ``WgLayout`` lays a block out: the A tile (``WG_TOKENS`` x
+    ``WG_K`` bf16), the weight ring (``WG_STAGES`` x ``WG_K`` x ``WG_COLS``
+    bf16), the segment table (``WG_TOKENS * patch`` int4), ``k`` live
+    records, 2 barriers a stage, the live count and 1024 bytes of alignment
+    slack."""
+    ring = (WG_TOKENS * WG_K + WG_STAGES * WG_K * WG_COLS) * 2
+    live_end = ring + WG_TOKENS * patch * 16 + k * _REC_BYTES
+    smem = -(-live_end // 8) * 8 + 2 * WG_STAGES * 8 + 8 + 1024
+    grid = (-(-d // WG_COLS), -(-seq // WG_TOKENS), b)
+    return grid, smem
+
+
+def check_wgmma_shape(name: str, b: int, seq: int, kdim: int, d: int, k: int,
+                      patch: int, slot_elems: int) -> None:
+    """Raise on what the bf16 K4 kernel does not take: K in steps of 64
+    (``patch**2 * C``), weight rows a multiple of 16 bytes (TMA), slot
+    offsets in int32, and a block within the card's shared memory."""
+    if kdim % WG_K:
+        raise ValueError(f"{name}: the bf16 kernel takes K = patch^2 * C in "
+                         f"steps of {WG_K}, got {kdim}")
+    if d % 8:
+        raise ValueError(f"{name}: the bf16 kernel takes d a multiple of 8 "
+                         f"(16-byte weight rows), got {d}")
+    if slot_elems >= 2**31:
+        raise ValueError(f"{name}: {slot_elems} slot elements exceed int32 "
+                         f"offsets")
+    _, smem = wgmma_plan(b, seq, d, k, patch)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: {k} records per canvas at patch {patch} "
+                         f"need {smem} bytes of shared memory, more than "
+                         f"{_SMEM_LIMIT}")
 
 
 def _check_tensor(name: str, what: str, t: torch.Tensor, device: torch.device,
@@ -121,6 +161,11 @@ def stitch_embed_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
     side_m, side_n = m // patch, n // patch
     if side_m * -(-side_n // _SEGMENT) > _MAX_GRID_YZ:
         raise ValueError(f"{name}: {side_m}x{side_n} token grid too large")
+    if kernel.dtype == torch.bfloat16:
+        check_wgmma_shape(name, b, side_m * side_n, kernel.shape[0], d, k,
+                          patch, patch_pixels.numel())
+        if kernel.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel is not 16-byte aligned (TMA)")
     if b == 0 or k == 0 or p == 0:
         # empty packing: the embed of an all-zero canvas is the bias
         return bias.expand(b, side_m * side_n, d).contiguous()

@@ -468,3 +468,134 @@ def test_lm_prefill_and_decode_on_card_run_k6_and_k7(cuda):
                                    rtol=1e-4)
     assert kernels.LAUNCHES["flash_decode"] == (
         before["flash_decode"] + 8 * cfg.n_layers)
+
+
+# ------------------------------------------- K4 / K6 wgmma kernels' edges ----
+
+def _scattered_records(rng, b, m, n, cell=(53, 47)):
+    """Records for ``b`` canvases of m x n: one placement per cell of a
+    53 x 47 px grid, at a random offset and size inside it, so edges fall
+    inside tokens at offsets that are no multiple of 4 or 8, some token row
+    segments lie whole in a placement and some canvases hold a placement at
+    (0, 0) wider than a token.  Returns (records (b, K, 6), (P, hmax, wmax))
+    with every slot of its own."""
+    ch, cw = cell
+    rows = []
+    slot = 0
+    hmax = wmax = 1
+    for bi in range(b):
+        recs = []
+        for y0 in range(0, m - 8, ch):
+            for x0 in range(0, n - 8, cw):
+                if rng.random() < 0.2:
+                    continue            # some cells stay empty
+                h = int(rng.integers(1, min(ch, m - y0) + 1))
+                w = int(rng.integers(1, min(cw, n - x0) + 1))
+                y = y0 + int(rng.integers(0, min(ch, m - y0) - h + 1))
+                x = x0 + int(rng.integers(0, min(cw, n - x0) - w + 1))
+                if bi % 2 == 0 and y0 == 0 and x0 == 0:
+                    y, x, h, w = 0, 0, min(ch, m), min(cw, n)
+                recs.append((1, slot, x, y, w, h))
+                hmax, wmax = max(hmax, h), max(wmax, w)
+                slot += 1
+        rows.append(recs)
+    k = max(1, max(len(r) for r in rows))
+    records = np.zeros((b, k, 6), np.int32)
+    for bi, recs in enumerate(rows):
+        if recs:
+            records[bi, :len(recs)] = recs
+    return records, (max(slot, 1), hmax, wmax)
+
+
+@pytest.mark.parametrize("b,m,n", [(1, 256, 320), (3, 256, 256),
+                                   (4, 96, 160), (3, 96, 160)])
+def test_stitch_embed_wgmma_edges_against_plain(cuda, b, m, n):
+    """The bf16 K4 kernel within 2e-2 of its plain version where its
+    segment table and tiling are at risk: placement edges inside a token's
+    32-pixel rows at offsets no multiple of 4 or 8, whole, empty and cut
+    row segments, and canvases whose token count (15 at 96 x 160) is no
+    multiple of the 128-token tile, at B = 1, 3 and 4 and d = 768 (four
+    192-column tiles)."""
+    patch, d = 32, 768
+    rng = np.random.default_rng(17)
+    records, (p, hmax, wmax) = _scattered_records(rng, b, m, n)
+    slots = torch.from_numpy(rng.normal(size=(p, hmax, wmax, 3)).astype(
+        np.float32)).to(cuda)
+    rec = torch.from_numpy(records).to(cuda)
+    kernel = torch.from_numpy(
+        rng.normal(size=(patch * patch * 3, d)).astype(np.float32)
+        / np.sqrt(patch * patch * 3)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    before = kernels.LAUNCHES["stitch_embed"]
+    got = ops.stitch_embed(slots, rec, kernel, bias, m, n, patch)
+    assert kernels.LAUNCHES["stitch_embed"] == before + 1
+    want = ops.stitch_embed(slots, rec, kernel, bias, m, n, patch,
+                            impl="torch")
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_stitch_embed_wgmma_wrapper_rejects_what_it_does_not_take(cuda):
+    """Shapes the bf16 K4 kernel does not take raise before any launch:
+    K = patch^2 * C not in steps of 64, d not a multiple of 8, weights off
+    16-byte alignment."""
+    slots = torch.zeros((2, 8, 8, 3), device=cuda)
+    rec = torch.zeros((1, 2, 6), dtype=torch.int32, device=cuda)
+    bf = torch.bfloat16
+    before = dict(kernels.LAUNCHES)
+    cases = [
+        ((slots, rec, torch.zeros((4 * 4 * 3, 16), device=cuda, dtype=bf),
+          torch.zeros((16,), device=cuda, dtype=bf), 64, 64, 4),
+         "steps of 64"),
+        ((slots, rec, torch.zeros((32 * 32 * 3, 12), device=cuda, dtype=bf),
+          torch.zeros((12,), device=cuda, dtype=bf), 64, 64, 32),
+         "multiple of 8"),
+        ((slots, rec, torch.zeros(32 * 32 * 3 * 16 + 1, device=cuda,
+                                  dtype=bf)[1:].view(32 * 32 * 3, 16),
+          torch.zeros((16,), device=cuda, dtype=bf), 64, 64, 32),
+         "aligned"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            ops.stitch_embed(*args, impl="cuda")
+    assert kernels.LAUNCHES == before
+
+
+def _block_segments(rng, b, s):
+    """Sorted random segment ids: contiguous requests of any length >= 1."""
+    return np.sort(rng.integers(0, max(1, s // 24) + 1, size=(b, s)),
+                   axis=1).astype(np.int32)
+
+
+K6_SEQS = [1, 63, 64, 65, 127, 129, 197, 4095]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", K6_SEQS)
+def test_flash_attention_wgmma_edges_against_plain(cuda, s, d):
+    """The bf16 K6 kernel within 2e-2 of ``mha_reference`` around its
+    128-row query and 128-position KV tiles (S from 1 to 4095, ragged and
+    exact), at D = 32, 64 and 128, G = 1 and 3, causal, non-causal and
+    with packed segment ids (the mode and G turn with S)."""
+    i = K6_SEQS.index(s)
+    mode = ("causal", "plain", "segments")[(i + d // 32) % 3]
+    kv = 2 if s < 4095 else 1
+    g = (1, 3)[i % 2]
+    b = 2 if s < 4095 else 1
+    rng = np.random.default_rng(18 + i)
+    q, k, v = _qkv(rng, [(b, s, kv * g, d), (b, s, kv, d), (b, s, kv, d)],
+                   torch.bfloat16, cuda)
+    seg = (torch.from_numpy(_block_segments(rng, b, s)).to(cuda)
+           if mode == "segments" else None)
+    causal = mode != "plain"
+    before = kernels.LAUNCHES["flash_attention"]
+    got = attn_ops.flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attn_ops.flash_attention(q, k, v, causal=causal, segment_ids=seg,
+                                    impl="torch")
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)

@@ -1,0 +1,85 @@
+"""Host-side launch planning of the wgmma kernels (K4 stitch->embed, K6
+flash attention), held against a direct computation on the CPU: the grid
+covers every token, column and query row exactly once, and the shared
+memory a block asks for is the sum of its parts and fits the card.  The
+kernels themselves run only on a card (tests/test_torch_cuda.py)."""
+import pytest
+
+from repro_torch.kernels.attention import flash
+from repro_torch.kernels.stitch import fused_embed
+
+SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
+
+
+def _k4_smem(k, patch):
+    stages = 3
+    a_tile = 128 * 64 * 2                 # 128 x 64 bf16
+    weights = stages * 64 * 192 * 2       # 64 x 192 bf16 a stage
+    table = 128 * patch * 16              # an int4 per token row segment
+    records = k * 20
+    end = a_tile + weights + table + records
+    return -(-end // 8) * 8 + 2 * stages * 8 + 8 + 1024
+
+
+@pytest.mark.parametrize("b,seq,d,k,patch", [
+    (3, 1024, 768, 64, 32),      # the 2048x1024 trace's largest invocation
+    (4, 1024, 768, 64, 32),      # the 4K recording's
+    (1, 15, 768, 12, 32),        # a 96 x 160 canvas: 15 tokens
+    (3, 1024, 768, 2048, 32),    # the most records a canvas may hold
+    (2, 4096, 64, 5, 16),
+])
+def test_stitch_embed_wgmma_plan(b, seq, d, k, patch):
+    grid, smem = fused_embed.wgmma_plan(b, seq, d, k, patch)
+    assert grid[2] == b
+    assert (grid[1] - 1) * 128 < seq <= grid[1] * 128
+    assert (grid[0] - 1) * 192 < d <= grid[0] * 192
+    assert smem == _k4_smem(k, patch) <= SMEM_LIMIT
+
+
+def test_stitch_embed_wgmma_plan_main_path_numbers():
+    """B = 3 canvases of 1024 tokens, d 768, 64 records, patch 32: 4 x 8
+    x 3 = 96 blocks, one wave on 132 SMs."""
+    grid, smem = fused_embed.wgmma_plan(3, 1024, 768, 64, 32)
+    assert grid == (4, 8, 3)
+    assert smem == 16384 + 3 * 24576 + 65536 + 1280 + 48 + 8 + 1024
+
+
+@pytest.mark.parametrize("kdim,d,slot_elems,k,match", [
+    (4 * 4 * 3, 16, 100, 4, "steps of 64"),
+    (32 * 32 * 3, 12, 100, 4, "multiple of 8"),
+    (32 * 32 * 3, 768, 2**31, 4, "int32"),
+    (64 * 64 * 3, 768, 100, 2048, "shared memory"),
+])
+def test_check_wgmma_shape_rejects(kdim, d, slot_elems, k, match):
+    patch = {48: 4, 3072: 32, 12288: 64}[kdim]
+    with pytest.raises(ValueError, match=match):
+        fused_embed.check_wgmma_shape("stitch_embed", 3, 1024, kdim, d, k,
+                                      patch, slot_elems)
+
+
+@pytest.mark.parametrize("k,patch", [(64, 32), (2048, 32), (64, 16),
+                                     (64, 8)])
+def test_check_wgmma_shape_accepts(k, patch):
+    fused_embed.check_wgmma_shape("stitch_embed", 4, 1024, patch * patch * 3,
+                                  768, k, patch, 402_653_184 // 4)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b,sq,h", [(2, 4096, 24), (4, 197, 12), (1, 1, 3),
+                                    (1, 4095, 24)])
+def test_flash_attention_wgmma_plan(b, sq, h, d):
+    grid, smem = flash.wgmma_plan(b, sq, h, d)
+    assert grid[1:] == (h, b)
+    assert (grid[0] - 1) * 128 < sq <= grid[0] * 128
+    q_tile = 128 * d * 2
+    kv_stage = 2 * 128 * d * 2               # a K and a V tile
+    assert smem == q_tile + 2 * kv_stage + 8 * 5 + 1024 <= SMEM_LIMIT
+
+
+def test_flash_attention_heaviest_query_tile_first():
+    """Block x takes query rows from (grid[0] - 1 - x) * 128: every tile
+    once, the last (the heaviest when causal) first."""
+    grid, _ = flash.wgmma_plan(2, 4096, 24, 128)
+    starts = [(grid[0] - 1 - x) * flash.WG_ROWS for x in range(grid[0])]
+    assert starts[0] == 4096 - 128
+    assert sorted(starts) == list(range(0, 4096, 128))
