@@ -46,7 +46,12 @@ Phases (any failure raises, so the exit code is non-zero):
    run the serve driver on the recording once (``--source file --fuse``);
 6. time each kernel against its plain version and its bound (K1-K4 at the
    main path's largest invocation, K5 on 4K and 2048x1024 frames), and
-   time the unfused and the fused invocation's stages;
+   time the unfused and the fused invocation's stages.  Every kernel (and
+   library yardstick) gets two times: ``ms_call``, calls back to back
+   between CUDA events, which holds the wrapper's host time wherever it
+   outlasts the device's, and ``ms_device``, the same calls captured in one
+   CUDA graph and replayed, the card's time alone (``torch.profiler``'s
+   sum of the device activities beside it as a cross-check);
 7. hold K6 flash attention and K7 flash decode against their plain
    versions (bf16 within 2e-2, float32 within 1e-4, and every output row
    within ATTN_ROW_TOL of its own scale): K6 causal at
@@ -54,10 +59,13 @@ Phases (any failure raises, so the exit code is non-zero):
    heads, D=128), with segment ids of requests packed into 4096-token rows
    by ``core.sequence_packing``, non-causal at the ViT-B/16 encoder's 197
    tokens, causal at a ragged 4095, and in float32; K7 on a 4096-position
-   cache at pos 0, 1, 511, 512 and 4095, and on a one-card decode_32k slice
-   (B=8, 32768 positions); then plant three faults through the kernels
-   themselves (K6 and K7 skipping one 64-position KV tile, K7 one chunk
-   of its split) and require the check to reject each;
+   cache at pos 0, 63, 64, 511, 512 and 4095 (one chunk a pair to eight),
+   at G 1, 8 and 24 with D 32, 64 and 128, at B=64 (one chunk), in float32,
+   on a one-card decode_32k slice (B=8, 32768 positions), and called back
+   to back at positions whose plans differ; then plant four faults through
+   the kernels themselves (K6 and K7 skipping one KV tile, K7 one chunk of
+   its split, K7's merge one chunk's partial) and require the check to
+   reject each;
 8. the LM path at full width: ``minitron-4b`` (5.10 B parameters, bf16,
    random weights drawn on the card from a seed) prefills B=2 x 4096
    tokens and decodes 256 teacher-forced then 32 greedy steps from an
@@ -179,10 +187,13 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # A correct kernel differs by an ulp or two of a row's largest element.
 # Measured on an H100 80GB HBM3 at 700 W over phase 7's cases (PERF.md):
 # K6 0.0633 (packed rows) in bf16 and 3.33e-6 in float32, K7 0.0256 (the
-# 32k slice); each limit is three times its reading.  Phase 7's planted
-# faults read 0.72-2.7 against them.
+# 32k slice); each limit is three times its reading.  Over phase 7's wider
+# set of K7 cases the cluster kernel reads up to 0.036 (B=64), 3.5e-6 in
+# float32.  Phase 7's planted faults read 1.06-2.57 against them.
+# K7 in float32 (phase 7's one case, off the main path) takes K6's float32
+# limit.
 ATTN_ROW_TOL = {("k6", torch.bfloat16): 0.19, ("k6", torch.float32): 1e-5,
-                ("k7", torch.bfloat16): 0.077}
+                ("k7", torch.bfloat16): 0.077, ("k7", torch.float32): 1e-5}
 # Kernel run vs plain run, and K7 decode vs K6 prefill, in logits of the
 # random full-width model (|logit| up to ~5, a bf16 ulp 0.03 there).
 # Measured on an H100 80GB HBM3 at 700 W (PERF.md): last-position prefill
@@ -516,11 +527,11 @@ def check_gmm(device):
 # ---------------------------------------------------------------- timing ----
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3) -> float:
-    """Device time of one call: ``iters`` calls back to back between two
-    CUDA events, divided by ``iters``; the median over ``windows`` such
+    """Time of one call: ``iters`` calls back to back between two CUDA
+    events, divided by ``iters``; the median over ``windows`` such
     windows.  The host enqueues each call while the card runs the one
-    before, so host time enters only where a call's host work outlasts its
-    device work."""
+    before, so host time enters wherever a call's host work outlasts its
+    device work: this is the time of a call, not of the device."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -535,6 +546,70 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3) -> float:
         end.synchronize()
         per_call.append(start.elapsed_time(end) / iters)
     return statistics.median(per_call)
+
+
+def graph_ms(fn, iters: int = 20, windows: int = 3) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA
+    graph, its replay timed between two CUDA events and divided by
+    ``iters``; the median over ``windows`` replays.  No host work enters;
+    the gaps the card leaves between the graph's kernels do."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(per_call)
+
+
+def profiler_ms(fn, iters: int = 20):
+    """Device time of one call as ``torch.profiler`` records it: the
+    durations of the device activities (kernels, copies, fills) of
+    ``iters`` calls, summed and divided by ``iters``; None if it records
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters
+
+
+def timed(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """A kernel's (or a library call's) times: ``ms_call`` (CUDA events
+    around back-to-back calls, host work included), ``ms_device`` (a CUDA
+    graph of the same calls: the card's time alone) and
+    ``ms_device_profiler`` (``torch.profiler``'s sum of its device
+    activities, the cross-check)."""
+    return {"ms_call": time_ms(fn, iters=iters, warmup=warmup),
+            "ms_device": graph_ms(fn, iters),
+            "ms_device_profiler": profiler_ms(fn, iters)}
+
+
+def device_keys(t: dict, suffix: str = "") -> dict:
+    """The keys a kernel row adds for one timing."""
+    return {f"{key}{suffix}": value for key, value in t.items()}
+
+
+def fmt_times(t: dict) -> str:
+    prof = t["ms_device_profiler"]
+    return (f"device {t['ms_device']:.4f} ms (profiler "
+            f"{'not recorded' if prof is None else f'{prof:.4f} ms'}), "
+            f"call {t['ms_call']:.4f} ms")
 
 
 def placed_elements(plan) -> int:
@@ -567,17 +642,17 @@ def kernel_rows(plan, slots, records, launches, worst) -> list:
              plan.slot_capacity * plan.hmax * plan.wmax * 3 * e)):
         before = dict(LAUNCHES)
         plain_ms = time_ms(plain)
-        ms = time_ms(kern)
+        t = timed(kern)
         LAUNCHES.update(before)   # timing launches not counted
         moved = rec_bytes + placed + out_bytes
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/stitch/csrc/stitch.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": worst, "ms": t["ms_call"], "plain_ms": plain_ms,
             "bound_ms": moved / H100.hbm_bw * 1e3, "bound_by": "bytes",
-            "library_ms": None})
-        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            "library_ms": None, **device_keys(t)})
+        log(f"  {name}: {fmt_times(t)} (plain {plain_ms:.4f} ms, bound "
             f"{rows[-1]['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB) at "
             f"B={plan.num_canvases} K={plan.slots_per_canvas} "
             f"slots={plan.slot_capacity}x{plan.hmax}x{plan.wmax}")
@@ -1014,14 +1089,15 @@ def fused_rows(plan, slots, records, build, launches, worst) -> list:
                      PATCH).to(kernel.dtype).contiguous()
     k4_plain = time_ms(lambda: stitch_ops.stitch_embed(
         slots, records, kernel, bias, m, n, PATCH, impl="torch"), iters=10)
-    k4_ms = time_ms(lambda: stitch_ops.stitch_embed(
+    k4 = timed(lambda: stitch_ops.stitch_embed(
         slots, records, kernel, bias, m, n, PATCH, impl="cuda"))
-    k4_lib = time_ms(lambda: torch.matmul(x, kernel) + bias)
+    k4_lib = timed(lambda: torch.matmul(x, kernel) + bias)
     trunk_ms = time_ms(lambda: tokens_fn(params, tokens), iters=10)
     k3_plain = time_ms(lambda: stitch_ops.unstitch_decode(
         raw, records, PATCH, cap, impl="torch"), iters=10)
-    k3_ms = time_ms(lambda: stitch_ops.unstitch_decode(
+    k3 = timed(lambda: stitch_ops.unstitch_decode(
         raw, records, PATCH, cap, impl="cuda"))
+    k4_ms, k3_ms = k4["ms_call"], k3["ms_call"]
     grids = stitch_ops.unstitch_decode(raw, records, PATCH, cap)
     LAUNCHES.update(before)      # timing launches not counted
     torch.cuda.synchronize()
@@ -1052,10 +1128,11 @@ def fused_rows(plan, slots, records, build, launches, worst) -> list:
          "bound_ms": max(k4_times) * 1e3,
          "bound_by": "operations" if k4_times[0] >= k4_times[1]
          else "bytes",
-         "library_ms": k4_lib,
+         "library_ms": k4_lib["ms_call"],
+         "library_ms_device": k4_lib["ms_device"],
          "library_call": "torch.matmul(x, kernel) + bias: the cuBLAS GEMM "
                          "alone, on the stitched, patchified bf16 canvas "
-                         "batch"},
+                         "batch", **device_keys(k4)},
         {"name": "unstitch_decode", "route": "cuda", "source": source,
          "replaces": "src/repro/kernels/stitch/fused_embed.py:202",
          "launches": launches["unstitch_decode"],
@@ -1064,14 +1141,16 @@ def fused_rows(plan, slots, records, build, launches, worst) -> list:
          "bound_ms": max(k3_times) * 1e3,
          "bound_by": "operations" if k3_times[0] >= k3_times[1]
          else "bytes",
-         "library_ms": None}]
-    log(f"  stitch_embed: {k4_ms:.4f} ms (plain {k4_plain:.4f} ms, cuBLAS "
-        f"GEMM + bias {k4_lib:.4f} ms, bound {rows[0]['bound_ms']:.4f} ms "
-        f"for {k4_ops / 1e9:.2f} GFLOP / {k4_bytes / 1e6:.2f} MB)")
-    log(f"  unstitch_decode: {k3_ms:.4f} ms (plain {k3_plain:.4f} ms, bound "
-        f"{rows[1]['bound_ms']:.5f} ms for {k3_bytes / 1e6:.2f} MB)")
-    log(f"  fused: K4 {k4_ms:.3f} ms; trunk from tokens ({cfg.n_layers} "
-        f"layers) {trunk_ms:.3f} ms; K3 {k3_ms:.4f} ms; grids "
+         "library_ms": None, **device_keys(k3)}]
+    log(f"  stitch_embed: {fmt_times(k4)} (plain {k4_plain:.4f} ms, cuBLAS "
+        f"GEMM + bias {fmt_times(k4_lib)}, bound "
+        f"{rows[0]['bound_ms']:.4f} ms for {k4_ops / 1e9:.2f} GFLOP / "
+        f"{k4_bytes / 1e6:.2f} MB)")
+    log(f"  unstitch_decode: {fmt_times(k3)} (plain {k3_plain:.4f} ms, "
+        f"bound {rows[1]['bound_ms']:.5f} ms for {k3_bytes / 1e6:.2f} MB)")
+    log(f"  fused: K4 {k4['ms_device']:.4f} ms (device); trunk from tokens "
+        f"({cfg.n_layers} layers) {trunk_ms:.3f} ms; K3 "
+        f"{k3['ms_device']:.4f} ms (device); grids "
         f"device->host {d2h:.2f} ms for {host.nbytes / 1e6:.2f} MB")
     return rows
 
@@ -1234,7 +1313,7 @@ def gmm_row(state_4k, device, launches: int, worst: dict) -> dict:
     bytes a pixel at the HBM rate, or ~100 float32 operations a pixel at
     the CUDA cores' peak, whichever is larger."""
     rng = np.random.default_rng(9)
-    timed = {}
+    times = {}
     for h, w in ((CAM_H, CAM_W), (CANVAS, 2 * CANVAS)):
         if h == CAM_H:
             state = state_4k
@@ -1244,19 +1323,20 @@ def gmm_row(state_4k, device, launches: int, worst: dict) -> dict:
         before = dict(LAUNCHES)
         plain = time_ms(lambda: gmm_ops.gmm_update(state, x, impl="torch"),
                         iters=10)
-        ms = time_ms(lambda: gmm_ops.gmm_update(state, x, impl="cuda"))
+        t = timed(lambda: gmm_ops.gmm_update(state, x, impl="cuda"))
         LAUNCHES.update(before)         # timing launches not counted
         pixels = h * w
         bound = (pixels * GMM_OPS_PER_PIXEL / F32_PEAK,
                  pixels * GMM_BYTES_PER_PIXEL / H100.hbm_bw)
-        timed[(h, w)] = (ms, plain, max(bound) * 1e3,
+        times[(h, w)] = (t, plain, max(bound) * 1e3,
                          "operations" if bound[0] >= bound[1] else "bytes")
-        log(f"  gmm_update {w}x{h}: {ms:.4f} ms (plain {plain:.4f} ms, "
+        log(f"  gmm_update {w}x{h}: {fmt_times(t)} (plain {plain:.4f} ms, "
             f"bound {max(bound) * 1e3:.4f} ms for "
             f"{pixels * GMM_BYTES_PER_PIXEL / 1e6:.1f} MB, "
-            f"{max(bound) * 1e3 / ms:.1%} of the bound's speed)")
-    ms, plain, bound_ms, bound_by = timed[(CAM_H, CAM_W)]
-    ms2, plain2, bound2, _ = timed[(CANVAS, 2 * CANVAS)]
+            f"{max(bound) * 1e3 / t['ms_device']:.1%} of the bound's speed "
+            f"on the device)")
+    t, plain, bound_ms, bound_by = times[(CAM_H, CAM_W)]
+    t2, plain2, bound2, _ = times[(CANVAS, 2 * CANVAS)]
     return {"name": "gmm_update", "route": "cuda",
             "source": "src/repro_torch/kernels/gmm/csrc/gmm.cu",
             "replaces": "src/repro/kernels/gmm/gmm.py:72",
@@ -1265,12 +1345,13 @@ def gmm_row(state_4k, device, launches: int, worst: dict) -> dict:
                                 "kernels, one launch per frame",
             "max_abs_err": worst["max_abs_err"],
             "mask_pixels_differing": worst["mask_pixels"],
-            "shape": [CAM_H, CAM_W], "ms": ms, "plain_ms": plain,
+            "shape": [CAM_H, CAM_W], "ms": t["ms_call"], "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_call": "none: no single PyTorch call computes the "
-                            "update",
-            "ms_2048x1024": ms2, "plain_ms_2048x1024": plain2,
-            "bound_ms_2048x1024": bound2}
+                            "update", **device_keys(t),
+            "ms_2048x1024": t2["ms_call"], "plain_ms_2048x1024": plain2,
+            "bound_ms_2048x1024": bound2,
+            **device_keys(t2, "_2048x1024")}
 
 
 # --------------------------------------------------------------- phase 7 ----
@@ -1313,12 +1394,26 @@ def attention_cases():
                                              d=d, causal=True)),
              ("K6 float32", "k6", dict(b=2, s=300, h=6, kvh=2, d=64,
                                        causal=True, dtype=torch.float32))]
-    for pos in (0, 1, 511, 512, LM_SEQ - 1):
+    # K7 at the chunk and block-pass edges of minitron's cache (1 chunk a
+    # pair up to pos 63, 8 from pos 511), G 1 / 3 / 8 / 24 and D 32 / 64 /
+    # 128, float32, more pairs than SMs (one chunk), the 32k slice
+    for pos in (0, 63, 64, 511, 512, LM_SEQ - 1):
         cases.append((f"K7 pos {pos}", "k7", dict(b=2, smax=LM_SEQ, h=h,
                                                   kvh=kvh, d=d, pos=pos)))
-    cases.append(("K7 decode_32k slice", "k7",
-                  dict(b=8, smax=8 * LM_SEQ, h=h, kvh=kvh, d=d,
-                       pos=8 * LM_SEQ - 1)))
+    cases += [
+        ("K7 G=1 D=32", "k7", dict(b=2, smax=2048, h=8, kvh=8, d=32,
+                                   pos=1999)),
+        ("K7 G=8 D=64", "k7", dict(b=3, smax=2048, h=64, kvh=8, d=64,
+                                   pos=1500)),
+        ("K7 G=24 D=128", "k7", dict(b=1, smax=LM_SEQ, h=48, kvh=2, d=d,
+                                     pos=3000)),
+        ("K7 B=64 one chunk", "k7", dict(b=64, smax=512, h=h, kvh=kvh, d=d,
+                                         pos=511)),
+        ("K7 float32", "k7", dict(b=2, smax=1024, h=6, kvh=2, d=64, pos=700,
+                                  dtype=torch.float32)),
+        ("K7 decode_32k slice", "k7", dict(b=8, smax=8 * LM_SEQ, h=h,
+                                           kvh=kvh, d=d,
+                                           pos=8 * LM_SEQ - 1))]
     return cases
 
 
@@ -1365,8 +1460,13 @@ def check_attention(device) -> dict:
                                   device)
             got = attn_ops.flash_decode(q, k, v, c["pos"], impl="cuda")
             want = attn_ops.flash_decode(q, k, v, c["pos"], impl="torch")
+            plan = flash_kernels.decode_plan(
+                b, smax, c["h"], c["kvh"], c["d"], c["pos"], dtype,
+                torch.cuda.get_device_properties(device)
+                .multi_processor_count)
             shape = (f"B={b} Smax={smax} pos={c['pos']} "
-                     f"H={c['h']}/{c['kvh']} D={c['d']}")
+                     f"H={c['h']}/{c['kvh']} D={c['d']}, {plan.grid[0]} "
+                     f"chunk(s) of {plan.chunk}")
         torch.cuda.synchronize()
         ok, err, scaled = attn_close(got, want, kind, dtype)
         key = f"{kind}_{str(dtype).split('.')[-1]}"
@@ -1381,9 +1481,36 @@ def check_attention(device) -> dict:
             raise AssertionError(f"{name} differs from its plain version: "
                                  f"max abs err {err}, row-scaled {scaled}")
         del q, k, v, got, want
+    back_to_back(device, worst)
     planted_faults(device)
     torch.cuda.empty_cache()
     return worst
+
+
+def back_to_back(device, worst: dict) -> None:
+    """K7 called back to back on one cache at positions whose plans differ
+    (1 to 8 chunks a pair and back), all launched before any is checked,
+    as a decode run calls it: no state a call leaves behind may reach the
+    next."""
+    rng = np.random.default_rng(10)
+    dt = torch.bfloat16
+    q, k, v = attn_inputs(rng, [(LM_BATCH, 1, 24, 128),
+                                (LM_BATCH, LM_SEQ, 8, 128),
+                                (LM_BATCH, LM_SEQ, 8, 128)], dt, device)
+    order = (LM_SEQ - 1, 0, 300, 64, LM_SEQ - 1, 1, LM_SEQ // 2 - 1, 511)
+    got = [attn_ops.flash_decode(q, k, v, pos, impl="cuda") for pos in order]
+    torch.cuda.synchronize()
+    for pos, out in zip(order, got):
+        want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
+        ok, err, scaled = attn_close(out, want, "k7", dt)
+        worst["k7_bfloat16"] = max(worst["k7_bfloat16"], err)
+        worst["k7_bfloat16_row_scaled"] = max(
+            worst["k7_bfloat16_row_scaled"], scaled)
+        if not ok:
+            raise AssertionError(f"K7 back to back at pos {pos} differs: "
+                                 f"max abs err {err}, row-scaled {scaled}")
+    log(f"  K7 back to back at pos {list(order)}: every call within "
+        f"its limits")
 
 
 def _cut(x: torch.Tensor, start: int, n: int) -> torch.Tensor:
@@ -1396,22 +1523,33 @@ def planted_faults(device) -> None:
     under an absolute limit.  Each faulty output is made by the kernels
     themselves on inputs with positions cut out, so it is exactly what a
     kernel that skipped them would return: K7 at pos 4095 without one
-    64-position tile, K7 on the 8 x 32768 slice without one 512-position
-    chunk of its split, and K6 causal at S=4096 without one KV tile for
-    the query rows after it."""
+    64-position pass of a block's warps (a tile); K7 on the 8 x 32768 slice
+    without one chunk of its split (8,192 positions, the plan's chunk on
+    132 SMs); the merge of K7 at pos 4095 without one chunk's partial (its
+    512 positions); and K6 causal at S=4096 without one KV tile for the
+    query rows after it."""
     rng = np.random.default_rng(9)
     h, kvh, d, dt = 24, 8, 128, torch.bfloat16
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     faults = []
-    for b, smax, start, n in ((LM_BATCH, LM_SEQ, LM_SEQ // 2, 64),
-                              (8, 8 * LM_SEQ, 4 * LM_SEQ, 512)):
+    for b, smax, what in ((LM_BATCH, LM_SEQ, "one tile"),
+                          (8, 8 * LM_SEQ, "one chunk"),
+                          (LM_BATCH, LM_SEQ, "the merge of one chunk's "
+                                             "partial")):
         pos = smax - 1
+        plan = flash_kernels.decode_plan(b, smax, h, kvh, d, pos, dt, sms)
+        if what == "one tile":
+            start, n = LM_SEQ // 2, flash_kernels.DEC_WARPS * \
+                flash_kernels.DEC_TILE
+        else:
+            start, n = (plan.grid[0] // 2) * plan.chunk, plan.chunk
         q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
                                     (b, smax, kvh, d)], dt, device)
         want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
         bad = attn_ops.flash_decode(q, _cut(k, start, n), _cut(v, start, n),
                                     pos - n, impl="cuda")
-        faults.append((f"K7 B={b} pos={pos} without positions {start}+{n}",
-                       "k7", bad, want))
+        faults.append((f"K7 B={b} pos={pos} without {what} (positions "
+                       f"{start}+{n})", "k7", bad, want))
         del q, k, v
     b, s, start, n = LM_BATCH, LM_SEQ, LM_SEQ // 4, 64
     q, k, v = attn_inputs(rng, [(b, s, h, d), (b, s, kvh, d),
@@ -1438,11 +1576,12 @@ def planted_faults(device) -> None:
 
 
 def attention_rows(device, launches: dict, worst: dict) -> list:
-    """K6/K7 rows: card time (back-to-back CUDA-event windows) against
-    the plain version, SDPA (``enable_gqa``, the yardstick; the port never
-    calls it) and the bound.  K6: 2*B*S^2*H*D operations (causal) at the
-    bf16 peak, or its bytes; K7: the cache read up to pos,
-    2*B*(pos+1)*Kv*D*2 bytes, at the HBM rate."""
+    """K6/K7 rows: device and call times (``timed``) against the plain
+    version, SDPA (``enable_gqa``, the yardstick; the port never calls it)
+    and the bound.  K6: 2*B*S^2*H*D operations (causal) at the bf16 peak,
+    or its bytes; K7: the cache read up to pos, 2*B*(pos+1)*Kv*D*2 bytes,
+    at the HBM rate, at B=2 pos 287 (the decode run's last step), B=2 pos
+    4095 and the 8 x 32768 slice."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(8)
@@ -1458,7 +1597,7 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
                                     (b, s, kvh, d)], torch.bfloat16, device)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         iters = 20 if s <= LM_SEQ else 3
-        ms = time_ms(lambda: attn_ops.flash_attention(q, k, v, causal=True,
+        kern = timed(lambda: attn_ops.flash_attention(q, k, v, causal=True,
                                                       impl="cuda"),
                      iters=iters)
         lib = gap = None
@@ -1470,8 +1609,8 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
             backends.append(SDPBackend.MATH)
         try:
             with sdpa_kernel(backends):
-                lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True), iters=iters)
+                lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True), iters=iters)
                 gap = max_abs_err(
                     attn_ops.flash_attention(q, k, v, causal=True),
                     sdpa(qt, kt, vt, is_causal=True,
@@ -1485,8 +1624,8 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
             q, k, v, causal=True, impl="torch"), iters=3, warmup=1)
             if plain else None)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        return (ms, plain_ms, lib, gap) + bound(2 * b * s * s * h * d,
-                                                nbytes)
+        return (kern, plain_ms, lib, gap) + bound(2 * b * s * s * h * d,
+                                                  nbytes)
 
     def k7_timing(b, smax, pos):
         q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
@@ -1495,23 +1634,26 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
         kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
                   for x in (k, v))
         qt = q.transpose(1, 2).contiguous()
-        ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
+        kern = timed(lambda: attn_ops.flash_decode(q, k, v, pos,
                                                    impl="cuda"))
         plain_ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
                                                          impl="torch"),
                            iters=10)
-        lib = time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True))
+        lib = timed(lambda: sdpa(qt, kt, vt, enable_gqa=True))
         nbytes = 2 * b * (pos + 1) * kvh * d * 2
-        return (ms, plain_ms, lib) + bound(4 * b * (pos + 1) * h * d,
-                                           nbytes)
+        return (kern, plain_ms, lib) + bound(4 * b * (pos + 1) * h * d,
+                                             nbytes)
 
     k6 = k6_timing(LM_BATCH, LM_SEQ, plain=True)
     k6_32k = k6_timing(1, 8 * LM_SEQ, plain=False)
     k7 = k7_timing(LM_BATCH, LM_SEQ, LM_SEQ - 1)
+    k7_short = k7_timing(LM_BATCH, LM_SEQ, LM_FORCED + LM_GREEDY - 1)
     k7_32k = k7_timing(8, 8 * LM_SEQ, 8 * LM_SEQ - 1)
     LAUNCHES.update(before)      # timing launches not counted
     torch.cuda.empty_cache()
     source = "src/repro_torch/kernels/attention/csrc/flash.cu"
+    short = f"_2x{LM_FORCED + LM_GREEDY - 1}"
+    lib32k = k6_32k[2] or {"ms_call": None, "ms_device": None}
     rows = [
         {"name": "flash_attention", "route": "cuda", "source": source,
          "replaces": "src/repro/kernels/attention/flash.py:95",
@@ -1522,13 +1664,17 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
          "max_row_scaled_err": worst["k6_bfloat16_row_scaled"],
          "max_abs_err_float32": worst["k6_float32"],
          "max_row_scaled_err_float32": worst["k6_float32_row_scaled"],
-         "shape": [LM_BATCH, LM_SEQ, h, kvh, d], "ms": k6[0],
+         "shape": [LM_BATCH, LM_SEQ, h, kvh, d], "ms": k6[0]["ms_call"],
          "plain_ms": k6[1], "bound_ms": k6[4], "bound_by": k6[5],
-         "library_ms": k6[2],
+         "library_ms": k6[2]["ms_call"],
+         "library_ms_device": k6[2]["ms_device"],
          "library_call": "F.scaled_dot_product_attention(is_causal=True, "
                          "enable_gqa=True) on (B, H, S, D) copies",
-         "max_abs_diff_vs_library": k6[3],
-         "ms_1x32768": k6_32k[0], "library_ms_1x32768": k6_32k[2],
+         "max_abs_diff_vs_library": k6[3], **device_keys(k6[0]),
+         "ms_1x32768": k6_32k[0]["ms_call"],
+         "ms_device_1x32768": k6_32k[0]["ms_device"],
+         "library_ms_1x32768": lib32k["ms_call"],
+         "library_ms_device_1x32768": lib32k["ms_device"],
          "bound_ms_1x32768": k6_32k[4],
          "max_abs_diff_vs_library_1x32768": k6_32k[3]},
         {"name": "flash_decode", "route": "cuda", "source": source,
@@ -1539,28 +1685,39 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
                              f"a layer",
          "max_abs_err": worst["k7_bfloat16"],
          "max_row_scaled_err": worst["k7_bfloat16_row_scaled"],
-         "shape": [LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d], "ms": k7[0],
-         "plain_ms": k7[1], "bound_ms": k7[3], "bound_by": k7[4],
-         "library_ms": k7[2],
+         "max_abs_err_float32": worst["k7_float32"],
+         "max_row_scaled_err_float32": worst["k7_float32_row_scaled"],
+         "shape": [LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d],
+         "ms": k7[0]["ms_call"], "plain_ms": k7[1], "bound_ms": k7[3],
+         "bound_by": k7[4], "library_ms": k7[2]["ms_call"],
+         "library_ms_device": k7[2]["ms_device"],
          "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
                          "over the cache up to pos, (B, Kv, pos+1, D) "
-                         "copies",
-         "ms_8x32768": k7_32k[0], "plain_ms_8x32768": k7_32k[1],
-         "library_ms_8x32768": k7_32k[2], "bound_ms_8x32768": k7_32k[3]}]
-    log(f"  flash_attention B={LM_BATCH} S={LM_SEQ}: {k6[0]:.4f} ms (plain "
-        f"{k6[1]:.4f} ms, SDPA {k6[2]:.4f} ms, bound {k6[4]:.4f} ms, "
-        f"{k6[4] / k6[0]:.1%} of the bound's speed; vs SDPA max abs diff "
-        f"{k6[3]:.3g})")
-    log(f"  flash_attention B=1 S={8 * LM_SEQ}: {k6_32k[0]:.4f} ms (SDPA "
-        f"{k6_32k[2]} ms, bound {k6_32k[4]:.4f} ms, "
-        f"{k6_32k[4] / k6_32k[0]:.1%}; vs SDPA max abs diff "
-        f"{k6_32k[3]}, not gated)")
-    log(f"  flash_decode B={LM_BATCH} pos={LM_SEQ - 1}: {k7[0]:.4f} ms "
-        f"(plain {k7[1]:.4f} ms, SDPA {k7[2]:.4f} ms, bound {k7[3]:.4f} ms, "
-        f"{k7[3] / k7[0]:.1%})")
-    log(f"  flash_decode B=8 pos={8 * LM_SEQ - 1}: {k7_32k[0]:.4f} ms "
-        f"(plain {k7_32k[1]:.4f} ms, SDPA {k7_32k[2]:.4f} ms, bound "
-        f"{k7_32k[3]:.4f} ms, {k7_32k[3] / k7_32k[0]:.1%})")
+                         "copies", **device_keys(k7[0]),
+         "plain_ms" + short: k7_short[1], "bound_ms" + short: k7_short[3],
+         "library_ms_device" + short: k7_short[2]["ms_device"],
+         **device_keys(k7_short[0], short),
+         "ms_8x32768": k7_32k[0]["ms_call"], "plain_ms_8x32768": k7_32k[1],
+         "library_ms_8x32768": k7_32k[2]["ms_call"],
+         "library_ms_device_8x32768": k7_32k[2]["ms_device"],
+         "bound_ms_8x32768": k7_32k[3],
+         **device_keys(k7_32k[0], "_8x32768")}]
+    log(f"  flash_attention B={LM_BATCH} S={LM_SEQ}: {fmt_times(k6[0])} "
+        f"(plain {k6[1]:.4f} ms, SDPA {fmt_times(k6[2])}, bound "
+        f"{k6[4]:.4f} ms, {k6[4] / k6[0]['ms_device']:.1%} of the bound's "
+        f"speed on the device; vs SDPA max abs diff {k6[3]:.3g})")
+    log(f"  flash_attention B=1 S={8 * LM_SEQ}: {fmt_times(k6_32k[0])} (SDPA "
+        f"{fmt_times(k6_32k[2]) if k6_32k[2] else 'not timed'}, bound "
+        f"{k6_32k[4]:.4f} ms, {k6_32k[4] / k6_32k[0]['ms_device']:.1%}; vs "
+        f"SDPA max abs diff {k6_32k[3]}, not gated)")
+    for (b, pos), t in (((LM_BATCH, LM_FORCED + LM_GREEDY - 1), k7_short),
+                        ((LM_BATCH, LM_SEQ - 1), k7),
+                        ((8, 8 * LM_SEQ - 1), k7_32k)):
+        log(f"  flash_decode B={b} pos={pos}: {fmt_times(t[0])} (plain "
+            f"{t[1]:.4f} ms, SDPA {fmt_times(t[2])}, bound {t[3]:.4f} ms, "
+            f"{t[3] / t[0]['ms_device']:.1%} of the bound's speed on the "
+            f"device; host time of a call "
+            f"{t[0]['ms_call'] - t[0]['ms_device']:.4f} ms)")
     return rows
 
 
@@ -1947,7 +2104,7 @@ def main() -> None:
     launches["flash_decode"] = by_path["lm_decode_kernels"]["flash_decode"]
     log("  K6/K7 times (CUDA events) and the prefill / decode split:")
     attn_rows = attention_rows(device, launches, worst_attn)
-    lm_split(lm, attn_rows[0]["ms"])
+    lm_split(lm, attn_rows[0]["ms_device"])
     rows += attn_rows
     del lm
     for row in rows:

@@ -66,19 +66,38 @@
 //
 // K7 bound on an H100: bytes.  A step reads the cache up to pos once,
 // 2*B*(pos+1)*Kv*D*sizeof(T): 33.6 MB at B = 2, pos = 4095 (0.010 ms at
-// 3.35 TB/s), 1.07 GB at B = 8, pos = 32767 (0.321 ms).  Design.  The TPU
-// grid (B*Kv, KV blocks) runs its KV axis in order; at B = 2 that is 16
-// (batch, KV head) pairs, 16 of 132 SMs.  So K7 splits the cache ("flash
-// decoding"): pass 1 runs one block per (chunk of positions, KV head,
-// batch) over chunks that start at or before pos only (pos is a host
-// integer, so the grid is sized to it); each block streams its chunk's K
-// and V through shared memory 64 positions at a time, with coalesced
-// 4-byte loads, runs the online softmax for the G query heads of its KV
-// head, and writes its partial (m, l, acc) in float32.  Pass 2 merges the
-// partials of each (batch, head): M = max m_c, l = sum l_c e^(m_c - M),
-// out = sum acc_c e^(m_c - M) / l.  The wrapper picks the chunk (64 to
-// 512 positions) so that pass 1 has about two blocks per SM where the
-// cache allows.  Double-buffered (cp.async or TMA) loads are later work.
+// 3.35 TB/s), 1.07 GB at B = 8, pos = 32767 (0.321 ms); about 1.5 FMA a
+// cache byte at G = 3.  Design.  The TPU grid (B*Kv, KV blocks) runs its
+// KV axis in order; at B = 2 that is 16 (batch, KV head) pairs, 16 of 132
+// SMs.  So K7 splits the positions 0..pos (a host integer: the grid is
+// sized to it) into chunks of a multiple of 64, one block per (chunk, KV
+// head and group of up to 16 of its query heads, batch), and the chunks of
+// one (batch, KV head, group), at most 8, are one thread-block cluster.
+// In a block of 4 warps each warp owns every fourth 16-position tile of
+// the chunk and streams its tiles' K and V rows through a ring of its own
+// (3 stages, 16-byte cp.async.cg copies, 8 KB a stage at D = 128 bf16),
+// so two stages are in flight while it computes on the third and no warp
+// waits on another until the chunk is done.  cp.async rather than TMA: a
+// row of one KV head is D*2 contiguous bytes with rows Kv*D*2 apart, which
+// 16-byte copies read coalesced with no tensor map to encode on the host
+// for each of the 9,216 calls of a decode run.  A warp computes on the
+// tensor cores (mma.sync m16n8k16, bf16 in, float32 out): the block's query
+// heads are the 16 rows of A (q as registers, rows past G zero), so scores
+// and P.V need no cross-lane dot-product reductions; ldmatrix reads the K
+// and V rows through a 16-byte-chunk XOR swizzle without bank conflicts.
+// The work is bound by bytes, far below the tensor cores' rate even with
+// 13 of 16 rows idle at G = 3, so mma.sync (not wgmma) is for the
+// registers and instructions it saves.  The online softmax runs on the
+// score fragments in registers (masked positions past `last` are not
+// scores: p = 0, out of the max); p is rounded to bf16 as the A fragment
+// of P.V.  Each warp keeps its own (m, l, acc); the block merges its warps'
+// states into a shared-memory slot, and after cluster.sync() rank 0 reads
+// every rank's slot through distributed shared memory, merges them in
+// chunk order (M = max m_c, l = sum l_c 2^(m_c - M), acc likewise), writes
+// acc / l (l = 0 -> 1), and a second cluster.sync() keeps the peers'
+// slots alive until then: one launch a call, no global scratch.  float32
+// takes the same ring, layout and merge on the CUDA cores (off the main
+// path).
 //
 // Contract (checked by the wrappers in flash.py): contiguous tensors on one
 // device, 16-byte aligned, D in {32, 64, 128}; K6: causal or segment ids
@@ -89,6 +108,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -96,19 +117,15 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the finite mask value of flash.py:30
-constexpr int kThreads = 128;      // 4 warps (float32 K6, K7)
+constexpr int kThreads = 128;      // 4 warps (float32 K6)
 constexpr int kBQ = 64;            // float32 K6 query rows per block
-constexpr int kBKV = 64;           // float32 K6 / K7 positions per KV tile
+constexpr int kBKV = 64;           // float32 K6 positions per KV tile
 constexpr int kRowsPerWarp = 16;
 
 __host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -664,241 +681,560 @@ int launch_flash_attention(int bf16, const void* q, const void* k,
 
 // ------------------------------------------------------------------ K7 ----
 
-// K and V tiles are copied as 32-bit words (two bf16 or one float); the K
-// tile's row stride is odd in words, so threads reading different rows hit
-// different banks.
+constexpr int kDecWarps = 4;    // warps a block, each with its own ring
+constexpr int kDecTile = 16;    // positions a warp's ring stage holds
+constexpr int kDecStages = 3;   // stages of a warp's ring
+constexpr int kDecHeads = 16;   // query heads a block (the mma's 16 rows)
+
+// Shared memory of one K7 block.  Warp w owns bytes [w, w + 1) * warp_bytes
+// of the ring: kDecStages stages of a K tile then a V tile, kDecTile rows of
+// D elements each, every row's 16-byte chunks swizzled (decode_chunk_at) so
+// that eight rows read at one column hit eight different bank groups.  When
+// its tiles are done a warp writes its (m, l, acc) state over its own ring;
+// the block's merged state (the slot the cluster's rank 0 reads) follows
+// the ring.  float32 blocks also keep q and a score tile per warp.
 template <typename T, int D>
-struct K7Layout {
-  static constexpr int words = D * (int)sizeof(T) / 4;  // 32-bit words a row
-  static constexpr int ldk = words + 1;
-  static constexpr int ldv = words;
-  static constexpr size_t k_bytes = round_up(4 * kBKV * ldk, 16);
-  static constexpr size_t v_bytes = round_up(4 * kBKV * ldv, 16);
-  // then, for g query heads: q (g, D) f32, s (g, 64) f32, m, l, alpha (g)
-  // f32 and acc (g, D) f32
-  static size_t bytes(int g) {
-    return k_bytes + v_bytes + 4 * (size_t)g * (2 * D + kBKV + 3);
-  }
+struct DecLayout {
+  static constexpr int row_bytes = D * (int)sizeof(T);
+  static constexpr int chunks = row_bytes / 16;   // 16-byte chunks a row
+  static constexpr int tile_bytes = kDecTile * row_bytes;
+  static constexpr int stage_bytes = 2 * tile_bytes;   // K then V
+  static constexpr int warp_bytes = kDecStages * stage_bytes;
+  // a state: acc (kDecHeads, D) f32, then m and l (kDecHeads) f32
+  static constexpr int state_bytes = (kDecHeads * D + 2 * kDecHeads) * 4;
+  static constexpr int slot_off = kDecWarps * warp_bytes;
+  static constexpr int q_off = slot_off + state_bytes;
+  static constexpr int s_off = q_off + kDecHeads * D * 4;
+  static constexpr bool f32 = std::is_same<T, float>::value;
+  static constexpr int bytes =
+      f32 ? s_off + kDecWarps * kDecHeads * kDecTile * 4 : q_off;
+  static_assert(state_bytes <= warp_bytes, "a warp's state fits its ring");
 };
 
-__device__ __forceinline__ void row_pair(const uint32_t* row, int w,
-                                         const __nv_bfloat16*, float* out) {
-  const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(row + w);
-  out[0] = __low2float(pair);
-  out[1] = __high2float(pair);
-}
-
-__device__ __forceinline__ float row_elem(const uint32_t* row, int i,
-                                          const float*) {
-  return __uint_as_float(row[i]);
-}
-__device__ __forceinline__ float row_elem(const uint32_t* row, int i,
-                                          const __nv_bfloat16*) {
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[i]);
-}
-
-template <typename T, int D>
-__device__ __forceinline__ float dot_row(const float* qg, const uint32_t* krow) {
-  float acc = 0.0f;
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll 8
-    for (int i = 0; i < D; ++i) acc = fmaf(qg[i], __uint_as_float(krow[i]), acc);
+// The physical 16-byte chunk of chunk c in row r: XOR-swizzled within each
+// 128-byte line (rows of 64 bytes pair up in a line).
+template <int C>
+__device__ __forceinline__ int decode_chunk_at(int r, int c) {
+  if constexpr (C >= 8) {
+    return c ^ (r & 7);
   } else {
-#pragma unroll 8
-    for (int w = 0; w < D / 2; ++w) {
-      float kv[2];
-      row_pair(krow, w, static_cast<const T*>(nullptr), kv);
-      acc = fmaf(qg[2 * w], kv[0], acc);
-      acc = fmaf(qg[2 * w + 1], kv[1], acc);
-    }
-  }
-  return acc;
-}
-
-// Pass 1: one block per (chunk, KV head, batch); partial (m, l, acc) per
-// query head of the group, written to part_ml (B, H, n_chunks, 2) and
-// part_acc (B, H, n_chunks, D), float32.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            float* __restrict__ part_ml,
-                            float* __restrict__ part_acc, int smax, int h,
-                            int kvh, int pos, int chunk, float sm_scale) {
-  using L = K7Layout<T, D>;
-  extern __shared__ __align__(128) unsigned char k7_smem[];
-  uint32_t* kt = reinterpret_cast<uint32_t*>(k7_smem);
-  uint32_t* vt = reinterpret_cast<uint32_t*>(k7_smem + L::k_bytes);
-  const int g = h / kvh;
-  float* qf = reinterpret_cast<float*>(k7_smem + L::k_bytes + L::v_bytes);
-  float* s = qf + g * D;
-  float* m_g = s + g * kBKV;
-  float* l_g = m_g + g;
-  float* alpha_g = l_g + g;
-  float* acc = alpha_g + g;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int c = blockIdx.x;
-  const int kv_head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_chunks = gridDim.x;
-  const int first = c * chunk;
-  const int last = min(first + chunk, pos + 1);  // exclusive
-  const int64_t row_words = (int64_t)kvh * L::words;  // between positions
-  const uint32_t* kb = reinterpret_cast<const uint32_t*>(
-                           k + ((int64_t)b * smax * kvh + kv_head) * D);
-  const uint32_t* vb = reinterpret_cast<const uint32_t*>(
-                           v + ((int64_t)b * smax * kvh + kv_head) * D);
-  const T* qb = q + ((int64_t)b * h + (int64_t)kv_head * g) * D;
-
-  for (int e = tid; e < g * D; e += kThreads) qf[e] = to_float(qb[e]);
-  for (int e = tid; e < g * D; e += kThreads) acc[e] = 0.0f;
-  for (int e = tid; e < g; e += kThreads) {
-    m_g[e] = kNegInf;
-    l_g[e] = 0.0f;
-  }
-
-  for (int j0 = first; j0 < last; j0 += kBKV) {
-    const int n = min(kBKV, last - j0);
-    __syncthreads();  // previous tile consumed (and the set-up above)
-    for (int e = tid; e < n * L::words; e += kThreads) {
-      const int r = e / L::words;
-      const int w = e - r * L::words;
-      const int64_t off = (int64_t)(j0 + r) * row_words + w;
-      kt[r * L::ldk + w] = kb[off];
-      vt[r * L::ldv + w] = vb[off];
-    }
-    __syncthreads();
-    // scores: (head of the group, position) pairs over the threads
-    for (int e = tid; e < g * kBKV; e += kThreads) {
-      const int gi = e / kBKV;
-      const int j = e - gi * kBKV;
-      s[e] = j < n ? dot_row<T, D>(qf + gi * D, kt + j * L::ldk) * sm_scale
-                   : 0.0f;
-    }
-    __syncthreads();
-    // online softmax, a warp per head of the group
-    for (int gi = warp; gi < g; gi += kThreads / 32) {
-      float x[2];
-      bool in[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = lane + 32 * t;
-        in[t] = j < n;
-        x[t] = s[gi * kBKV + j];
-      }
-      const float mx = warp_max(fmaxf(in[0] ? x[0] : -INFINITY,
-                                      in[1] ? x[1] : -INFINITY));
-      const float m_prev = m_g[gi];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = in[0] ? expf(x[0] - m_new) : 0.0f;
-      const float p1 = in[1] ? expf(x[1] - m_new) : 0.0f;
-      const float sum = warp_sum(p0 + p1);
-      const float alpha = expf(m_prev - m_new);
-      // p rounded to the value dtype before P.V (flash.py:182)
-      s[gi * kBKV + lane] = to_float(from_float<T>(p0));
-      s[gi * kBKV + lane + 32] = to_float(from_float<T>(p1));
-      __syncwarp();
-      if (lane == 0) {
-        m_g[gi] = m_new;
-        l_g[gi] = alpha * l_g[gi] + sum;
-        alpha_g[gi] = alpha;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P.V over (head of the group, d) pairs
-    for (int e = tid; e < g * D; e += kThreads) {
-      const int gi = e / D;
-      const int d = e - gi * D;
-      const float* pg = s + gi * kBKV;
-      float a = acc[e] * alpha_g[gi];
-      for (int j = 0; j < n; ++j) {
-        a = fmaf(pg[j], row_elem(vt + j * L::ldv, d,
-                                 static_cast<const T*>(nullptr)),
-                 a);
-      }
-      acc[e] = a;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < g * D; e += kThreads) {
-    const int gi = e / D;
-    const int d = e - gi * D;
-    const int64_t bh = (int64_t)b * h + kv_head * g + gi;
-    part_acc[(bh * n_chunks + c) * D + d] = acc[e];
-    if (d == 0) {
-      part_ml[(bh * n_chunks + c) * 2] = m_g[gi];
-      part_ml[(bh * n_chunks + c) * 2 + 1] = l_g[gi];
-    }
+    return c ^ ((r >> 1) & (C - 1));
   }
 }
 
-// Pass 2: one block per (batch, head), a thread per d.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_addr(row))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_addr(row))
+      : "memory");
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16), the
+// fragments of mma.sync m16n8k16: thread t holds rows t/4 and t/4 + 8 of a
+// and c, columns 2 (t % 4) (+ 1) of c, k 2 (t % 4) (+ 1, + 8, + 9).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Everything one K7 block reads: where its KV head's rows start, which
+// positions are its chunk's, which query heads are its own.
 template <typename T>
-__global__ void flash_decode_merge_kernel(const float* __restrict__ part_ml,
-                                          const float* __restrict__ part_acc,
-                                          T* __restrict__ out, int n_chunks,
-                                          int d) {
-  const int64_t bh = blockIdx.x;
-  const float* ml = part_ml + bh * n_chunks * 2;
-  float m = kNegInf;
-  for (int c = 0; c < n_chunks; ++c) m = fmaxf(m, ml[2 * c]);
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    float l = 0.0f;
-    float acc = 0.0f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const float w = expf(ml[2 * c] - m);
-      l = fmaf(ml[2 * c + 1], w, l);
-      acc = fmaf(part_acc[(bh * n_chunks + c) * d + i], w, acc);
-    }
-    out[bh * d + i] = from_float<T>(acc / (l == 0.0f ? 1.0f : l));
+struct DecBlock {
+  const T* k;        // the KV head's row 0 in k (rows kvh * D apart)
+  const T* v;
+  int64_t stride;    // elements between positions
+  int first, last;   // positions [first, last) of the chunk
+  int gh;            // query heads of the block (<= kDecHeads)
+  const T* q;        // the block's first query head, (gh, D) contiguous
+  T* out;            // the same heads in out
+};
+
+// One warp's ring: copy the K and V rows of positions j0 .. j0 + 15 (zeros
+// past `last`, which are never read) into `stage`, one commit group.
+template <typename T, int D>
+__device__ __forceinline__ void load_stage(unsigned char* stage,
+                                           const DecBlock<T>& blk, int j0,
+                                           int lane) {
+  using L = DecLayout<T, D>;
+  constexpr int per_tile = kDecTile * L::chunks;
+#pragma unroll
+  for (int e = lane; e < 2 * per_tile; e += 32) {
+    const int is_v = e >= per_tile;
+    const int rc = e - is_v * per_tile;
+    const int r = rc / L::chunks;
+    const int c = rc - r * L::chunks;
+    const int j = j0 + r;
+    const int valid = j < blk.last;
+    const T* src = (is_v ? blk.v : blk.k) +
+                   (int64_t)(valid ? j : blk.first) * blk.stride +
+                   c * (16 / (int)sizeof(T));
+    cp_async_16(stage + is_v * L::tile_bytes + r * L::row_bytes +
+                    decode_chunk_at<L::chunks>(r, c) * 16,
+                src, valid ? 16 : 0);
   }
+  cp_async_commit();
+}
+
+// A warp's online-softmax state over its tiles, and how it streams them:
+// the warp owns tiles w, w + kDecWarps, ... of 16 positions, keeps
+// kDecStages - 1 of them in flight while it computes on one, and waits on
+// nothing but its own copies.
+template <typename T, int D, typename Tile>
+__device__ __forceinline__ void stream_tiles(unsigned char* ring,
+                                             const DecBlock<T>& blk, int warp,
+                                             int lane, Tile&& tile) {
+  using L = DecLayout<T, D>;
+  const int n_tiles = (blk.last - blk.first + kDecTile - 1) / kDecTile;
+  const int mine = warp < n_tiles ? (n_tiles - warp + kDecWarps - 1) /
+                                        kDecWarps
+                                  : 0;
+  auto j0_of = [&](int i) {
+    return blk.first + (warp + i * kDecWarps) * kDecTile;
+  };
+#pragma unroll
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < mine) {
+      load_stage<T, D>(ring + i * L::stage_bytes, blk, j0_of(i), lane);
+    } else {
+      cp_async_commit();   // empty group: the wait below counts groups
+    }
+  }
+  for (int i = 0; i < mine; ++i) {
+    const int ahead = i + kDecStages - 1;
+    if (ahead < mine) {
+      load_stage<T, D>(ring + (ahead % kDecStages) * L::stage_bytes, blk,
+                       j0_of(ahead), lane);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<kDecStages - 1>();   // tile i has landed (this lane's)
+    __syncwarp();                      // ... and every lane's
+    tile(ring + (i % kDecStages) * L::stage_bytes, j0_of(i));
+    __syncwarp();   // the stage is free for the copy issued next
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+}
+
+// bf16: scores and P.V on the tensor cores (mma.sync m16n8k16, rows = the
+// block's query heads, padded to 16), the online softmax on the score
+// fragments in registers.  Returns the warp's state in its ring.
+template <int D>
+__device__ __forceinline__ void decode_warp(unsigned char* ring,
+                                            const DecBlock<__nv_bfloat16>& blk,
+                                            int warp, int lane,
+                                            float scale_log2) {
+  using T = __nv_bfloat16;
+  using L = DecLayout<T, D>;
+  const int ga = lane / 4, gb = ga + 8;   // this thread's two rows
+  const int quad = lane % 4;
+  // q as the A fragments of the D / 16 k-steps, zero rows past gh
+  uint32_t qa[D / 16][4];
+  const uint32_t* qa_row = reinterpret_cast<const uint32_t*>(blk.q + ga * D);
+  const uint32_t* qb_row = reinterpret_cast<const uint32_t*>(blk.q + gb * D);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int w = kk * 8 + quad;   // a bf16 pair
+    qa[kk][0] = ga < blk.gh ? qa_row[w] : 0u;
+    qa[kk][1] = gb < blk.gh ? qb_row[w] : 0u;
+    qa[kk][2] = ga < blk.gh ? qa_row[w + 4] : 0u;
+    qa[kk][3] = gb < blk.gh ? qb_row[w + 4] : 0u;
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+  // ldmatrix rows this lane addresses: matrix lane / 8, its row lane % 8
+  const int mat = lane / 8, mrow = lane % 8;
+
+  stream_tiles<T, D>(ring, blk, warp, lane, [&](unsigned char* st, int j0) {
+    const unsigned char* kt = st;
+    const unsigned char* vt = st + L::tile_bytes;
+    float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    // S = q . K^T: matrices (positions 0-7 | 8-15) x (dims lo | hi)
+    const int kr = (mat / 2) * 8 + mrow;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4(b, kt + kr * L::row_bytes +
+                         decode_chunk_at<L::chunks>(kr, 2 * kk + mat % 2) * 16);
+      mma_bf16(s[0], qa[kk], b[0], b[1]);
+      mma_bf16(s[1], qa[kk], b[2], b[3]);
+    }
+    // mask past `last`, scale to base 2, row max over the quad
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + 2 * quad + (e & 1);
+        const float x = j < blk.last ? s[n][e] * scale_log2 : -INFINITY;
+        s[n][e] = x;
+        if (e < 2) {
+          mx_a = fmaxf(mx_a, x);
+        } else {
+          mx_b = fmaxf(mx_b, x);
+        }
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = fast_exp2(m_a - mn_a);
+    const float alpha_b = fast_exp2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[n][e] - (e < 2 ? mn_a : mn_b));
+        s[n][e] = p;
+        if (e < 2) {
+          sum_a += p;
+        } else {
+          sum_b += p;
+        }
+      }
+    }
+    // each thread keeps its share of l; the quad sums it at the end
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+    // p rounded to bf16 (flash.py:182): the score fragments of positions
+    // 0-7 and 8-15 are the A fragment of the P.V k-step
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+    // O = O * alpha + P . V: matrices (positions 0-7 | 8-15) x (dims
+    // n | n + 8), transposed
+    const int vr = (mat % 2) * 8 + mrow;
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+      o[n + 1][0] *= alpha_a;
+      o[n + 1][1] *= alpha_a;
+      o[n + 1][2] *= alpha_b;
+      o[n + 1][3] *= alpha_b;
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vt + vr * L::row_bytes +
+                               decode_chunk_at<L::chunks>(vr, n + mat / 2) *
+                                   16);
+      mma_bf16(o[n], pa, b[0], b[1]);
+      mma_bf16(o[n + 1], pa, b[2], b[3]);
+    }
+  });
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  float* acc = reinterpret_cast<float*>(ring);
+  float* ml = acc + kDecHeads * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int d = n * 8 + 2 * quad;
+    acc[ga * D + d] = o[n][0];
+    acc[ga * D + d + 1] = o[n][1];
+    acc[gb * D + d] = o[n][2];
+    acc[gb * D + d + 1] = o[n][3];
+  }
+  if (quad == 0) {
+    ml[ga] = m_a;
+    ml[gb] = m_b;
+    ml[kDecHeads + ga] = l_a;
+    ml[kDecHeads + gb] = l_b;
+  }
+}
+
+// float32 (off the main path): the same ring and state on the CUDA cores.
+// Lanes take (head, position) pairs for the scores, lane g runs row g's
+// online softmax, and lane l owns dims l, l + 32, ... of the output.
+template <int D>
+__device__ __forceinline__ void decode_warp(unsigned char* ring,
+                                            const DecBlock<float>& blk,
+                                            int warp, int lane,
+                                            float scale_log2) {
+  using L = DecLayout<float, D>;
+  unsigned char* smem = ring - warp * L::warp_bytes;
+  const float* qs = reinterpret_cast<const float*>(smem + L::q_off);
+  float* sc = reinterpret_cast<float*>(smem + L::s_off) +
+              warp * kDecHeads * kDecTile;
+  float acc[kDecHeads][D / 32];
+#pragma unroll
+  for (int g = 0; g < kDecHeads; ++g) {
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) acc[g][i] = 0.0f;
+  }
+  float m = kNegInf, l = 0.0f;   // row `lane`'s, for lane < gh
+
+  stream_tiles<float, D>(ring, blk, warp, lane, [&](unsigned char* st,
+                                                    int j0) {
+    const unsigned char* kt = st;
+    const unsigned char* vt = st + L::tile_bytes;
+    for (int e = lane; e < blk.gh * kDecTile; e += 32) {
+      const int g = e / kDecTile;
+      const int j = e - g * kDecTile;
+      float dot = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < L::chunks; ++c) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            kt + j * L::row_bytes + decode_chunk_at<L::chunks>(j, c) * 16);
+        const float4 qv = *reinterpret_cast<const float4*>(qs + g * D + 4 * c);
+        dot = fmaf(qv.x, kv.x, dot);
+        dot = fmaf(qv.y, kv.y, dot);
+        dot = fmaf(qv.z, kv.z, dot);
+        dot = fmaf(qv.w, kv.w, dot);
+      }
+      sc[e] = j0 + j < blk.last ? dot * scale_log2 : -INFINITY;
+    }
+    __syncwarp();
+    float alpha = 1.0f;
+    if (lane < blk.gh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kDecTile; ++j) mx = fmaxf(mx, sc[lane * kDecTile + j]);
+      const float mn = fmaxf(m, mx);
+      alpha = fast_exp2(m - mn);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kDecTile; ++j) {
+        const float p = fast_exp2(sc[lane * kDecTile + j] - mn);
+        sc[lane * kDecTile + j] = p;
+        sum += p;
+      }
+      m = mn;
+      l = l * alpha + sum;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < kDecHeads; ++g) {
+      const float a_g = __shfl_sync(0xffffffffu, alpha, g);
+      if (g < blk.gh) {
+#pragma unroll
+        for (int i = 0; i < D / 32; ++i) {
+          const int d = lane + 32 * i;
+          float a = acc[g][i] * a_g;
+#pragma unroll
+          for (int j = 0; j < kDecTile; ++j) {
+            const float vv = *reinterpret_cast<const float*>(
+                vt + j * L::row_bytes +
+                decode_chunk_at<L::chunks>(j, d / 4) * 16 + (d % 4) * 4);
+            a = fmaf(sc[g * kDecTile + j], vv, a);
+          }
+          acc[g][i] = a;
+        }
+      }
+    }
+  });
+
+  float* st_acc = reinterpret_cast<float*>(ring);
+  float* ml = st_acc + kDecHeads * D;
+#pragma unroll
+  for (int g = 0; g < kDecHeads; ++g) {
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) st_acc[g * D + lane + 32 * i] = acc[g][i];
+  }
+  if (lane < kDecHeads) {
+    ml[lane] = m;
+    ml[kDecHeads + lane] = l;
+  }
+}
+
+// Merge states in order: M = max m_i, l = sum l_i 2^(m_i - M),
+// acc = sum acc_i 2^(m_i - M); state i at states[i] (acc, then m, then l).
+template <int D>
+__device__ __forceinline__ void merge_states(const float* const* states,
+                                             int n, int g, int d,
+                                             float* acc_out, float* m_out,
+                                             float* l_out) {
+  float big = kNegInf;
+  for (int i = 0; i < n; ++i) big = fmaxf(big, states[i][kDecHeads * D + g]);
+  float l = 0.0f, acc = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const float w = fast_exp2(states[i][kDecHeads * D + g] - big);
+    l = fmaf(states[i][kDecHeads * D + kDecHeads + g], w, l);
+    acc = fmaf(states[i][g * D + d], w, acc);
+  }
+  *acc_out = acc;
+  *m_out = big;
+  *l_out = l;
+}
+
+// One block per (chunk of positions, KV head and group of up to 16 of its
+// query heads, batch); the chunks of one (batch, KV head, group) are one
+// thread-block cluster.  Each warp streams its share of the chunk through
+// its own ring; the block merges its warps' states into its slot; after
+// cluster.sync() rank 0 reads every rank's slot through distributed shared
+// memory, merges them in chunk order and writes the output.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDecWarps * 32)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int smax,
+                    int h, int kvh, int groups, int pos, int chunk,
+                    float scale_log2) {
+  using L = DecLayout<T, D>;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) unsigned char k7_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g_all = h / kvh;
+  const int kv_head = blockIdx.y / groups;
+  const int g0 = (blockIdx.y - kv_head * groups) * kDecHeads;
+  const int b = blockIdx.z;
+  DecBlock<T> blk;
+  blk.stride = (int64_t)kvh * D;
+  blk.k = k + ((int64_t)b * smax * kvh + kv_head) * D;
+  blk.v = v + ((int64_t)b * smax * kvh + kv_head) * D;
+  blk.first = blockIdx.x * chunk;
+  blk.last = min(blk.first + chunk, pos + 1);
+  blk.gh = min(kDecHeads, g_all - g0);
+  const int64_t head0 = (int64_t)b * h + (int64_t)kv_head * g_all + g0;
+  blk.q = q + head0 * D;
+  blk.out = out + head0 * D;
+
+  if constexpr (L::f32) {
+    float* qs = reinterpret_cast<float*>(k7_smem + L::q_off);
+    for (int e = tid; e < kDecHeads * D; e += kDecWarps * 32) {
+      qs[e] = e < blk.gh * D ? blk.q[e] : 0.0f;
+    }
+    __syncthreads();
+  }
+  unsigned char* ring = k7_smem + warp * L::warp_bytes;
+  decode_warp<D>(ring, blk, warp, lane, scale_log2);
+  __syncthreads();
+
+  // the block's warps, merged in warp order, into the slot
+  float* slot = reinterpret_cast<float*>(k7_smem + L::slot_off);
+  const float* warps[kDecWarps];
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) {
+    warps[w] = reinterpret_cast<const float*>(k7_smem + w * L::warp_bytes);
+  }
+  for (int e = tid; e < blk.gh * D; e += kDecWarps * 32) {
+    const int g = e / D, d = e - g * D;
+    float m, l;
+    merge_states<D>(warps, kDecWarps, g, d, &slot[e], &m, &l);
+    if (d == 0) {
+      slot[kDecHeads * D + g] = m;
+      slot[kDecHeads * D + kDecHeads + g] = l;
+    }
+  }
+  cluster.sync();   // every rank's slot is written
+
+  if (cluster.block_rank() == 0) {
+    const int n = (int)cluster.num_blocks();
+    const float* ranks[8];
+    for (int c = 0; c < n; ++c) ranks[c] = cluster.map_shared_rank(slot, c);
+    for (int e = tid; e < blk.gh * D; e += kDecWarps * 32) {
+      const int g = e / D, d = e - g * D;
+      float acc, m, l;
+      merge_states<D>(ranks, n, g, d, &acc, &m, &l);
+      blk.out[e] = from_float<T>(acc / (l == 0.0f ? 1.0f : l));
+    }
+  }
+  cluster.sync();   // peers' slots stay alive until rank 0 has read them
+}
+
+// The K7 instance's dynamic shared memory, allowed once per device.
+template <typename T, int D>
+cudaError_t allow_decode_smem() {
+  static int set_on[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return err;
+  if (!set_on[dev]) {
+    err = cudaFuncSetAttribute(flash_decode_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DecLayout<T, D>::bytes);
+    if (err != cudaSuccess) return err;
+    set_on[dev] = 1;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int D>
 int launch_flash_decode(const void* q, const void* k, const void* v,
-                        float* part_ml, float* part_acc, void* out, int b,
-                        int smax, int h, int kvh, int pos, int chunk,
-                        float sm_scale, cudaStream_t stream) {
-  using L = K7Layout<T, D>;
-  auto kernel = flash_decode_partial_kernel<T, D>;
-  const size_t bytes = L::bytes(h / kvh);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                        void* out, int b, int smax, int h, int kvh, int pos,
+                        int chunk, float sm_scale, cudaStream_t stream) {
+  using L = DecLayout<T, D>;
+  auto kernel = flash_decode_kernel<T, D>;
+  cudaError_t err = allow_decode_smem<T, D>();
   if (err != cudaSuccess) return (int)err;
-  const int n_chunks = (pos + chunk) / chunk;  // chunks holding 0..pos
-  dim3 grid(n_chunks, kvh, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), part_ml, part_acc, smax, h, kvh, pos, chunk,
-      sm_scale);
-  err = cudaGetLastError();
+  const int groups = (h / kvh + kDecHeads - 1) / kDecHeads;
+  const int n_chunks = pos / chunk + 1;   // chunks holding 0..pos
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_chunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_chunks, kvh * groups, b);
+  cfg.blockDim = dim3(kDecWarps * 32);
+  cfg.dynamicSmemBytes = L::bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                           static_cast<const T*>(k), static_cast<const T*>(v),
+                           static_cast<T*>(out), smax, h, kvh, groups, pos,
+                           chunk, sm_scale * kLog2e);
   if (err != cudaSuccess) return (int)err;
-  flash_decode_merge_kernel<T><<<b * h, D, 0, stream>>>(
-      part_ml, part_acc, static_cast<T*>(out), n_chunks, D);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_flash_decode(int d, const void* q, const void* k, const void* v,
-                          float* part_ml, float* part_acc, void* out, int b,
-                          int smax, int h, int kvh, int pos, int chunk,
-                          float sm_scale, cudaStream_t stream) {
+                          void* out, int b, int smax, int h, int kvh, int pos,
+                          int chunk, float sm_scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch_flash_decode<T, 32>(q, k, v, part_ml, part_acc, out, b,
-                                        smax, h, kvh, pos, chunk, sm_scale,
-                                        stream);
+      return launch_flash_decode<T, 32>(q, k, v, out, b, smax, h, kvh, pos,
+                                        chunk, sm_scale, stream);
     case 64:
-      return launch_flash_decode<T, 64>(q, k, v, part_ml, part_acc, out, b,
-                                        smax, h, kvh, pos, chunk, sm_scale,
-                                        stream);
+      return launch_flash_decode<T, 64>(q, k, v, out, b, smax, h, kvh, pos,
+                                        chunk, sm_scale, stream);
     case 128:
-      return launch_flash_decode<T, 128>(q, k, v, part_ml, part_acc, out, b,
-                                         smax, h, kvh, pos, chunk, sm_scale,
-                                         stream);
+      return launch_flash_decode<T, 128>(q, k, v, out, b, smax, h, kvh, pos,
+                                         chunk, sm_scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -933,22 +1269,18 @@ extern "C" int tangram_flash_attention(const void* q, const void* k,
   }
 }
 
-// K7.  part_ml (B, H, n_chunks, 2) and part_acc (B, H, n_chunks, D) float32
-// scratch, n_chunks = pos / chunk + 1; chunk a multiple of 64.
+// K7.  chunk: a multiple of 64 positions, with pos / chunk + 1 <= 8 (the
+// chunks of one KV head are one cluster).
 extern "C" int tangram_flash_decode(const void* q, const void* k,
-                                    const void* v, void* part_ml,
-                                    void* part_acc, void* out, int b,
+                                    const void* v, void* out, int b,
                                     int smax, int h, int kvh, int d, int pos,
                                     int chunk, float sm_scale, int bf16,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
   if (bf16) {
-    return dispatch_flash_decode<__nv_bfloat16>(d, q, k, v, ml, acc, out, b,
-                                                smax, h, kvh, pos, chunk,
-                                                sm_scale, s);
+    return dispatch_flash_decode<__nv_bfloat16>(d, q, k, v, out, b, smax, h,
+                                                kvh, pos, chunk, sm_scale, s);
   }
-  return dispatch_flash_decode<float>(d, q, k, v, ml, acc, out, b, smax, h,
-                                      kvh, pos, chunk, sm_scale, s);
+  return dispatch_flash_decode<float>(d, q, k, v, out, b, smax, h, kvh, pos,
+                                      chunk, sm_scale, s);
 }

@@ -3,9 +3,19 @@
 Port of ``repro/kernels/attention/flash.py`` (``flash_attention``,
 ``flash_decode``).  The kernels live in ``csrc/flash.cu`` (design, masking
 semantics and bounds in its header); this module builds them on first use,
-checks every argument, allocates the outputs and scratch, launches on
-PyTorch's current stream, and counts launches under ``"flash_attention"``
-and ``"flash_decode"`` in :data:`repro_torch.kernels.launches.LAUNCHES`.
+checks every argument, allocates the outputs, launches on PyTorch's
+current stream, and counts launches under ``"flash_attention"`` and
+``"flash_decode"`` in :data:`repro_torch.kernels.launches.LAUNCHES`.
+
+K7 is one launch a call and needs no scratch: each block streams its
+warps' 16-position K/V tiles through per-warp ``cp.async`` rings, runs
+scores and P.V on the tensor cores (``mma.sync``), and the chunks of one
+KV head, a thread-block cluster, merge their (m, l, acc) states through
+distributed shared memory.  :func:`decode_plan` is its launch plan, kept
+in step with the source's ``DecLayout``; the SM count is asked once per
+device and the dynamic shared-memory attribute set once per kernel
+instance, so a call's host work is the checks, one ``torch.empty`` and
+the ctypes launch.
 
 A CUDA tensor always goes to the kernel; anything the kernel does not take
 raises.  The plain PyTorch versions (``mha_reference`` /
@@ -15,9 +25,10 @@ a CPU tensor runs and what the kernels are held against on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import pathlib
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,11 +45,15 @@ HEAD_DIMS = (32, 64, 128)
 #: q / k / v dtypes the kernels take -> the C interface's bf16 flag
 _BF16_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
-_TILE = 64              # positions per K7 / float32 K6 tile (kBKV)
 #: the bf16 K6 kernel's tiles (kWgBQ, kWgBKV, kWgStages in the source):
 #: query rows a block, positions a KV tile, K/V ring stages
 WG_ROWS, WG_TILE, WG_STAGES = 128, 128, 2
-_MAX_CHUNK_TILES = 8    # K7 chunks of at most 512 positions
+#: K7's block (kDecWarps, kDecTile, kDecStages, kDecHeads in the source):
+#: warps a block, positions a warp's ring stage, stages a warp's ring,
+#: query heads a block; a block's pass over the chunk takes
+#: DEC_WARPS * DEC_TILE positions, and chunks are multiples of it
+DEC_WARPS, DEC_TILE, DEC_STAGES, DEC_HEADS = 4, 16, 3, 16
+DEC_MAX_CLUSTER = 8     # chunks a (batch, KV head): one portable cluster
 _SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block can have
 
 
@@ -51,7 +66,7 @@ def library() -> ctypes.CDLL:
                                                           ctypes.c_int,
                                                           ctypes.c_void_p])
         lib.tangram_flash_decode.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float,
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                           ctypes.c_int,
                                                           ctypes.c_void_p])
         for fn in (lib.tangram_flash_attention, lib.tangram_flash_decode):
@@ -155,24 +170,70 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+_SMS: Dict[int, int] = {}
+
+
 def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """Streaming multiprocessors of a card, asked once per device."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
-def decode_chunk(n_valid: int, pairs: int, sms: int) -> int:
-    """K7's chunk of positions: a multiple of the 64-position tile, from 64
-    to 512, chosen so that ``pairs`` (batch x KV head) times the number of
-    chunks covering ``n_valid`` positions gives about two blocks per SM."""
-    tiles = -(-n_valid // _TILE)
-    per_chunk = -(-tiles * pairs // (2 * sms))
-    return _TILE * max(1, min(_MAX_CHUNK_TILES, per_chunk))
+class DecodePlan(NamedTuple):
+    grid: Tuple[int, int, int]      # (chunks, KV heads x head groups, B)
+    cluster: Tuple[int, int, int]   # (chunks, 1, 1): a cluster per group
+    chunk: int                      # positions a block, a multiple of 64
+    stages: int                     # ring stages a warp
+    smem: int                       # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(b: int, smax: int, h: int, kvh: int, d: int, pos: int,
+                dtype: torch.dtype, sms: int) -> DecodePlan:
+    """K7's launch, as the source's ``DecLayout`` lays a block out.
+
+    A block is ``DEC_WARPS`` warps; each warp streams its own 16-position
+    tiles of K and V through a ring of ``DEC_STAGES`` stages (rows of D
+    elements), and the block keeps one merged (m, l, acc) state of
+    ``DEC_HEADS`` heads x D float32 (plus q and a score tile a warp for
+    float32).  Blocks take up to 16 query heads of one KV head (G > 16
+    takes ``ceil(G / 16)`` groups).  The positions 0..pos are cut into
+    chunks of a multiple of 64, as many a (batch, KV head, group) as give
+    about one block an SM on ``sms`` SMs, at most ``DEC_MAX_CLUSTER`` (one
+    cluster); a bf16 block's shared memory is under half an SM's, so two
+    may share an SM and every cluster of 8 finds room at once.  One block
+    an SM streamed the 8 x 32768 slice 6% faster than two on the H100
+    (``tools/time_decode.py``).  ``smax`` bounds nothing but pos."""
+    if not 0 <= pos < smax:
+        raise ValueError(f"pos {pos} outside [0, {smax})")
+    elem = 2 if dtype == torch.bfloat16 else 4
+    ring = DEC_WARPS * DEC_STAGES * 2 * DEC_TILE * d * elem
+    state = (DEC_HEADS * d + 2 * DEC_HEADS) * 4
+    smem = ring + state
+    if dtype != torch.bfloat16:
+        smem += DEC_HEADS * d * 4 + DEC_WARPS * DEC_HEADS * DEC_TILE * 4
+    groups = -(-(h // kvh) // DEC_HEADS)
+    per_pass = DEC_WARPS * DEC_TILE
+    passes = -(-(pos + 1) // per_pass)
+    n_chunks = max(1, min(DEC_MAX_CLUSTER, sms // (b * kvh * groups),
+                          passes))
+    chunk = -(-passes // n_chunks) * per_pass
+    n_chunks = pos // chunk + 1
+    return DecodePlan((n_chunks, kvh * groups, b), (n_chunks, 1, 1), chunk,
+                      DEC_STAGES, smem)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       pos: int) -> torch.Tensor:
     """K7: q (B, 1, H, D), cache k / v (B, Smax, Kv, D), attend to
-    positions 0..pos -> (B, 1, H, D) in q's dtype.  ``pos`` is a host int
-    (the grid is sized to it, and no device value is read back)."""
+    positions 0..pos -> (B, 1, H, D) in q's dtype, in one launch.  ``pos``
+    is a host int (the grid is sized to it, and no device value is read
+    back)."""
     name = "flash_decode"
     _check_qkv(name, q, k, v)
     b, one, h, d = q.shape
@@ -184,28 +245,20 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: pos must be a Python int in [0, {smax}), "
                          f"got {pos!r}")
     pos = int(pos)
-    g = h // kvh
-    smem = 4 * (_TILE * (d * q.element_size() // 4 + 1)
-                + _TILE * d * q.element_size() // 4
-                + g * (2 * d + _TILE + 3))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: a group of {g} query heads needs {smem} "
-                         f"bytes of shared memory, more than {_SMEM_LIMIT}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    chunk = decode_chunk(pos + 1, b * kvh, _sm_count(q.device))
-    n_chunks = pos // chunk + 1
-    part_ml = torch.empty((b, h, n_chunks, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32,
-                           device=q.device)
+    plan = decode_plan(b, smax, h, kvh, d, pos, q.dtype,
+                       _sm_count(q.device))
+    if plan.grid[1] > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: {kvh} KV heads x {plan.grid[1] // kvh} "
+                         f"head groups exceed {_MAX_GRID_YZ}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = library().tangram_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), part_ml.data_ptr(),
-            part_acc.data_ptr(), out.data_ptr(), b, smax, h, kvh, d, pos,
-            chunk, 1.0 / math.sqrt(d), _BF16_FLAG[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            smax, h, kvh, d, pos, plan.chunk, 1.0 / math.sqrt(d),
+            _BF16_FLAG[q.dtype], stream)
     if rc != 0:
         raise _launch_failed("tangram_flash_decode", rc)
     LAUNCHES["flash_decode"] += 1

@@ -3,8 +3,8 @@
 Each wrapper adds one to its kernel's entry where it launches the kernel,
 and nowhere else, so a run can show that its path went through the
 kernels: K1/K2 in :mod:`.stitch.stitch`, K4/K3 in :mod:`.stitch.fused_embed`,
-K5 in :mod:`.gmm.gmm` and K6/K7 in :mod:`.attention.flash` (K7's two passes
-are one launch of the wrapper).
+K5 in :mod:`.gmm.gmm` and K6/K7 in :mod:`.attention.flash`.  A launch is
+one kernel on the card.
 """
 from __future__ import annotations
 

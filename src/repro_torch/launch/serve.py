@@ -47,8 +47,10 @@ from repro_torch.sources import RateProfile, make_source
 UNPORTED = {
     "quantize": "ROADMAP queue 1, item 8 (int8-resident weights)",
     "workers": "ROADMAP queue 1, item 10 (worker pools)",
+    "placement": "ROADMAP queue 1, item 10 (worker pools)",
     "shards": "ROADMAP queue 1, item 11 (fleet sharding)",
     "parallel": "ROADMAP queue 1, item 11 (fleet sharding)",
+    "planner": "ROADMAP queue 1, item 11 (fleet sharding)",
     "online_latency": "ROADMAP queue 1, item 10 (online latency tables)",
     "model": "ROADMAP queue 1, item 10 (multi-model serving)",
     "model_map": "ROADMAP queue 1, item 10 (multi-model serving)",
@@ -175,6 +177,9 @@ def main(argv=None):
     p.add_argument("--workers", type=int, default=1)
     p.add_argument("--shards", type=int, default=None)
     p.add_argument("--parallel", action="store_true")
+    p.add_argument("--placement",
+                   choices=("least", "round", "affinity", "model"))
+    p.add_argument("--planner", choices=("cost", "equal"))
     p.add_argument("--online-latency", action="store_true")
     p.add_argument("--model", default=None)
     p.add_argument("--model-map", action="append", default=None)

@@ -17,6 +17,7 @@ from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
 from repro_torch.core.latency import LatencyTable
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import build_batch_plan, stitch
+from repro_torch.kernels.attention import flash as flash_kernels
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.stitch import ops
@@ -408,6 +409,80 @@ def test_flash_decode_kernel_against_plain(cuda, pos, dtype):
     want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+K7_ROW_TOL = 0.077     # chip_smoke.ATTN_ROW_TOL["k7", bf16]
+
+
+def _k7_against_plain(q, k, v, pos):
+    """One K7 launch against ``decode_reference``: within ATTN_TOL, and
+    every output row within K7_ROW_TOL (bf16) of its own RMS."""
+    before = kernels.LAUNCHES["flash_decode"]
+    got = attn_ops.flash_decode(q, k, v, pos)
+    assert kernels.LAUNCHES["flash_decode"] == before + 1
+    want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
+    assert got.dtype == q.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    tol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if q.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        err = (g - w).abs().amax(-1)
+        rms = w.square().mean(-1).sqrt().clamp_min(1e-30)
+        assert float((err / rms).max()) <= K7_ROW_TOL
+
+
+@pytest.mark.parametrize("b,smax,h,kv,d,pos,chunks", [
+    (2, 4096, 24, 8, 128, 0, 1),       # one position, one chunk a pair
+    (2, 4096, 24, 8, 128, 63, 1),      # one block pass, ragged
+    (2, 4096, 24, 8, 128, 64, 2),
+    (2, 4096, 24, 8, 128, 511, 8),     # the most chunks a pair
+    (2, 4096, 24, 8, 128, 512, 5),     # 9 passes: 5 chunks of 2
+    (2, 4096, 24, 8, 128, 4095, 8),    # the cache's last position
+    (1, 1000, 8, 8, 32, 999, 8),       # G = 1, D = 32
+    (3, 2048, 64, 8, 64, 1500, 5),     # G = 8, D = 64
+    (1, 300, 48, 2, 128, 257, 5),      # G = 24: two head groups
+    (64, 512, 24, 8, 128, 511, 1),     # more pairs than SMs: one chunk
+])
+def test_flash_decode_cluster_edges_against_plain(cuda, b, smax, h, kv, d,
+                                                  pos, chunks):
+    """The bf16 K7 (one cluster of chunks a KV head) within 2e-2 and the
+    row limit of ``decode_reference`` at chunk and tile edges, G 1 to 24,
+    D 32 to 128, one chunk a pair to eight."""
+    plan = flash_kernels.decode_plan(
+        b, smax, h, kv, d, pos, torch.bfloat16,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.grid[0] == chunks
+    rng = np.random.default_rng(19)
+    q, k, v = _qkv(rng, [(b, 1, h, d), (b, smax, kv, d), (b, smax, kv, d)],
+                   torch.bfloat16, cuda)
+    _k7_against_plain(q, k, v, pos)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_decode_float32_against_plain(cuda, d):
+    """The float32 K7 (CUDA cores, the same ring and merge) within 1e-4,
+    G = 3 and G = 20 (two head groups)."""
+    rng = np.random.default_rng(20)
+    for h, kv, pos in ((6, 2, 700), (20, 1, 130)):
+        q, k, v = _qkv(rng, [(2, 1, h, d), (2, 1024, kv, d),
+                             (2, 1024, kv, d)], torch.float32, cuda)
+        _k7_against_plain(q, k, v, pos)
+
+
+def test_flash_decode_back_to_back_positions(cuda):
+    """Calls back to back on one cache at positions that change the grid
+    (1 to 8 chunks and back), as a decode run makes them: nothing a call
+    leaves behind reaches the next."""
+    rng = np.random.default_rng(21)
+    q, k, v = _qkv(rng, [(2, 1, 24, 128), (2, 4096, 8, 128),
+                         (2, 4096, 8, 128)], torch.bfloat16, cuda)
+    outs = {pos: attn_ops.flash_decode(q, k, v, pos)
+            for pos in (4095, 0, 300, 64, 4095, 1, 2047)}
+    for pos, got in outs.items():
+        want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -116,15 +116,21 @@ def test_impl_follows_the_device_and_never_falls_back():
 
 
 @pytest.mark.parametrize("n_valid,pairs,sms,chunk", [
-    (1, 16, 132, 64),          # pos 0: one tile
+    (1, 16, 132, 64),          # pos 0: one chunk of one block pass
     (512, 16, 132, 64),        # pos 511 at B=2, Kv=8: 8 chunks x 16
-    (4096, 16, 132, 256),      # pos 4095: 16 chunks x 16 = 256 blocks
-    (32768, 64, 132, 512),     # B=8 at 32k: capped at 512 positions
+    (4096, 16, 132, 512),      # pos 4095: 8 chunks x 16 = 128 blocks
+    (32768, 64, 132, 16384),   # B=8 at 32k: 2 chunks x 64 pairs
 ])
 def test_decode_chunk_spreads_the_cache_over_the_card(n_valid, pairs, sms,
                                                       chunk):
-    assert tflash.decode_chunk(n_valid, pairs, sms) == chunk
+    """K7's chunk of positions (``decode_plan``) at minitron-4b's 8 KV
+    heads: a multiple of the block's 64-position pass, as many chunks a
+    (batch, KV head) as give about one block an SM, at most 8."""
+    plan = tflash.decode_plan(pairs // 8, n_valid, 24, 8, 128, n_valid - 1,
+                              torch.bfloat16, sms)
+    assert plan.chunk == chunk
     assert chunk % 64 == 0
+    assert plan.grid[0] * pairs <= sms
 
 
 @pytest.mark.parametrize("jimpl", ["xla", "flash_interpret"])

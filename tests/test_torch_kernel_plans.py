@@ -1,9 +1,11 @@
 """Host-side launch planning of the wgmma kernels (K4 stitch->embed, K6
-flash attention), held against a direct computation on the CPU: the grid
-covers every token, column and query row exactly once, and the shared
-memory a block asks for is the sum of its parts and fits the card.  The
+flash attention) and of K7's clusters (flash decode), held against a
+direct computation on the CPU: the grid covers every token, column, query
+row and cache position exactly once, and the shared memory a block asks
+for is the sum of its parts and fits the card.  The
 kernels themselves run only on a card (tests/test_torch_cuda.py)."""
 import pytest
+import torch
 
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.stitch import fused_embed
@@ -83,3 +85,71 @@ def test_flash_attention_heaviest_query_tile_first():
     starts = [(grid[0] - 1 - x) * flash.WG_ROWS for x in range(grid[0])]
     assert starts[0] == 4096 - 128
     assert sorted(starts) == list(range(0, 4096, 128))
+
+
+def _k7_smem(d, dtype):
+    """K7's block: 4 warps x 3 stages x (K and V tiles of 16 rows of D),
+    the merged state (16 heads x D float32, then m and l), and for
+    float32 q (16 x D) and a 16 x 16 score tile a warp."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    smem = 4 * 3 * 2 * 16 * d * elem + (16 * d + 32) * 4
+    if dtype == torch.float32:
+        smem += 16 * d * 4 + 4 * 16 * 16 * 4
+    return smem
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kvh,d,pos,sms", [
+    (2, 24, 8, 128, 4095, 132),     # minitron-4b, B=2, the cache's end
+    (2, 24, 8, 128, 287, 132),      # the decode run's last step
+    (8, 24, 8, 128, 32767, 132),    # a decode_32k slice on one card
+    (2, 24, 8, 128, 0, 132),        # the first step: one position
+    (2, 24, 8, 128, 63, 132),       # one pass of the block
+    (2, 24, 8, 128, 64, 132),
+    (2, 24, 8, 128, 511, 132),
+    (2, 24, 8, 128, 512, 132),
+    (1, 8, 8, 32, 1000, 132),       # G = 1
+    (3, 64, 8, 64, 2047, 132),      # G = 8
+    (1, 48, 2, 128, 4095, 132),     # G = 24: two head groups
+    (64, 24, 8, 128, 4095, 132),    # more pairs than SMs: one chunk
+    (2, 24, 8, 128, 4095, 16),      # a small card
+])
+def test_flash_decode_plan(b, h, kvh, d, pos, sms, dtype):
+    plan = flash.decode_plan(b, pos + 1, h, kvh, d, pos, dtype, sms)
+    n_chunks = plan.grid[0]
+    groups = -(-(h // kvh) // 16)
+    assert plan.grid[1:] == (kvh * groups, b)
+    assert plan.cluster == (n_chunks, 1, 1) and 1 <= n_chunks <= 8
+    assert plan.grid[0] % plan.cluster[0] == 0
+    # chunks of a multiple of 64 positions; each starts at or before pos,
+    # and together they hold positions 0..pos exactly
+    assert plan.chunk % 64 == 0
+    assert (n_chunks - 1) * plan.chunk <= pos < n_chunks * plan.chunk
+    assert plan.stages == 3
+    assert plan.smem == _k7_smem(d, dtype) <= SMEM_LIMIT
+    # about one block an SM, unless the pairs alone fill the card; a bf16
+    # block leaves room for a second on its SM
+    blocks = n_chunks * plan.grid[1] * b
+    assert blocks <= sms or n_chunks == 1
+    if dtype == torch.bfloat16:
+        assert 2 * (plan.smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("b,pos,want", [
+    ((2, 4095, ((8, 8, 2), 512))),
+    ((2, 287, ((5, 8, 2), 64))),
+    ((8, 32767, ((2, 8, 8), 16384))),
+    ((2, 0, ((1, 8, 2), 64))),
+])
+def test_flash_decode_plan_main_path_numbers(b, pos, want):
+    """minitron-4b (24 / 8 heads x 128, bf16) on 132 SMs: 8 chunks of 512
+    at pos 4095 (128 blocks, 16 clusters of 8); 5 of 64 at pos 287; 2 of
+    16,384 on the 8 x 32768 slice (128 blocks); one at pos 0."""
+    plan = flash.decode_plan(b, 32768, 24, 8, 128, pos, torch.bfloat16, 132)
+    assert (plan.grid, plan.chunk) == want
+    assert plan.smem == 98304 + 8320
+
+
+def test_flash_decode_plan_rejects_pos_outside_the_cache():
+    with pytest.raises(ValueError, match="pos"):
+        flash.decode_plan(2, 4096, 24, 8, 128, 4096, torch.bfloat16, 132)
