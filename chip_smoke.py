@@ -12,12 +12,21 @@ Phases (any failure raises, so the exit code is non-zero):
    (four libraries, one ``nvcc`` per source, all started together);
 3. hold K1 stitch and K2 unstitch bit-exact against their plain PyTorch
    versions on packer-built plans at canvas 1024 (f32, bf16, int8, uint8,
-   placements flush with the canvas edges, an empty plan);
+   placements flush with the canvas edges, an empty plan); then K1 alone
+   in each payload dtype at C 1, 3 and 4 on its edge cases (45-pixel
+   canvas rows, no multiple of 16 bytes; placements across its row tiles;
+   overlapping placements, where the last record in k order wins; 2,048
+   records on one canvas), and its C entry called directly on outputs
+   filled with 0xFF bytes;
 3b. hold K4 stitch->embed (f32 weights within 1e-4 with TF32 off in the
    plain matmul, bf16 within 2e-2) and K3 decode->gather (within 1e-5,
    equal hit masks but for centres within 1e-4 px of a placement edge)
    against their plain versions on the same plans and an all-invalid one,
-   at patch 32 and d 768;
+   at patch 32 and d 768; then K3 on slots named by two records (the last
+   wins), slots no record names, placement edges off the cell grid and
+   centre logits of +-30 (32^2 cells, 16-byte stores, and 33^2, scalar
+   stores), and its C entry called directly on outputs filled with 0xFF
+   bytes;
 3c. hold K5, the GMM background update, bit-equal (w, mu, var and the
    foreground mask) against its plain version at 3840x2160: 16
    consecutive frames of the 4K synthetic scene with the state carried,
@@ -51,7 +60,9 @@ Phases (any failure raises, so the exit code is non-zero):
    between CUDA events, which holds the wrapper's host time wherever it
    outlasts the device's, and ``ms_device``, the same calls captured in one
    CUDA graph and replayed, the card's time alone (``torch.profiler``'s
-   sum of the device activities beside it as a cross-check);
+   sum of the device activities beside it as a cross-check); K3's row also
+   gives ``launch_floor_ms``, one trivial PyTorch launch in the same
+   graph harness;
 7. hold K6 flash attention and K7 flash decode against their plain
    versions (bf16 within 2e-2, float32 within 1e-4, and every output row
    within ATTN_ROW_TOL of its own scale): K6 causal at
@@ -327,6 +338,72 @@ def check_kernels(device) -> float:
     return worst
 
 
+#: K1 edge cases: (B, M, N, K, hmax, wmax, P), as in tests/test_torch_cuda.py
+K1_EDGES = {"odd-rows": (2, 37, 45, 12, 20, 24, 6),
+            "row-tiles": (3, 1024, 1024, 64, 256, 512, 40),
+            "overlap": (2, 256, 256, 64, 128, 128, 16),
+            "2048-records": (1, 1024, 1024, 2048, 64, 64, 32)}
+
+
+def random_records(rng, b, k, m, n, hmax, wmax, p, valid=0.85):
+    """Placements at random inside the canvas (overlapping, edges at any
+    offset), slots drawn with repeats below ``p``, some records invalid."""
+    w = rng.integers(1, wmax + 1, size=(b, k))
+    h = rng.integers(1, hmax + 1, size=(b, k))
+    x = rng.integers(0, n - w + 1)
+    y = rng.integers(0, m - h + 1)
+    ok = (rng.random((b, k)) < valid).astype(np.int64)
+    slot = rng.integers(0, p, size=(b, k))
+    return np.stack([ok, slot, x, y, w, h], -1).astype(np.int32)
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def check_k1_edges(device) -> None:
+    """K1 alone, bit-exact, on the cases its plan and owner map risk, and
+    through its C entry on outputs filled with 0xFF bytes."""
+    rng = np.random.default_rng(31)
+    for name, (b, m, n, k, hmax, wmax, p) in K1_EDGES.items():
+        records = torch.from_numpy(random_records(
+            rng, b, k, m, n, hmax, wmax, p)).to(device)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8,
+                      torch.uint8):
+            for c in (1, 3, 4):
+                if dtype.is_floating_point:
+                    host = rng.normal(size=(p, hmax, wmax, c))
+                else:
+                    lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+                    host = rng.integers(lo, hi, size=(p, hmax, wmax, c))
+                slots = torch.from_numpy(host.astype(np.float32)).to(
+                    device, dtype)
+                got = stitch_ops.stitch_canvases(slots, records, m, n,
+                                                 impl="cuda")
+                want = stitch_ops.stitch_canvases(slots, records, m, n,
+                                                  impl="torch")
+                plan = stitch_kernels.stitch_plan(b, m, n, c,
+                                                  slots.element_size())
+                filled = torch.empty_like(want)
+                as_bytes(filled).fill_(0xFF)
+                rc = stitch_kernels.library().tangram_stitch(
+                    slots.data_ptr(), records.data_ptr(), filled.data_ptr(),
+                    hmax, wmax, c, b, k, m, n, slots.element_size(), *plan,
+                    torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                if rc != 0 or not (
+                        torch.equal(as_bytes(got), as_bytes(want))
+                        and torch.equal(as_bytes(filled), as_bytes(want))):
+                    raise AssertionError(
+                        f"K1 differs from its plain version: {name} {dtype} "
+                        f"C={c} (entry rc {rc}), max abs err "
+                        f"{max_abs_err(got, want)}")
+        log(f"  K1 {name:12s} B={b} {m}x{n} K={k}, 4 dtypes x C 1/3/4, "
+            f"plan (rows, group, store, smem) at C=3 f32 "
+            f"{stitch_kernels.stitch_plan(b, m, n, 3, 4)}: bit-exact, "
+            f"0xFF-filled entry bit-exact")
+
+
 # --------------------------------------------------------------- phase 3b ----
 
 def decoded_centres(raw: torch.Tensor, patch: int):
@@ -433,6 +510,55 @@ def check_fused_kernels(device) -> dict:
                 f"{edge} edge cells excused")
     log(f"  K3 hit masks: {edge_cells} cells excused as within 1e-4 px of "
         f"a placement edge")
+    worst["unstitch_decode"] = max(worst["unstitch_decode"],
+                                   check_k3_edges(device))
+    return worst
+
+
+def check_k3_edges(device) -> float:
+    """K3 at patch 32 on 3 canvases of 64 records: slots named twice (the
+    last valid record wins), the last 10 of 120 slots never named,
+    placement edges at any pixel, a third of the centre logits at +-30;
+    32^2 cells (16-byte stores) and 33^2 (scalar stores), f32 and bf16
+    raw heads, through the wrapper and through the C entry on an output
+    filled with 0xFF bytes.  Returns the largest abs error."""
+    rng = np.random.default_rng(41)
+    b, k, cap = 3, 64, 120
+    worst = 0.0
+    for side in (32, 33):
+        m = side * PATCH
+        records = random_records(rng, b, k, m, m, m // 2, m // 2, cap - 10)
+        rec = torch.from_numpy(records).to(device)
+        raw = rng.normal(size=(b, side, side, 5)).astype(np.float32)
+        sat = rng.random((b, side, side, 2)) < 1 / 3
+        raw[..., 1:3] = np.where(sat, rng.choice([-30.0, 30.0], sat.shape),
+                                 raw[..., 1:3])
+        for dtype in (torch.float32, torch.bfloat16):
+            r = torch.from_numpy(raw).to(device, dtype)
+            got = stitch_ops.unstitch_decode(r, rec, PATCH, cap, impl="cuda")
+            want = stitch_ops.unstitch_decode(r, rec, PATCH, cap,
+                                              impl="torch")
+            filled = torch.empty_like(want)
+            as_bytes(filled).fill_(0xFF)
+            rc = fused_embed.library().tangram_unstitch_decode(
+                r.data_ptr(), rec.data_ptr(), filled.data_ptr(), b, k, side,
+                side, cap, PATCH, int(dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got, want), max_abs_err(filled, want))
+            worst = max(worst, err)
+            ok = (rc == 0 and torch.equal(got[..., 0] > 0, want[..., 0] > 0)
+                  and torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+                  and torch.isfinite(filled).all()
+                  and torch.allclose(filled, want, atol=1e-5, rtol=1e-5)
+                  and not got[cap - 10:].any())
+            log(f"  K3 {side}x{side} cells, {str(dtype):14s}: duplicates, "
+                f"10 unnamed slots, +-30 centres: max abs err {err:.3g}, "
+                f"0xFF-filled entry {'ok' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"K3 differs from its plain version on "
+                                     f"its edge cases: {side}^2 {dtype} "
+                                     f"(entry rc {rc}), max abs err {err}")
     return worst
 
 
@@ -652,6 +778,8 @@ def kernel_rows(plan, slots, records, launches, worst) -> list:
             "max_abs_err": worst, "ms": t["ms_call"], "plain_ms": plain_ms,
             "bound_ms": moved / H100.hbm_bw * 1e3, "bound_by": "bytes",
             "library_ms": None, **device_keys(t)})
+        if name == "stitch":
+            rows[-1]["redesigned"] = "owner map, warp spans, 16-byte stores"
         log(f"  {name}: {fmt_times(t)} (plain {plain_ms:.4f} ms, bound "
             f"{rows[-1]['bound_ms']:.4f} ms for {moved / 1e6:.2f} MB) at "
             f"B={plan.num_canvases} K={plan.slots_per_canvas} "
@@ -1097,6 +1225,10 @@ def fused_rows(plan, slots, records, build, launches, worst) -> list:
         raw, records, PATCH, cap, impl="torch"), iters=10)
     k3 = timed(lambda: stitch_ops.unstitch_decode(
         raw, records, PATCH, cap, impl="cuda"))
+    # what one launch costs the card: a trivial PyTorch kernel in the same
+    # graph harness, the floor K3's device time reads against
+    one = torch.zeros(1, device=raw.device)
+    launch_floor = graph_ms(lambda: one.fill_(1.0))
     k4_ms, k3_ms = k4["ms_call"], k3["ms_call"]
     grids = stitch_ops.unstitch_decode(raw, records, PATCH, cap)
     LAUNCHES.update(before)      # timing launches not counted
@@ -1141,13 +1273,16 @@ def fused_rows(plan, slots, records, build, launches, worst) -> list:
          "bound_ms": max(k3_times) * 1e3,
          "bound_by": "operations" if k3_times[0] >= k3_times[1]
          else "bytes",
-         "library_ms": None, **device_keys(k3)}]
+         "library_ms": None, "launch_floor_ms": launch_floor,
+         "redesigned": "slot-major, one launch, no memset",
+         **device_keys(k3)}]
     log(f"  stitch_embed: {fmt_times(k4)} (plain {k4_plain:.4f} ms, cuBLAS "
         f"GEMM + bias {fmt_times(k4_lib)}, bound "
         f"{rows[0]['bound_ms']:.4f} ms for {k4_ops / 1e9:.2f} GFLOP / "
         f"{k4_bytes / 1e6:.2f} MB)")
     log(f"  unstitch_decode: {fmt_times(k3)} (plain {k3_plain:.4f} ms, "
-        f"bound {rows[1]['bound_ms']:.5f} ms for {k3_bytes / 1e6:.2f} MB)")
+        f"bound {rows[1]['bound_ms']:.5f} ms for {k3_bytes / 1e6:.2f} MB, "
+        f"launch floor {launch_floor:.4f} ms device)")
     log(f"  fused: K4 {k4['ms_device']:.4f} ms (device); trunk from tokens "
         f"({cfg.n_layers} layers) {trunk_ms:.3f} ms; K3 "
         f"{k3['ms_device']:.4f} ms (device); grids "
@@ -2005,6 +2140,7 @@ def main() -> None:
     build_kernels()
     log("phase 3: K1/K2 vs plain versions (bit-exact)")
     worst = check_kernels(device)
+    check_k1_edges(device)
     log("phase 3b: K4/K3 vs plain versions")
     worst_fused = check_fused_kernels(device)
     log(f"phase 3c: K5 vs its plain version (bit-equal), {CAM_W}x{CAM_H} "

@@ -69,10 +69,27 @@
 // a cell whose centre lies in a placement is written to that placement's
 // slot, its box clipped to the placement and made placement-local.  Bound:
 // bytes (the raw head read once, the ~2.6 MB grid written once), under a
-// microsecond, so launch overhead dominates.  Design: one block per (canvas,
-// record) and cell tile; invalid records return at once.  The caller hands
-// in a zeroed output, so cells no placement claims and slots no record
-// references are 0 (the Pallas kernel leaves unreferenced slots undefined).
+// microsecond, below the cost of one launch: what a design can do is make
+// the call one launch that writes each output byte once, with the chain of
+// dependent memory trips short and enough warps to hide the math.
+// Design: slot-major, one block per (output slot, tile of 256 cells), so
+// the output needs no zero fill beforehand (the wrapper allocates it with
+// torch.empty) and no block exits without work.  The block finds its
+// slot's owner with a warp max over the B*K records, read once with their
+// placements (the winner's placement comes through shared memory, not a
+// second read of the records): the last valid record, in (b, k) order,
+// that names the slot, which is what the reference's loop and the Pallas
+// grid order leave in a slot that two records name.  Each thread then
+// decodes one cell of the owner's canvas (the raw head, 20-40 KB a canvas,
+// stays in L2): decoded where the centre lies in the placement, zeros
+// elsewhere and in a slot no valid record names (the Pallas kernel leaves
+// such a slot undefined).  A warp writes its 32 cells' 640 bytes as 40
+// contiguous 16-byte stores through a staging buffer (scalar stores when
+// side_m * side_n is not a multiple of 4).  The hit test and decode are the
+// same float ops, in the same order, as the plain version's.  A first
+// version decoded 4 cells a thread (a 1024-cell tile a block, 128 blocks at
+// the main path): with 8 warps an SM the transcendental math was exposed,
+// and it ran slower than the memset and gather it replaced (PERF.md).
 //
 // Contract: every valid record lies inside its canvas, fits its slot and
 // indexes a slot of the slot array (ops.check_records on the host).
@@ -572,38 +589,98 @@ int launch_stitch_embed_wgmma(const float* slots, const int* records,
 
 // ------------------------------------------------------------------ K3 ----
 
-template <typename T>
+constexpr int kDecTile = kThreads;  // cells a K3 block writes, one a thread
+
+// K3, slot-major: one block per (output slot, tile of kDecTile cells).  The
+// block finds the slot's owner - the last valid record, in (b, k) order,
+// that names the slot, as the reference's loop and Pallas's grid order
+// leave it - and writes every cell of its tile exactly once: decoded where
+// the cell's centre lies in the owner's placement, else zeros (all zeros
+// when no record names the slot).  A thread decodes one cell.  kVec:
+// side_m * side_n is a multiple of 4, so a warp's 32 cells (640 bytes)
+// start 16-byte aligned and leave through the warp's staging buffer as 40
+// contiguous 16-byte stores; otherwise each thread stores its 5 floats.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 unstitch_decode_kernel(const T* __restrict__ raw,
                        const int* __restrict__ records,
-                       float* __restrict__ out, int k, int side_m,
-                       int side_n, int num_slots, float cell) {
-  const int bk = blockIdx.x;  // b * k + record
-  const int* r = records + (int64_t)bk * 6;
-  const int slot = r[1];
-  if (r[0] <= 0 || slot >= num_slots) return;
-  const int b = bk / k;
-  const float x0 = (float)r[2];
-  const float y0 = (float)r[3];
-  const float x1 = (float)(r[2] + r[4]);
-  const float y1 = (float)(r[3] + r[5]);
+                       float* __restrict__ out, int n_records, int k,
+                       int side_m, int side_n, float cell) {
+  // each warp's candidate: its highest index and that record's placement
+  __shared__ int4 warp_place[kThreads / 32];
+  __shared__ int warp_owner[kThreads / 32];
+  __shared__ __align__(16) float stage[kThreads * 5];
+  const int slot = blockIdx.x;
+  int owner = -1;  // the highest b * k + record naming the slot
+  int4 place = make_int4(0, 0, 0, 0);  // its (x, y, w, h)
+  for (int i = threadIdx.x; i < n_records; i += kThreads) {
+    // the whole record at once (three 8-byte loads), so the placement
+    // needs no second trip to memory once the slot matches
+    const int2* r = reinterpret_cast<const int2*>(records) + (int64_t)i * 3;
+    const int2 vs = r[0], xy = r[1], wh = r[2];
+    if (vs.x > 0 && vs.y == slot) {
+      owner = i;
+      place = make_int4(xy.x, xy.y, wh.x, wh.y);
+    }
+  }
+  const int warp_max = __reduce_max_sync(0xffffffffu, owner);
+  if (owner == warp_max) {  // the lane that holds it (or all, at -1)
+    warp_owner[threadIdx.x >> 5] = owner;
+    warp_place[threadIdx.x >> 5] = place;
+  }
+  __syncthreads();
+  int from = 0;
+#pragma unroll
+  for (int i = 1; i < kThreads / 32; ++i) {
+    if (warp_owner[i] > warp_owner[from]) from = i;
+  }
+  owner = warp_owner[from];
+
   const int cells = side_m * side_n;
-  for (int i = blockIdx.y * kThreads + threadIdx.x; i < cells;
-       i += gridDim.y * kThreads) {
+  const int i = blockIdx.y * kDecTile + threadIdx.x;  // this thread's cell
+  float o[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (owner >= 0 && i < cells) {
+    const int b = owner / k;
+    const int4 p = warp_place[from];
+    const float x0 = (float)p.x;
+    const float y0 = (float)p.y;
+    const float x1 = (float)(p.x + p.z);
+    const float y1 = (float)(p.y + p.w);
+    const T* v = raw + ((int64_t)b * cells + i) * 5;
     const int gy = i / side_n;
     const int gx = i - gy * side_n;
-    const T* v = raw + ((int64_t)b * cells + i) * 5;
     const float cx = ((float)gx + sigmoid(to_float(v[1]))) * cell;
     const float cy = ((float)gy + sigmoid(to_float(v[2]))) * cell;
-    if (!(cx >= x0 && cx < x1 && cy >= y0 && cy < y1)) continue;
-    const float bw = expf(fminf(fmaxf(to_float(v[3]), -6.0f), 6.0f)) * cell;
-    const float bh = expf(fminf(fmaxf(to_float(v[4]), -6.0f), 6.0f)) * cell;
-    float* o = out + ((int64_t)slot * cells + i) * 5;
-    o[0] = sigmoid(to_float(v[0]));
-    o[1] = fminf(fmaxf(cx - bw / 2.0f, x0), x1) - x0;
-    o[2] = fminf(fmaxf(cy - bh / 2.0f, y0), y1) - y0;
-    o[3] = fminf(fmaxf(cx + bw / 2.0f, x0), x1) - x0;
-    o[4] = fminf(fmaxf(cy + bh / 2.0f, y0), y1) - y0;
+    if (cx >= x0 && cx < x1 && cy >= y0 && cy < y1) {
+      const float bw =
+          expf(fminf(fmaxf(to_float(v[3]), -6.0f), 6.0f)) * cell;
+      const float bh =
+          expf(fminf(fmaxf(to_float(v[4]), -6.0f), 6.0f)) * cell;
+      o[0] = sigmoid(to_float(v[0]));
+      o[1] = fminf(fmaxf(cx - bw / 2.0f, x0), x1) - x0;
+      o[2] = fminf(fmaxf(cy - bh / 2.0f, y0), y1) - y0;
+      o[3] = fminf(fmaxf(cx + bw / 2.0f, x0), x1) - x0;
+      o[4] = fminf(fmaxf(cy + bh / 2.0f, y0), y1) - y0;
+    }
+  }
+  float* dst = out + (int64_t)slot * cells * 5;
+  if (kVec) {
+    // the warp's cells, contiguous in the output: stage, then 16-byte
+    // chunks l and l + 32 of the warp's span
+    const int lane = threadIdx.x & 31;
+    const int w0 = i - lane;  // the warp's first cell
+    float* st = stage + (threadIdx.x - lane) * 5;
+#pragma unroll
+    for (int q = 0; q < 5; ++q) st[lane * 5 + q] = o[q];
+    __syncwarp();
+    const int chunks = min(32, cells - w0) * 5 / 4;
+    for (int q = lane; q < chunks; q += 32) {
+      reinterpret_cast<float4*>(dst + (int64_t)w0 * 5)[q] =
+          reinterpret_cast<const float4*>(st)[q];
+    }
+  } else if (i < cells) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) dst[(int64_t)i * 5 + q] = o[q];
   }
 }
 
@@ -633,10 +710,15 @@ int launch_unstitch_decode(const void* raw, const int* records, float* out,
                            int b, int k, int side_m, int side_n,
                            int num_slots, int patch, cudaStream_t stream) {
   const int cells = side_m * side_n;
-  dim3 grid(b * k, (cells + kThreads - 1) / kThreads);
-  unstitch_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(raw), records, out, k, side_m, side_n, num_slots,
-      (float)patch);
+  dim3 grid(num_slots, (cells + kDecTile - 1) / kDecTile);
+  const T* in = static_cast<const T*>(raw);
+  if (cells % 4 == 0) {
+    unstitch_decode_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        in, records, out, b * k, k, side_m, side_n, (float)patch);
+  } else {
+    unstitch_decode_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        in, records, out, b * k, k, side_m, side_n, (float)patch);
+  }
   return (int)cudaGetLastError();
 }
 

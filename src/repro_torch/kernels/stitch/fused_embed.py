@@ -36,6 +36,7 @@ _SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block can have
 #: source): tokens and columns of d a block, K step, weight ring depth
 WG_TOKENS, WG_COLS, WG_K, WG_STAGES = 128, 192, 64, 3
 _REC_BYTES = 20     # a live record in shared memory (slot, x, y, w, h)
+_DEC_TILE = 256     # cells a K3 block writes (kDecTile in the source)
 #: weight / raw-head dtypes the kernels take -> the C interface's bf16 flag
 _BF16_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -184,9 +185,12 @@ def unstitch_decode_cuda(raw: torch.Tensor, records: torch.Tensor,
     """K3: raw head (B, side_m, side_n, 5) in float32 or bfloat16 + records
     -> (num_patches, side_m, side_n, 5) float32 decoded per-slot grids.
 
-    The output is allocated zeroed and the kernel writes only the cells a
-    placement claims, so every other cell and every slot no valid record
-    references are zero.  Records keep K4's contract."""
+    One launch, slot-major, into ``torch.empty``: the kernel writes every
+    output byte once.  A slot's owner is the last valid record, in (b, k)
+    order, that names it (the reference's answer when two records name one
+    slot); its cells are decoded where their centre lies in the owner's
+    placement and zero elsewhere, and a slot no valid record names is zero.
+    Records keep K4's contract."""
     name = "unstitch_decode"
     device = _cuda_device(name, raw)
     _check_tensor(name, "raw", raw, device, 4, tuple(_BF16_FLAG))
@@ -198,10 +202,14 @@ def unstitch_decode_cuda(raw: torch.Tensor, records: torch.Tensor,
     if records.shape[0] != b:
         raise ValueError(f"{name}: {records.shape[0]} record rows for {b} "
                          f"canvases")
-    out = torch.zeros((num_patches, side_m, side_n, 5), dtype=torch.float32,
-                      device=device)
     if num_patches == 0 or b == 0 or k == 0:
-        return out
+        return torch.zeros((num_patches, side_m, side_n, 5),
+                           dtype=torch.float32, device=device)
+    if -(-side_m * side_n // _DEC_TILE) > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: {side_m}x{side_n} cells exceed "
+                         f"{_MAX_GRID_YZ} tiles of {_DEC_TILE}")
+    out = torch.empty((num_patches, side_m, side_n, 5), dtype=torch.float32,
+                      device=device)     # every byte written by the kernel
     _run(library().tangram_unstitch_decode, device, raw.data_ptr(),
          records.data_ptr(), out.data_ptr(), b, k, side_m, side_n,
          num_patches, patch, _BF16_FLAG[raw.dtype])

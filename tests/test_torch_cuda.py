@@ -20,6 +20,7 @@ from repro_torch.core.stitching import build_batch_plan, stitch
 from repro_torch.kernels.attention import flash as flash_kernels
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.stitch import fused_embed
 from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
 from repro_torch.launch.serve import build_detector, fused_kwargs
@@ -674,3 +675,142 @@ def test_flash_attention_wgmma_edges_against_plain(cuda, s, d):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+# ---------------------------------------------------- K1 / K3 edge cases ----
+
+#: K1 edge cases: (B, M, N, K, hmax, wmax, P).  "odd-rows": 45-pixel canvas
+#: rows, never a multiple of 16 bytes; "row-tiles": the main path's canvases,
+#: 4 rows a block, placements starting and ending inside row tiles;
+#: "overlap": placements overlapping at random; "2048-records": the most
+#: records a canvas may hold, on one canvas, overlapping.
+K1_CASES = {"odd-rows": (2, 37, 45, 12, 20, 24, 6),
+            "row-tiles": (3, 1024, 1024, 64, 256, 512, 40),
+            "overlap": (2, 256, 256, 64, 128, 128, 16),
+            "2048-records": (1, 1024, 1024, 2048, 64, 64, 32)}
+
+
+def _random_records(rng, b, k, m, n, hmax, wmax, p, valid=0.85):
+    """Placements at random inside the canvas (overlapping, edges at any
+    offset), slots drawn with repeats below ``p``, some records invalid."""
+    w = rng.integers(1, wmax + 1, size=(b, k))
+    h = rng.integers(1, hmax + 1, size=(b, k))
+    x = rng.integers(0, n - w + 1)
+    y = rng.integers(0, m - h + 1)
+    ok = (rng.random((b, k)) < valid).astype(np.int64)
+    slot = rng.integers(0, p, size=(b, k))
+    return np.stack([ok, slot, x, y, w, h], -1).astype(np.int32)
+
+
+def _k1_case(kind, c, dtype, device, seed=31):
+    rng = np.random.default_rng(seed)
+    b, m, n, k, hmax, wmax, p = K1_CASES[kind]
+    records = _random_records(rng, b, k, m, n, hmax, wmax, p)
+    if dtype.is_floating_point:
+        host = rng.normal(size=(p, hmax, wmax, c))
+    else:
+        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+        host = rng.integers(lo, hi, size=(p, hmax, wmax, c))
+    slots = torch.from_numpy(host.astype(np.float32)).to(device, dtype)
+    return slots, torch.from_numpy(records).to(device), m, n
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("kind", list(K1_CASES))
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_stitch_kernel_edges_bit_exact(cuda, dtype, c, kind):
+    """K1 bit-exact against its plain version where its plan and owner map
+    are at risk: narrower stores, tile edges, overlaps (the last record in
+    k order wins) and 2,048 records a canvas."""
+    slots, rec, m, n = _k1_case(kind, c, DTYPES[dtype], cuda)
+    rows = kernels.stitch_plan(rec.shape[0], m, n, c,
+                               slots.element_size())[0]
+    assert rows > 1 or kind != "row-tiles"
+    before = kernels.LAUNCHES["stitch"]
+    got = ops.stitch_canvases(slots, rec, m, n)
+    assert kernels.LAUNCHES["stitch"] == before + 1
+    want = ops.stitch_canvases(slots, rec, m, n, impl="torch")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bytes(got), _bytes(want))
+
+
+@pytest.mark.parametrize("kind", ["odd-rows", "overlap", "row-tiles"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8", "bfloat16"])
+def test_stitch_entry_writes_every_byte(cuda, dtype, kind):
+    """``tangram_stitch`` called directly on an output filled with 0xFF
+    bytes, from the wrapper's plan: equal to the plain version, so the
+    kernel wrote every byte."""
+    slots, rec, m, n = _k1_case(kind, 3, DTYPES[dtype], cuda)
+    p, hmax, wmax, c = slots.shape
+    b, k, _ = rec.shape
+    out = torch.empty((b, m, n, c), dtype=slots.dtype, device=cuda)
+    _bytes(out).fill_(0xFF)
+    plan = kernels.stitch_plan(b, m, n, c, slots.element_size())
+    rc = kernels.library().tangram_stitch(
+        slots.data_ptr(), rec.data_ptr(), out.data_ptr(), hmax, wmax, c, b,
+        k, m, n, slots.element_size(), *plan,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    want = ops.stitch_canvases(slots, rec, m, n, impl="torch")
+    assert torch.equal(_bytes(out), _bytes(want))
+
+
+def _k3_case(side, dtype, device, seed=41):
+    """Raw heads and records for K3 at patch 32: slots named twice (within
+    a canvas and across canvases), the last ten slots never named,
+    placement edges at any pixel offset, and a third of the centre logits
+    at +-30 (saturated sigmoid: decoded centres on cell edges)."""
+    rng = np.random.default_rng(seed)
+    b, k, cap, patch = 3, 64, 120, 32
+    m = side * patch
+    records = _random_records(rng, b, k, m, m, m // 2, m // 2, cap - 10)
+    raw = rng.normal(size=(b, side, side, 5)).astype(np.float32)
+    sat = rng.random((b, side, side, 2)) < 1 / 3
+    raw[..., 1:3] = np.where(sat, rng.choice([-30.0, 30.0], sat.shape),
+                             raw[..., 1:3])
+    named = records[..., 1][records[..., 0] > 0]
+    assert len(named) > len(set(named.tolist()))      # some slot twice
+    return (torch.from_numpy(raw).to(device, dtype),
+            torch.from_numpy(records).to(device), patch, cap)
+
+
+@pytest.mark.parametrize("side", [32, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_duplicates_unnamed_saturated(cuda, dtype, side):
+    """K3 against its plain version: equal hit masks and values within
+    1e-5, the last valid record naming a slot wins, unnamed slots are
+    zero; side 33 (1,089 cells a canvas) takes the scalar stores."""
+    raw, rec, patch, cap = _k3_case(side, DTYPES[dtype], cuda)
+    before = kernels.LAUNCHES["unstitch_decode"]
+    got = ops.unstitch_decode(raw, rec, patch, cap)
+    assert kernels.LAUNCHES["unstitch_decode"] == before + 1
+    want = ops.unstitch_decode(raw, rec, patch, cap, impl="torch")
+    assert torch.equal(got[..., 0] > 0, want[..., 0] > 0)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert not got[cap - 10:].any() and (got[..., 0] > 0).any()
+
+
+@pytest.mark.parametrize("side", [32, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_entry_writes_every_byte(cuda, dtype, side):
+    """``tangram_unstitch_decode`` called directly on an output filled
+    with 0xFF bytes (NaN as float32): finite and within 1e-5 of the plain
+    version everywhere, so the kernel wrote every byte."""
+    raw, rec, patch, cap = _k3_case(side, DTYPES[dtype], cuda)
+    b, k, _ = rec.shape
+    out = torch.empty((cap, side, side, 5), device=cuda)
+    _bytes(out).fill_(0xFF)
+    rc = fused_embed.library().tangram_unstitch_decode(
+        raw.data_ptr(), rec.data_ptr(), out.data_ptr(), b, k, side, side,
+        cap, patch, int(raw.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    want = ops.unstitch_decode(raw, rec, patch, cap, impl="torch")
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)

@@ -256,3 +256,52 @@ def test_cuda_impl_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="unknown stitch impl"):
         ops.unstitch_decode(raw, records, PATCH, plan.slot_capacity,
                             impl="pallas")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_unstitch_decode_last_record_naming_a_slot_wins(dtype):
+    """Two valid records naming one slot (in one canvas and across
+    canvases): the plain K3, the JAX oracle and the Pallas kernel
+    (interpret mode) keep the later record's grid in (b, k) order; a slot
+    no valid record names is zero (the Pallas kernel leaves it undefined).
+    Placements start off the cell grid and some raw centres saturate, so
+    decoded centres land on cell edges."""
+    rng = np.random.default_rng(23)
+    side, b, k, cap = M // PATCH, 2, 5, 7
+    w = rng.integers(40, M - 8, size=(b, k))
+    h = rng.integers(40, M - 8, size=(b, k))
+    x = rng.integers(0, M - w + 1)
+    y = rng.integers(0, M - h + 1)
+    slot = np.array([[0, 1, 2, 1, 3], [4, 2, 5, 0, 3]])
+    valid = np.ones((b, k), np.int64)
+    valid[1, 4] = 0                   # slot 3: the earlier record stays
+    records = np.stack([valid, slot, x, y, w, h], -1).astype(np.int32)
+    raw = rng.normal(size=(b, side, side, 5)).astype(np.float32)
+    raw[..., 1:3] = np.where(rng.random((b, side, side, 2)) < 0.5,
+                             raw[..., 1:3],
+                             rng.choice([-30.0, 30.0],
+                                        size=(b, side, side, 2)))
+    jdt, tdt, _ = DTYPES[dtype]
+    jraw, jrec = jnp.asarray(raw, jdt), jnp.asarray(records)
+
+    got = ops.unstitch_decode(torch.from_numpy(raw).to(tdt),
+                              torch.from_numpy(records), PATCH, cap)
+    want = _np(unstitch_decode_reference(jraw, jrec, PATCH, cap))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    live = sorted(set(slot[valid > 0].tolist()))
+    pallas = _np(unstitch_decode_pallas(jraw, jrec, PATCH, cap,
+                                        interpret=True))
+    np.testing.assert_allclose(got.numpy()[live], pallas[live], atol=1e-5,
+                               rtol=1e-5)
+    assert not got.numpy()[6].any()                      # never named
+    # slot 1 (k 1 and 3 of canvas 0), 2 (canvas 0 k 2, canvas 1 k 1) and 0
+    # (canvas 0 k 0, canvas 1 k 3): the later record's grid alone
+    named_twice = {1: (0, 3), 2: (1, 1), 0: (1, 3), 3: (0, 4)}
+    assert (got.numpy()[list(named_twice)][..., 0] > 0).any()
+    for s, (bi, ki) in named_twice.items():
+        alone = records.copy()
+        alone[..., 0] = 0
+        alone[bi, ki, 0] = 1
+        single = ops.unstitch_decode(torch.from_numpy(raw).to(tdt),
+                                     torch.from_numpy(alone), PATCH, cap)
+        np.testing.assert_array_equal(got.numpy()[s], single.numpy()[s])

@@ -1,16 +1,73 @@
-"""Host-side launch planning of the wgmma kernels (K4 stitch->embed, K6
-flash attention) and of K7's clusters (flash decode), held against a
-direct computation on the CPU: the grid covers every token, column, query
-row and cache position exactly once, and the shared memory a block asks
-for is the sum of its parts and fits the card.  The
-kernels themselves run only on a card (tests/test_torch_cuda.py)."""
+"""Host-side launch planning of K1 (stitch), of the wgmma kernels (K4
+stitch->embed, K6 flash attention) and of K7's clusters (flash decode),
+held against a direct computation on the CPU: the grid covers every
+canvas row, token, column, query row and cache position exactly once, K1's
+stores tile every canvas row, and the shared memory a block asks for is
+the sum of its parts and fits the card.  The kernels themselves run only
+on a card (tests/test_torch_cuda.py)."""
+import math
+
 import pytest
 import torch
 
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.stitch import fused_embed
+from repro_torch.kernels.stitch import stitch as stitch_kernels
 
 SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
+
+
+def test_stitch_plan_main_path_numbers():
+    """B = 3 canvases of 1024^2 x 3 float32: 16-byte stores of 4-pixel
+    groups (48 B), 4 rows a block (768 blocks), an 8 KB owner map, 12 KB
+    of record list and offsets, 16 KB of span buffers."""
+    assert stitch_kernels.stitch_plan(3, 1024, 1024, 3, 4) == (
+        4, 4, 16, 4 * 1024 * 2 + 2048 * 6 + 16 + 8 * 32 * 16 * 4)
+    # uint8 and bf16 payloads: 16 and 8 pixels a group, still 48 B
+    assert stitch_kernels.stitch_plan(3, 1024, 1024, 3, 1)[1:3] == (16, 16)
+    assert stitch_kernels.stitch_plan(3, 1024, 1024, 3, 2)[1:3] == (8, 16)
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4])
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("b,m,n", [(3, 1024, 1024), (1, 96, 160),
+                                   (2, 37, 45), (4, 1024, 1023),
+                                   (1, 8, 1), (1, 4300, 66), (65535, 8, 8)])
+def test_stitch_plan_tiles_every_row(b, m, n, c, elem):
+    """Odd widths included: the store is the widest power of two up to 16
+    bytes that divides a canvas row's bytes, a group the fewest whole
+    pixels whose bytes are a multiple of it (so groups tile each row and
+    every store is aligned), rows a block 8 halved while the grid has
+    fewer than 4 x 132 blocks, and the shared memory the owner map (rows x
+    N rounded up to 8, int16), the live list and its count, a uint32 slot
+    offset a record and 8 warps' span buffers of 512 elements."""
+    rows, group, store, smem = stitch_kernels.stitch_plan(b, m, n, c, elem)
+    row_bytes = n * c * elem
+    assert store in (1, 2, 4, 8, 16) and row_bytes % store == 0
+    assert store == 16 or row_bytes % (2 * store)
+    assert (group * c * elem) % store == 0 and n % group == 0
+    assert group == store // math.gcd(c * elem, store)
+    assert rows in (1, 2, 4, 8)
+    def owner_map(r):
+        return r * (-(-n // 8) * 8) * 2
+
+    # halved only while the grid was short of blocks (or the map too big),
+    # and no further than that
+    rest = 2048 * 6 + 16 + 8 * 512 * elem
+    assert rows == 8 or (-(-m // (2 * rows)) * b < 4 * 132
+                         or owner_map(2 * rows) + rest > SMEM_LIMIT)
+    assert rows == 1 or -(-m // rows) * b >= 4 * 132 or rows == 8
+    assert smem == owner_map(rows) + rest <= SMEM_LIMIT
+
+
+def test_stitch_plan_rejects_rows_past_shared_memory():
+    """One row of 110,000 pixels needs a 220,000-byte owner map, past the
+    card's 232,448 bytes with the rest of the block (28,688 bytes at
+    float32)."""
+    with pytest.raises(ValueError, match="shared memory"):
+        stitch_kernels.stitch_plan(1, 4, 110_000, 3, 4)
+    # 100,000 pixels still fit in one row a block
+    assert stitch_kernels.stitch_plan(1, 4, 100_000, 3, 4)[0] == 1
 
 
 def _k4_smem(k, patch):
