@@ -46,6 +46,22 @@ Phases (any failure raises, so the exit code is non-zero):
    invocation boundaries and bit-equal evidence, kernel and plain raw heads
    and routed detections within the stated bf16 tolerances, async equal to
    sync; print how far fused and unfused detections agree;
+5c. build the registry's ``tangram_int8`` at full width (``tangram``
+   from the same seed, its trunk kernels int8 with float32 scales, the
+   patch embed and head in bf16), require its head objectness on the
+   trace's canvases to correlate with the bf16 build's above 0.98, print
+   both builds' resident weight bytes, trunk times (CUDA events, 1 and 4
+   canvases) and modeled ``mu``, and serve the trace with it as phases 4,
+   5 and 5b serve the bf16 detector, under the same checks;
+5d. serve the trace at SLO 1.0 s through ``TangramScheduler`` over a fused
+   ``DeviceExecutor`` of the full-width detector and print its
+   ``Results.summary()`` (cost and platform invocations read 0: the
+   platform carries only the meter);
+5e. profile the full-width detector on the card over 1, 2, 4 and 8
+   canvases, and run Tangram, Clipper, ELF and MArk in simulation over
+   that table (``benchmarks/fig12_e2e.py``'s grid: 20/40/80 Mbps x SLO
+   0.5/1.0/1.5 s) on four synthetic 2048x1024 cameras' patches made on
+   the card; print each arm's cost and violation rate;
 4c. this slice's path at full width: write a 16-frame 8-bit recording of
    the 4K scene, serve it through ``make_source("file")`` on the fused
    path with the full-width detector, once with the kernels and once with
@@ -91,6 +107,13 @@ Phases (any failure raises, so the exit code is non-zero):
    against the plain versions, SDPA and their bounds, and print the
    prefill's split, a decode step against its byte bound and the peak
    device memory;
+8b. quantize phase 8's weights on the card (int8 layer and ``lm_head``
+   kernels) and run minitron-4b with an int8 KV cache: prefill B=2 x 2048
+   through K6 (kernels vs plain within LOGIT_TOL, logits correlating with
+   the bf16 model's above 0.99) and 32 teacher-forced decode steps
+   through K7 over the dequantized cache (its logits correlating with a
+   bf16 cache's above 0.995); print the resident bytes, the prefill and
+   step times and the peak device memory;
 9. print one JSON line of kernels (K1-K7) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +125,7 @@ import concurrent.futures
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -119,6 +143,7 @@ import torch  # noqa: E402
 
 from repro_torch import configs, param  # noqa: E402
 from repro_torch.config import HardwareConfig  # noqa: E402
+from repro_torch.core import baselines  # noqa: E402
 from repro_torch.core import gmm as gmm_core  # noqa: E402
 from repro_torch.core import partitioning  # noqa: E402
 from repro_torch.core import sequence_packing  # noqa: E402
@@ -128,6 +153,7 @@ from repro_torch.core.engine import (  # noqa: E402
 from repro_torch.core.models import make_model  # noqa: E402
 from repro_torch.core.partitioning import Patch  # noqa: E402
 from repro_torch.core.rois import RoIConfig, extract_rois  # noqa: E402
+from repro_torch.core.scheduler import TangramScheduler  # noqa: E402
 from repro_torch.core.stitching import build_batch_plan, stitch  # noqa: E402
 from repro_torch.data.synthetic import Scene, preset  # noqa: E402
 from repro_torch.data.video import load_frames  # noqa: E402
@@ -147,6 +173,9 @@ from repro_torch.models import detector as detector_lib  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
+from repro_torch.models.quantize import quantize_params  # noqa: E402
+from repro_torch.serverless.platform import (  # noqa: E402
+    Platform, PlatformConfig)
 from repro_torch.sources import make_source  # noqa: E402
 
 CANVAS = 1024
@@ -211,6 +240,20 @@ ATTN_ROW_TOL = {("k6", torch.bfloat16): 0.19, ("k6", torch.float32): 1e-5,
 # logits kernel vs plain 0.102, teacher-forced decode vs prefill 0.117
 # with kernels and 0.109 plain; the limit is three times the largest.
 LOGIT_TOL = 0.35
+
+# Phases 5c and 8b: int8-resident weights.  The fp-vs-int8 correlation
+# bounds are the JAX package's own tests' (tests/test_int8_serving.py: the
+# detector's objectness; tests/test_quantize.py: LM logits with int8
+# weights, and decode over an int8 KV cache against an fp cache).
+INT8_OBJ_CORR = 0.98
+INT8_LOGIT_CORR = 0.99
+INT8_KV_CORR = 0.995
+LM_INT8_SEQ, LM_INT8_STEPS = 2048, 32   # int8 prefill B=2 x 2048, decode
+# Phase 5e: the paper's comparison (benchmarks/fig12_e2e.py's grid) in
+# simulation, on a latency table measured on the card.
+SIM_CAMERAS, SIM_FRAMES = 4, 30
+SIM_BWS = (20e6, 40e6, 80e6)
+SIM_SLOS = (0.5, 1.0, 1.5)
 
 
 def log(msg: str) -> None:
@@ -863,6 +906,19 @@ class RecordingSource:
         return self.source.stats()
 
 
+def pack_canvases(patches, frames, device) -> torch.Tensor:
+    """``patches`` (with their frames' pixels) packed and stitched onto
+    canvases on the card by the plain stitch."""
+    plan = build_batch_plan(patches, stitch(patches, CANVAS, CANVAS),
+                            CANVAS, CANVAS)
+    crops = [frames[p.frame_id][0][p.y0:p.y1, p.x0:p.x1] for p in patches]
+    slots = torch.from_numpy(stitch_ops.pack_plan_host(crops, plan)).to(
+        device)
+    records = torch.from_numpy(plan.records).to(device)
+    return stitch_ops.stitch_canvases(slots, records, CANVAS, CANVAS,
+                                      impl="torch")
+
+
 def calibrate_head(build, arrivals, frames, device) -> None:
     """Random weights leave the head's objectness logits in a narrow band
     below 0, and where the band lies moves with a canvas's content, so
@@ -880,15 +936,7 @@ def calibrate_head(build, arrivals, frames, device) -> None:
     logits = []
     with torch.inference_mode():
         for group in groups:
-            plan = build_batch_plan(group, stitch(group, CANVAS, CANVAS),
-                                    CANVAS, CANVAS)
-            crops = [frames[p.frame_id][0][p.y0:p.y1, p.x0:p.x1]
-                     for p in group]
-            slots = torch.from_numpy(
-                stitch_ops.pack_plan_host(crops, plan)).to(device)
-            records = torch.from_numpy(plan.records).to(device)
-            canvases = stitch_ops.stitch_canvases(slots, records, CANVAS,
-                                                  CANVAS, impl="torch")
+            canvases = pack_canvases(group, frames, device)
             out = detector_lib.forward(cfg, params, canvases)
             logits.append(out[..., 0].float().flatten(1))
     logits = torch.cat(logits)
@@ -1149,6 +1197,194 @@ def check_launches(run: dict, kernels: tuple, what: str) -> None:
     if not ok:
         raise AssertionError(f"{what}: launches {run['launches']}, "
                              f"expected {kernels} only")
+
+
+# ------------------------------------------------------------ phase 5c-e ----
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in param.leaves(params))
+
+
+def correlation(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(np.corrcoef(a.float().flatten().cpu().numpy(),
+                             b.float().flatten().cpu().numpy())[0, 1])
+
+
+def int8_phase(build, table, arrivals, frames, device, by_path) -> None:
+    """Phase 5c: the registry's ``tangram_int8`` at full width (``tangram``
+    quantized: the same seed, int8 trunk kernels, fp patch embed and
+    head) against the fp build, then served on the trace unfused and fused
+    like the fp detector (phases 4, 5, 5b)."""
+    t0 = time.perf_counter()
+    qbuild = make_model("tangram_int8").build(reduced=False, device=device)
+    torch.cuda.synchronize()
+    qcfg, qparams, qserve = qbuild
+    if not qcfg.quant_weights:
+        raise AssertionError("tangram_int8 built without quant_weights")
+    # the head is not quantized, so the fp build's calibrated objectness
+    # bias carries over as it is
+    qparams["det_head"]["bias"].copy_(build[1]["det_head"]["bias"])
+    registry = [make_model(n).weight_bytes / 1e6
+                for n in ("tangram_int8", "tangram")]
+    log(f"  built {qcfg.name} int8 in {time.perf_counter() - t0:.1f}s: "
+        f"resident weights {weight_bytes(qparams) / 1e6:.2f} MB int8 vs "
+        f"{weight_bytes(build[1]) / 1e6:.2f} MB {build[0].param_dtype}; "
+        f"registry weight_bytes {registry[0]:.2f} / {registry[1]:.2f} MB")
+    canvases = pack_canvases([a.patch for a in arrivals], frames, device)
+    with torch.inference_mode():
+        fp_raw = detector_lib.forward(build[0], build[1], canvases).float()
+        q_raw = detector_lib.forward(qcfg, qparams, canvases).float()
+    corr = correlation(torch.sigmoid(fp_raw[..., 0]),
+                       torch.sigmoid(q_raw[..., 0]))
+    log(f"  head objectness, fp vs int8 on the trace's {canvases.shape[0]} "
+        f"canvases: correlation {corr:.5f} (bound > {INT8_OBJ_CORR}), raw "
+        f"max abs diff {float((fp_raw - q_raw).abs().max()):.4f}")
+    if not corr > INT8_OBJ_CORR:
+        raise AssertionError(f"int8 head correlation {corr} <= "
+                             f"{INT8_OBJ_CORR}")
+    # the trunk's time, fp and int8, against each spec's modeled mu
+    reps = -(-4 // canvases.shape[0])
+    batch = canvases.repeat(reps, 1, 1, 1)[:4]
+    for name, (cfg, params, _) in (("tangram", build),
+                                   ("tangram_int8", qbuild)):
+        kernel, bias = detector_lib.embed_params(cfg, params)
+        tokens = layers.dense({"kernel": kernel, "bias": bias},
+                              vit.patchify(batch, cfg.patch), kernel.dtype)
+        model = make_model(name).latency_table(max_batch=4)
+        trunk = detector_lib.tokens_fn(cfg)
+        for b in (1, 4):
+            ms = time_ms(lambda: trunk(params, tokens[:b]), iters=10)
+            try:
+                device_ms = graph_ms(lambda: trunk(params, tokens[:b]))
+                device_ms = f"{device_ms:.3f} ms"
+            except RuntimeError as err:     # a capture the trunk refuses
+                device_ms = f"not measured ({err})"
+            log(f"  {name} trunk, {b} canvas(es): {ms:.3f} ms a call (CUDA "
+                f"events, back to back), device {device_ms} (CUDA graph); "
+                f"modeled mu {model.mu_sigma(b)[0] * 1e3:.3f} ms")
+    del canvases, batch, tokens, fp_raw, q_raw
+    qtable = profile(qserve, qparams, CANVAS, CANVAS, device)
+    log("  int8 latency table (measured): " + str(
+        {k: (round(mu, 5), round(sd, 5))
+         for k, (mu, sd) in qtable.table.items()}))
+    for slo in (5.0, 0.5):
+        trace = [dataclasses.replace(a, patch=dataclasses.replace(
+            a.patch, slo=slo)) for a in arrivals]
+        log(f"  int8, trace at SLO {slo}s:")
+        for key, run in zip(("sync", "plain", "async"),
+                            serve_phases(qbuild, qtable, trace, frames,
+                                         device)):
+            by_path[f"int8_unfused_{key}_slo{slo}"] = run["launches"]
+            if key == "sync":
+                unfused = run
+        for key, run in fused_phases(qbuild, qtable, trace, frames, device,
+                                     unfused).items():
+            by_path[f"int8_fused_{key}_slo{slo}"] = run["launches"]
+
+
+def scheduler_phase(build, table, arrivals, frames, device, by_path) -> None:
+    """Phase 5d: ``TangramScheduler`` over a fused ``DeviceExecutor`` of the
+    full-width detector, the trace at SLO 1.0.  The platform carries only
+    the meter, so the record's cost and platform invocations read 0, as
+    in the JAX package."""
+    trace = [dataclasses.replace(a, patch=dataclasses.replace(a.patch,
+                                                              slo=1.0))
+             for a in arrivals]
+    cfg, params, serve_fn = build
+    ex = make_executor("device", serve_fn=serve_fn, params=params,
+                       canvas_m=CANVAS, canvas_n=CANVAS, device=device,
+                       **fused_kwargs(cfg, params))
+    source = trace_source(trace, frames)(ex)
+    sched = TangramScheduler(
+        CANVAS, CANVAS, table, Platform(table, PlatformConfig()),
+        config=ServeConfig(max_canvases=4, executor="device", fuse=True),
+        executor=ex)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = sched.serve_source(source, name="tangram_on_card")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["scheduler_fused_slo1.0"] = dict(LAUNCHES)
+    check_launches({"launches": dict(LAUNCHES)}, FUSED, "scheduler fused")
+    summary = res.summary()
+    log(f"  TangramScheduler on the card ({wall:.2f}s wall, "
+        f"{ex.n_invocations} device invocations, {ex.n_detections} "
+        f"detections routed): Results.summary() = {json.dumps(summary)}")
+    spans = sorted({(o.t_submit, o.t_finish) for o in res.outcomes})
+    log("  invocations, measured wall (t_finish - t_submit) against the "
+        "table's t_slack: " + ", ".join(
+            f"{(f - s) * 1e3:.1f} ms vs {table.t_slack(b) * 1e3:.1f} ms "
+            f"({b} canvases)" for (s, f), b in zip(spans, res.batch_sizes)))
+    if summary["patches"] != len(trace) or len(ex.frames) != 0:
+        raise AssertionError(f"scheduler: {summary['patches']} of "
+                             f"{len(trace)} patches, {len(ex.frames)} frames "
+                             f"held")
+    if ex.n_invocations != len(res.batch_sizes) or res.invocations != 0:
+        raise AssertionError("scheduler: invocations do not add up")
+
+
+def sim_streams(device):
+    """Per-camera patch streams of ``SIM_CAMERAS`` synthetic 2048x1024
+    cameras (distinct scenes) through the edge pipeline on the card."""
+    cams = make_source("synthetic", n_frames=SIM_FRAMES, canvas=CANVAS,
+                       slo=1.0, n_cameras=SIM_CAMERAS, device=device)
+    by_cam = {}
+    for a in cams.events(None):
+        by_cam.setdefault(a.patch.camera_id, []).append(a.patch)
+    return [sorted(ps, key=lambda p: p.t_gen)
+            for _, ps in sorted(by_cam.items())]
+
+
+def simulation_phase(build, device) -> None:
+    """Phase 5e: the paper's comparison (``benchmarks/fig12_e2e.py``'s
+    grid: bandwidth x SLO; Tangram, Clipper, ELF, MArk, each on its own
+    ``Platform(table, PlatformConfig())``) in simulation, on a latency
+    table measured on the card over canvas batches of the full-width
+    detector."""
+    cfg, params, serve_fn = build
+    table = profile(serve_fn, params, CANVAS, CANVAS, device,
+                    batch_sizes=(1, 2, 4, 8))
+    log("  measured table for the simulation: " + str(
+        {k: (round(v[0], 5), round(v[1], 5)) for k, v in table.table.items()}))
+    t0 = time.perf_counter()
+    base = sim_streams(device)
+    n = sum(len(s) for s in base)
+    log(f"  {SIM_CAMERAS} cameras x {SIM_FRAMES} frames of "
+        f"{2 * CANVAS}x{CANVAS} -> {n} patches in "
+        f"{time.perf_counter() - t0:.2f}s")
+    area = CANVAS * CANVAS
+    t0 = time.perf_counter()
+    for bw in SIM_BWS:
+        for slo in SIM_SLOS:
+            streams = [[dataclasses.replace(p, slo=slo) for p in s]
+                       for s in base]
+
+            def plat():
+                return Platform(table, PlatformConfig())
+
+            arms = {
+                "tangram": TangramScheduler(CANVAS, CANVAS, table,
+                                            plat()).run(streams, bw),
+                "clipper": baselines.run_clipper(streams, bw, plat(), area,
+                                                 tile_side=CANVAS, slo=slo),
+                "elf": baselines.run_elf(streams, bw, plat(), area),
+                "mark": baselines.run_mark(streams, bw, plat(), area,
+                                           tile_side=CANVAS,
+                                           timeout=slo / 4),
+            }
+            for name, r in arms.items():
+                if r.n_patches != n or not math.isfinite(r.total_cost):
+                    raise AssertionError(f"sim {name}: {r.n_patches} of "
+                                         f"{n} patches, cost {r.total_cost}")
+                share = arms["tangram"].total_cost / r.total_cost
+                saving = ("" if name == "tangram" else
+                          f", Tangram saves {1 - share:.1%}")
+                log(f"  sim {bw / 1e6:.0f} Mbps SLO {slo}s {name}: cost "
+                    f"${r.total_cost:.6e}, violation rate "
+                    f"{r.violation_rate:.4f}, {r.invocations} invocations"
+                    + saving)
+    log(f"  simulated {len(SIM_BWS) * len(SIM_SLOS)} cells x 4 arms in "
+        f"{time.perf_counter() - t0:.2f}s")
 
 
 # ---------------------------------------------------------------- phase 6 ----
@@ -2014,6 +2250,105 @@ def lm_phase(device, by_path: dict) -> dict:
                        for k, d in dec.items()}}
 
 
+def lm_int8_phase(lm: dict, device, by_path: dict) -> None:
+    """Phase 8b: minitron-4b with int8 weights (quantized on the card from
+    phase 8's fp weights) and an int8 KV cache: prefill B=2 x LM_INT8_SEQ
+    and LM_INT8_STEPS teacher-forced decode steps, K6 / K7 launched,
+    against the plain versions and the fp model."""
+    cfg, params = lm["cfg"], lm["params"]
+    tokens = lm["tokens"][:, :LM_INT8_SEQ].contiguous()
+    qcfg = dataclasses.replace(cfg, quant_weights=True, quant_kv=True)
+    wcfg = dataclasses.replace(cfg, quant_weights=True)   # bf16 cache
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = quantize_params(transformer.param_specs(qcfg), params)
+    torch.cuda.synchronize()
+    log(f"  quantized on the card in {time.perf_counter() - t0:.2f}s: "
+        f"{weight_bytes(qparams) / 1e9:.2f} GB resident (int8 layers and "
+        f"lm_head, bf16 embedding and norms) vs "
+        f"{weight_bytes(params) / 1e9:.2f} GB bf16")
+    last = {}
+    for key, c, p, impl in (("kernels", qcfg, qparams, None),
+                            ("plain", qcfg, qparams, "torch"),
+                            ("fp", cfg, params, None)):
+        reset_launches()
+        last[key], h = transformer.prefill(c, p, tokens, impl=impl)
+        torch.cuda.synchronize()
+        if key != "fp":
+            by_path[f"lm_int8_prefill_{key}"] = dict(LAUNCHES)
+        if key == "kernels":
+            early = transformer.logits(c, p, h[:, :LM_INT8_STEPS]).float()
+        del h
+    check_launches({"launches": by_path["lm_int8_prefill_kernels"]},
+                   ("flash_attention",), "int8 LM prefill kernels")
+    check_launches({"launches": by_path["lm_int8_prefill_plain"]}, (),
+                   "int8 LM prefill plain")
+    if by_path["lm_int8_prefill_kernels"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError("int8 prefill: K6 not once a layer")
+    diff = max_abs_err(last["kernels"].float(), last["plain"].float())
+    corr = correlation(last["kernels"], last["fp"])
+    log(f"  int8 prefill B={LM_BATCH} S={LM_INT8_SEQ}: last logits kernels "
+        f"vs plain {diff:.4f} (LOGIT_TOL {LOGIT_TOL}); int8 vs fp "
+        f"correlation {corr:.5f} (bound > {INT8_LOGIT_CORR})")
+    if not diff <= LOGIT_TOL or not corr > INT8_LOGIT_CORR:
+        raise AssertionError("int8 prefill outside its bounds")
+    dec = {}
+    for key, c in (("int8_cache", qcfg), ("bf16_cache", wcfg)):
+        cache = transformer.init_cache(c, LM_BATCH, LM_INT8_SEQ, device)
+        reset_launches()
+        out = []
+        for pos in range(LM_INT8_STEPS):
+            logits, cache = transformer.decode_step(
+                c, qparams, tokens[:, pos:pos + 1], cache, pos)
+            out.append(logits[:, 0].float())
+        torch.cuda.synchronize()
+        by_path[f"lm_int8_decode_{key}"] = dict(LAUNCHES)
+        check_launches({"launches": dict(LAUNCHES)}, ("flash_decode",),
+                       f"int8 LM decode, {key}")
+        if LAUNCHES["flash_decode"] != LM_INT8_STEPS * cfg.n_layers:
+            raise AssertionError(f"int8 decode ({key}): K7 launched "
+                                 f"{LAUNCHES['flash_decode']} times")
+        dec[key] = torch.stack(out, 1)
+        if key == "int8_cache" and cache["layer_0"]["k"].dtype != torch.int8:
+            raise AssertionError("the int8 cache is not int8")
+        del cache
+    corr = correlation(dec["int8_cache"], dec["bf16_cache"])
+    diff = max_abs_err(dec["bf16_cache"], early)
+    log(f"  int8 decode, {LM_INT8_STEPS} teacher-forced steps: int8 cache vs "
+        f"bf16 cache logits correlation {corr:.5f} (bound > {INT8_KV_CORR}); "
+        f"bf16-cache decode vs int8 prefill logits {diff:.4f} (LOGIT_TOL)")
+    if not corr > INT8_KV_CORR or not diff <= LOGIT_TOL:
+        raise AssertionError("int8 decode outside its bounds")
+    if not all(torch.isfinite(d).all() for d in dec.values()):
+        raise AssertionError("non-finite int8 decode logits")
+    # one decode step at the same position and cache length, three ways
+    step = tokens[:, :1]
+    for what, c, p in (("int8 weights, int8 cache", qcfg, qparams),
+                       ("int8 weights, bf16 cache", wcfg, qparams),
+                       ("bf16 weights, bf16 cache", cfg, params)):
+        cache = transformer.init_cache(c, LM_BATCH, LM_INT8_SEQ, device)
+        ms = time_ms(lambda: transformer.decode_step(
+            c, p, step, cache, LM_INT8_STEPS), iters=10)
+        busy = device_busy(lambda: transformer.decode_step(
+            c, p, step, cache, LM_INT8_STEPS))
+        log(f"  decode step at pos {LM_INT8_STEPS} of a {LM_INT8_SEQ} cache, "
+            f"{what}: {ms:.3f} ms (CUDA events)"
+            + ("" if busy is None else
+               f"; torch.profiler: {busy[1]} device activities, "
+               f"{busy[0]:.3f} ms busy, idle share {1 - busy[0] / ms:.1%}"))
+        del cache
+    for key, c, p in (("int8", qcfg, qparams), ("bf16", cfg, params)):
+        ms = time_ms(lambda: transformer.prefill(c, p, tokens), iters=3,
+                     warmup=1)
+        log(f"  prefill B={LM_BATCH} S={LM_INT8_SEQ}, {key} weights: "
+            f"{ms:.2f} ms (CUDA events)")
+    log(f"  peak device memory over phase 8b "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def device_busy(fn):
     """(ms, count) of the device activity (kernels, copies, fills) of one
     warm call under ``torch.profiler``; None if it records none."""
@@ -2191,6 +2526,16 @@ def main() -> None:
             if key == "sync":
                 fused_runs.append(run)
 
+    log("phase 5c: tangram_int8 at full width against tangram; served "
+        "unfused and fused, kernels and plain, sync and async")
+    int8_phase(build, table, arrivals, frames, device, by_path)
+    log("phase 5d: TangramScheduler over a fused device executor, the "
+        "trace at SLO 1.0")
+    scheduler_phase(build, table, arrivals, frames, device, by_path)
+    log("phase 5e: Tangram, Clipper, ELF and MArk in simulation on a table "
+        "measured on the card")
+    simulation_phase(build, device)
+
     log(f"phase 4c: a {EDGE_FRAMES}-frame {CAM_W}x{CAM_H} recording through "
         f"make_source('file') and the fused full-width serve")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2242,6 +2587,9 @@ def main() -> None:
     attn_rows = attention_rows(device, launches, worst_attn)
     lm_split(lm, attn_rows[0]["ms_device"])
     rows += attn_rows
+    log(f"phase 8b: {LM_ARCH} with int8 weights and an int8 KV cache: "
+        f"prefill B={LM_BATCH} S={LM_INT8_SEQ}, {LM_INT8_STEPS} decode steps")
+    lm_int8_phase(lm, device, by_path)
     del lm
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]

@@ -16,9 +16,11 @@ import torch
 class TransformerConfig:
     """Decoder-only LM: the JAX package's fields that the port reads.
 
-    The port runs the dense, floating-point model: ``moe``,
-    ``quant_weights`` and ``quant_kv`` raise ``NotImplementedError`` (MoE
-    blocks are ROADMAP item 13, int8 weights and caches item 8).  The JAX
+    The port runs the dense model: ``moe`` raises ``NotImplementedError``
+    (MoE blocks are ROADMAP item 13).  ``quant_weights`` keeps the layer
+    and ``lm_head`` kernels int8 with per-output-channel float32 scales
+    (embedding and norms stay in ``param_dtype``); ``quant_kv`` keeps the
+    KV cache int8 with a float32 scale per position and KV head.  The JAX
     fields for training (``remat``, ``remat_policy``, ``scan_layers``), the
     TPU kernel's blocks (``flash_block_q`` / ``flash_block_kv``) and the
     sharded cache's write (``cache_update``) are left out: the port serves
@@ -51,10 +53,6 @@ class TransformerConfig:
             raise NotImplementedError(
                 f"{self.name}: MoE blocks are not ported yet (ROADMAP item "
                 f"13, models/moe.py)")
-        if self.quant_weights or self.quant_kv:
-            raise NotImplementedError(
-                f"{self.name}: int8 weights / KV cache are not ported yet "
-                f"(ROADMAP item 8)")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not "
                              f"a multiple of n_kv_heads {self.n_kv_heads}")
@@ -87,6 +85,9 @@ class ViTConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # int8-resident encoder weights (per-output-channel scales); the
+    # patch embed, position embedding and norms stay full precision
+    quant_weights: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,9 @@ class DetectorConfig:
     d_ff: int = 3072
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # int8-resident trunk weights (per-output-channel scales); the patch
+    # embed, head and norms stay full precision
+    quant_weights: bool = False
 
     @property
     def n_tokens(self) -> int:

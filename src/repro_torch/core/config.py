@@ -1,17 +1,38 @@
 """`ServeConfig`: one declarative record for the serving pipeline.
 
-Port of the single-executor part of ``repro/core/config.py``.  Every field
-is a plain value or a registry name (``make_classify`` / ``make_clock`` /
-``make_executor`` / ``make_source`` resolve them), so a config
-round-trips through JSON with ``to_dict`` / ``from_dict``.
+Port of ``repro/core/config.py``.  Every field is a plain value or a
+registry name (``make_classify`` / ``make_clock`` / ``make_executor`` /
+``make_source`` resolve them), so a config round-trips through JSON with
+``to_dict`` / ``from_dict`` (the nested ``AIMDConfig`` included).
+
+The fields of the worker pools, the fleet and multi-model serving
+(``n_workers``, ``placement``, ``shards``, ``planner``, ``parallel``,
+``model``, ``model_map``, ``online_latency``) are kept so that a JAX
+config loads here, but nothing in the port runs them yet:
+``TangramScheduler`` refuses each with ``NotImplementedError`` naming its
+ROADMAP item (10 or 11), as the serve driver does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+from repro_torch.core.adaptive import AIMDConfig
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.registry import lookup
+
+#: ServeConfig fields the port does not run yet -> the ROADMAP item that
+#: ports them (the serve driver's flags and ``TangramScheduler`` name it)
+UNPORTED = {
+    "n_workers": "ROADMAP queue 1, item 10 (worker pools)",
+    "placement": "ROADMAP queue 1, item 10 (worker pools)",
+    "shards": "ROADMAP queue 1, item 11 (fleet sharding)",
+    "parallel": "ROADMAP queue 1, item 11 (fleet sharding)",
+    "planner": "ROADMAP queue 1, item 11 (fleet sharding)",
+    "online_latency": "ROADMAP queue 1, item 10 (online latency tables)",
+    "model": "ROADMAP queue 1, item 10 (multi-model serving)",
+    "model_map": "ROADMAP queue 1, item 10 (multi-model serving)",
+}
 
 #: classifier registry for the ``classify`` field (None: one shared queue)
 _CLASSIFIERS: dict = {}
@@ -30,24 +51,52 @@ def make_classify(name: Optional[str]
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Everything the single-executor serving pipeline needs beyond data
-    and models."""
+    """Everything the serving pipeline needs beyond data and models."""
 
     # --- batching (invoker pool) ---------------------------------------
     max_canvases: int = 8            # canvas budget per invocation (Eq. 5)
+    incremental: bool = True         # live PackState vs literal restitch
     classify: Optional[str] = None   # None: shared queue; "slo": per-class
+    adaptive: Optional[AIMDConfig] = None  # AIMD controller on the pool
 
     # --- execution ------------------------------------------------------
-    executor: str = "device"         # device | async_device
+    executor: str = "sim"            # sim | device | async_device
     fuse: bool = False               # fused stitch->embed / decode->gather
+    quantize: bool = False           # serve int8-resident weights
     max_inflight: int = 4            # async in-flight bound (device memory)
     clock: str = "virtual"           # virtual | wall
     wall_speed: float = 1.0          # engine seconds per wall second
+    check_invariants: bool = False
+
+    # --- worker pool (ROADMAP item 10) ------------------------------------
+    n_workers: int = 1
+    placement: Optional[str] = None  # least | round | affinity | model
+
+    # --- fleet sharding (ROADMAP item 11) ---------------------------------
+    shards: Optional[int] = None
+    planner: Optional[str] = None    # cost | equal
+    parallel: bool = False
+
+    # --- models (ROADMAP item 10) -----------------------------------------
+    model: Optional[str] = None
+    model_map: Optional[Dict[str, str]] = None
+
+    # --- latency estimator (ROADMAP item 10) ------------------------------
+    online_latency: bool = False
 
     # --- ingestion (source layer) ---------------------------------------
+    source: str = "trace"            # trace | synthetic | file
     ingestion_window: Optional[int] = None  # backlog bound, in patches
 
     def __post_init__(self):
+        if self.n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {self.n_workers}")
+        if self.shards is not None and self.shards < 1:
+            raise ValueError(f"shards must be >= 1, got {self.shards}")
+        if self.planner is not None and self.shards is None:
+            raise ValueError("planner requires shards to be set")
+        if self.parallel and self.shards is None:
+            raise ValueError("parallel requires shards to be set")
         if self.max_inflight < 1:
             raise ValueError(
                 f"max_inflight must be >= 1, got {self.max_inflight}")
@@ -66,6 +115,9 @@ class ServeConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "ServeConfig":
+        d = dict(d)
+        if isinstance(d.get("adaptive"), dict):
+            d["adaptive"] = AIMDConfig(**d["adaptive"])
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - known
         if unknown:

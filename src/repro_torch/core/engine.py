@@ -1,4 +1,5 @@
-"""Unified event-driven serving engine over the device executors.
+"""Unified event-driven serving engine over the platform model and the
+device executors.
 
 Port of ``repro/core/engine.py`` for one card: the event loop
 (:class:`ServingEngine`), the per-class invoker pool, and the device
@@ -15,12 +16,16 @@ timestamp tie a completion is delivered before a timer fires; two
 invokers sharing a timer instant fire in first-registered order.
 
 Executors expose ``submit(inv) -> ExecHandle`` and ``resolve(handle) ->
-Completion``.  :class:`DeviceExecutor` joins the device work at submit;
+Completion``.  :class:`SimExecutor` submits to the serverless
+``Platform`` model, whose finish time is known at submit;
+:class:`DeviceExecutor` joins the device work at submit;
 :class:`AsyncDeviceExecutor` returns once the work is queued on the card
 and reports readiness through a ``torch.cuda.Event`` recorded after the
 launch, probed with ``.query()`` (on the CPU every launch is ready at
 once).  Invocation boundaries depend only on arrivals and the batcher, so
-a trace produces the same patch->invocation groupings on both.
+a trace produces the same patch->invocation groupings on all three.
+:class:`Results` is a run's record (violations, cost, batching), as
+``core.scheduler`` and ``core.baselines`` assemble it.
 
 Batcher protocol (duck-typed; ``SLOAwareInvoker`` conforms):
 
@@ -51,6 +56,7 @@ from repro_torch.core.stitching import validate
 from repro_torch.data.video import Arrival
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.stitch import ops as stitch_ops
+from repro_torch.serverless.platform import Platform
 
 
 # ------------------------------------------------------------- outcomes ----
@@ -61,6 +67,7 @@ class PatchOutcome:
     t_arrive: float
     t_submit: float
     t_finish: float
+    model: Optional[str] = None   # registry model that served the patch
 
     @property
     def latency(self) -> float:
@@ -70,13 +77,156 @@ class PatchOutcome:
     def violated(self) -> bool:
         return self.t_finish > self.patch.deadline
 
+    @property
+    def wait(self) -> float:
+        return self.t_submit - self.t_arrive
+
+
+@dataclasses.dataclass
+class Results:
+    """One run's record, as every benchmark of the paper reads it: the
+    outcomes, the batching, the bytes shipped and the platform's bill.
+    ``invocations``, ``total_cost`` and ``exec_seconds`` are the platform
+    model's: a run on a device executor leaves them at the platform's
+    (empty) meter, as in the JAX package."""
+    name: str
+    outcomes: List[PatchOutcome]
+    canvas_efficiencies: List[float]
+    batch_sizes: List[int]
+    patches_per_batch: List[int]
+    bytes_sent: float
+    total_cost: float
+    invocations: int
+    exec_seconds: float
+    transmission_seconds: float
+    mean_consolidation: float = 0.0   # patches per invocation (platform view)
+    worker_stats: Optional[List[dict]] = None  # per-worker pool counters
+                                      # (worker pools: ROADMAP item 10)
+    source_stats: Optional[dict] = None  # ingestion-side accounting
+                                      # (SourceStats.to_dict(): frames
+                                      # dropped/degraded under
+                                      # backpressure, arrivals, bytes)
+    model_stats: Optional[dict] = None  # per-model platform counters
+                                      # (Platform.model_stats())
+    shard_stats: Optional[List[dict]] = None  # per-shard fleet rows
+                                      # (fleet sharding: ROADMAP item 11)
+
+    @property
+    def n_patches(self) -> int:
+        return len(self.outcomes)
+
+    @property
+    def violation_rate(self) -> float:
+        if not self.outcomes:
+            return 0.0
+        return sum(o.violated for o in self.outcomes) / len(self.outcomes)
+
+    def class_violation_rate(self, classify: Callable[[Patch], object],
+                             key: object) -> float:
+        """Violation rate restricted to one SLO class (mixed-SLO studies)."""
+        mine = [o for o in self.outcomes if classify(o.patch) == key]
+        if not mine:
+            return 0.0
+        return sum(o.violated for o in mine) / len(mine)
+
+    @property
+    def mean_latency(self) -> float:
+        if not self.outcomes:
+            return 0.0
+        return sum(o.latency for o in self.outcomes) / len(self.outcomes)
+
+    @property
+    def amortized_latency(self) -> float:
+        """Total function execution time amortized per patch (Fig. 14)."""
+        if not self.outcomes:
+            return 0.0
+        return self.exec_seconds / len(self.outcomes)
+
+    def class_breakdown(self) -> dict:
+        """Per-SLO-class outcome breakdown (keyed by the patch's SLO)."""
+        by: Dict[object, List[PatchOutcome]] = {}
+        for o in self.outcomes:
+            by.setdefault(o.patch.slo, []).append(o)
+        return {
+            str(slo): {
+                "patches": len(outs),
+                "violations": sum(o.violated for o in outs),
+                "violation_rate": round(
+                    sum(o.violated for o in outs) / len(outs), 4),
+                "mean_latency_s": round(
+                    sum(o.latency for o in outs) / len(outs), 4),
+            }
+            for slo, outs in sorted(by.items(), key=lambda kv: str(kv[0]))
+        }
+
+    def model_breakdown(self) -> dict:
+        """Per-model rows: outcome accounting (violations, latency) merged
+        with the platform/cache counters in ``model_stats`` (batches,
+        cold starts, weight loads, weight-cache hit rate) — the debugging
+        surface for mixed-model runs."""
+        by: Dict[str, List[PatchOutcome]] = {}
+        for o in self.outcomes:
+            if o.model is not None:
+                by.setdefault(o.model, []).append(o)
+        rows: Dict[str, dict] = {}
+        for model, outs in sorted(by.items()):
+            rows[model] = {
+                "patches": len(outs),
+                "violations": sum(o.violated for o in outs),
+                "violation_rate": round(
+                    sum(o.violated for o in outs) / len(outs), 4),
+                "mean_latency_s": round(
+                    sum(o.latency for o in outs) / len(outs), 4),
+            }
+        for model, st in sorted((self.model_stats or {}).items()):
+            rows.setdefault(model, {}).update(st)
+        return rows
+
+    def summary(self) -> dict:
+        out = {
+            "name": self.name,
+            "patches": self.n_patches,
+            "violation_rate": round(self.violation_rate, 4),
+            "mean_latency_s": round(self.mean_latency, 4),
+            "cost_usd": round(self.total_cost, 6),
+            "invocations": self.invocations,
+            "bytes_mb": round(self.bytes_sent / 1e6, 3),
+            "mean_canvas_eff": round(
+                sum(self.canvas_efficiencies)
+                / max(len(self.canvas_efficiencies), 1), 4),
+            "amortized_latency_s": round(self.amortized_latency, 4),
+            "mean_consolidation": round(self.mean_consolidation, 2),
+            "class_violations": self.class_breakdown(),
+        }
+        models = self.model_breakdown()
+        if models:
+            out["models"] = models
+        if self.worker_stats is not None:
+            # horizon = span of delivered work; utilization is each
+            # worker's busy time over it, so placement-policy skew shows
+            # up directly in the benchmark JSON
+            horizon = max((o.t_finish for o in self.outcomes), default=0.0)
+            out["per_worker"] = [
+                dict(ws, utilization=round(ws.get("busy_s", 0.0)
+                                           / max(horizon, 1e-12), 4))
+                for ws in self.worker_stats
+            ]
+        if self.source_stats is not None:
+            out["source"] = self.source_stats
+        if self.shard_stats is not None:
+            out["per_shard"] = self.shard_stats
+        return out
+
 
 @dataclasses.dataclass
 class Completion:
     """One finished invocation, delivered at ``t_finish`` engine time."""
     invocation: Invocation
     t_finish: float
+    record: object = None     # platform ExecutionRecord (SimExecutor)
     outputs: object = None    # (per-frame detections, per-frame pixels)
+    model: Optional[str] = None  # registry model that ran it (filled from
+                              # the invocation at delivery when unset)
 
 
 @dataclasses.dataclass
@@ -94,6 +244,7 @@ class ExecHandle:
     completion: Optional[Completion] = None
     payload: object = None            # executor-private in-flight state
     seq: int = -1
+    model: Optional[str] = None       # invocation's model key (engine-set)
 
 
 # ----------------------------------------------------------- invoker pool ----
@@ -163,17 +314,43 @@ class InvokerPool:
 
 
 def uniform_pool(canvas_m: int, canvas_n: int, latency, max_canvases: int = 8,
+                 incremental: bool = True,
                  classify: Optional[Callable[[Patch], object]] = None
                  ) -> InvokerPool:
     """Pool where every class shares one geometry/latency spec;
     ``classify=None`` is the paper's single shared queue."""
     return InvokerPool(
         lambda key: SLOAwareInvoker(canvas_m, canvas_n, latency,
-                                    max_canvases),
+                                    max_canvases, incremental=incremental),
         classify=classify or (lambda p: None))
 
 
 # -------------------------------------------------------------- executors ----
+
+class SimExecutor:
+    """Executor over the discrete-event serverless ``Platform`` model.
+
+    The model is consulted at submit, so the handle's finish time is
+    known immediately and the engine schedules delivery on the event
+    heap — the simulation analogue of "the device will interrupt us at
+    t_finish".
+    """
+
+    def __init__(self, platform: Platform):
+        self.platform = platform
+
+    def submit(self, inv: Invocation) -> ExecHandle:
+        size = (inv.cost_canvases if inv.cost_canvases is not None
+                else len(inv.canvases))
+        rec = self.platform.submit(inv.t_submit, size,
+                                   n_patches=len(inv.patches),
+                                   model=inv.model)
+        comp = Completion(inv, rec.t_finish, record=rec, model=inv.model)
+        return ExecHandle(inv, t_finish=rec.t_finish, completion=comp)
+
+    def resolve(self, handle: ExecHandle) -> Completion:
+        return handle.completion
+
 
 @dataclasses.dataclass
 class ModelRuntime:
@@ -388,19 +565,30 @@ class AsyncDeviceExecutor(DeviceExecutor):
 
 
 _EXECUTORS = {
+    "sim": SimExecutor,
     "device": DeviceExecutor,
     "async_device": AsyncDeviceExecutor,
 }
 
 
 def make_executor(name: str, **cfg):
-    """Executor-name -> instance (``device`` | ``async_device``).  ``cfg``
-    forwards to the constructor; ``max_inflight`` is accepted, and
-    dropped, for the sync executor so one config dict drives either."""
+    """Executor-name -> instance (``sim`` | ``device`` | ``async_device``).
+    ``cfg`` forwards to the constructor: ``sim`` takes ``platform=``, the
+    device executors the
+    pipeline arguments.  Keys of the other substrate (and
+    ``max_inflight`` for the sync executors) are accepted and dropped, so
+    one config dict drives any name."""
     cls = lookup("executor", _EXECUTORS, name)
-    if cls is DeviceExecutor:
-        cfg = {k: v for k, v in cfg.items() if k != "max_inflight"}
-    return cls(**cfg)
+    device_only = {"fuse", "tokens_fn", "embed_kernel", "embed_bias",
+                   "patch", "serve_fn", "params", "canvas_m", "canvas_n",
+                   "device", "impl", "clock"}
+    if cls is SimExecutor:
+        drop = {"max_inflight"} | device_only
+    elif cls is AsyncDeviceExecutor:
+        drop = {"platform"}
+    else:
+        drop = {"max_inflight", "platform"}
+    return cls(**{k: v for k, v in cfg.items() if k not in drop})
 
 
 # ------------------------------------------------------------ event loop ----
@@ -570,7 +758,9 @@ class ServingEngine:
     # --------------------------------------------------------- internals ----
 
     def _dispatch(self, inv: Invocation):
-        if self.check_invariants:
+        # canvas-less invocations are legitimate only for batchers that
+        # bill through cost_canvases (the padded-tile baselines)
+        if self.check_invariants and inv.cost_canvases is None:
             validate(inv.canvases)
             placed = sorted(p.patch_idx for c in inv.canvases
                             for p in c.placements)
@@ -589,6 +779,8 @@ class ServingEngine:
         handle = self.executor.submit(inv)
         self._event_seq += 1
         handle.seq = self._event_seq
+        if handle.model is None:
+            handle.model = inv.model
         if handle.t_finish is not None:
             heapq.heappush(self._scheduled,
                            (handle.t_finish, self._event_seq, handle))
@@ -643,6 +835,8 @@ class ServingEngine:
         if on_complete is not None:
             on_complete(comp)
         inv = comp.invocation
+        if comp.model is None:
+            comp.model = inv.model
         self._inflight_count -= len(inv.patches)
         for p in inv.patches:
             slot = self._slot_of.pop(id(p), None)
@@ -653,7 +847,8 @@ class ServingEngine:
                 self._slot_patch[slot] = None
                 self._free_slots.append(slot)
             self.outcomes.append(
-                PatchOutcome(p, t_arrive, inv.t_submit, comp.t_finish))
+                PatchOutcome(p, t_arrive, inv.t_submit, comp.t_finish,
+                             model=comp.model))
         on_result = getattr(self.pool, "on_result", None)
         if on_result is not None:
             on_result(inv, comp.t_finish)

@@ -29,6 +29,9 @@ class Invocation:
     reason: str                 # timer | slo_pressure | memory | late | flush
     plan: Optional[BatchPlan] = None   # built lazily by batch_plan()
     key: object = None          # SLO class, when fired via an InvokerPool
+    cost_canvases: Optional[float] = None  # billing override (baselines)
+    model: Optional[str] = None  # registry model name (None: the
+                                # implicit single model)
 
     @property
     def batch_size(self) -> int:

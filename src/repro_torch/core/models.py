@@ -1,11 +1,11 @@
 """Model registry: named :class:`ModelSpec` records behind ``make_model``.
 
-Port of ``repro/core/models.py`` with the full-precision ``tangram``
-entry (the paper's detector: ViT-B/32 trunk on 1024^2 canvases, bf16).
-A spec carries identity, canvas geometry, weight economics
-(``weight_bytes`` / ``load_s``), a latency profile (explicit, or the
-analytical model over the trunk dims on an H100), and :meth:`build`,
-which makes a servable detector on a device.
+Port of ``repro/core/models.py`` with the ``tangram`` entry (the paper's
+detector: ViT-B/32 trunk on 1024^2 canvases, bf16) and its int8-resident
+variant ``tangram_int8``.  A spec carries identity, canvas geometry,
+weight economics (``weight_bytes`` / ``load_s``), a latency profile
+(explicit, or the analytical model over the trunk dims on an H100), and
+:meth:`build`, which makes a servable detector on a device.
 """
 from __future__ import annotations
 
@@ -44,16 +44,25 @@ class ModelSpec:
     weight_bytes: Optional[float] = None
     table: Optional[LatencyTable] = None
     load_bw: float = _DEFAULT_LOAD_BW
+    #: serving precision: None serves the arch's param dtype; "int8"
+    #: serves int8-resident trunk weights (1 byte a parameter in the
+    #: economics, its own latency profile, and :meth:`build` quantizes
+    #: the fp init through ``models/quantize.py``)
+    dtype: Optional[str] = None
     description: str = ""
 
     def __post_init__(self):
+        if self.dtype not in (None, "int8"):
+            raise ValueError(f"ModelSpec {self.name!r}: unsupported dtype "
+                             f"{self.dtype!r} (None or 'int8')")
         if self.arch is not None:
             if self.canvas_m is None:
                 object.__setattr__(self, "canvas_m", self.arch.canvas)
             if self.canvas_n is None:
                 object.__setattr__(self, "canvas_n", self.arch.canvas)
             if self.weight_bytes is None:
-                per_param = _DTYPE_BYTES.get(self.arch.param_dtype, 4)
+                per_param = (1 if self.dtype == "int8" else
+                             _DTYPE_BYTES.get(self.arch.param_dtype, 4))
                 object.__setattr__(self, "weight_bytes",
                                    float(self.arch.n_params * per_param))
         if self.canvas_m is None or self.canvas_n is None:
@@ -83,6 +92,16 @@ class ModelSpec:
         model = detector_latency_model(
             self.canvas_m, self.canvas_n, patch=a.patch,
             n_layers=a.n_layers, d_model=a.d_model, d_ff=a.d_ff)
+        if self.dtype == "int8":
+            # the JAX package's factor, kept so that the two packages'
+            # profiles agree: half the FLOP time and half the weight
+            # bytes.  The weight bytes are halved in HBM, but the port's
+            # int8 trunk dequantizes to bf16 and runs bf16 tensor-core
+            # products, so the halved FLOP time is the model's, not the
+            # card's (PERF.md holds the measured trunk time beside it)
+            model = dataclasses.replace(
+                model, flops_per_canvas=model.flops_per_canvas * 0.5,
+                weight_bytes=model.weight_bytes * 0.5)
         return model.build_table(max_batch, slack_sigmas=slack_sigmas)
 
     def reduced_arch(self, canvas: int) -> DetectorConfig:
@@ -109,8 +128,14 @@ class ModelSpec:
         scaled-down trunk at ``canvas`` (default 256); ``reduced=False``
         the full trunk at the spec's native canvas.  Weights come from a
         ``torch.Generator`` seeded by the model name.
+
+        ``dtype="int8"`` specs draw the full-precision weights of their
+        base model (seeded by the name minus ``_int8``, so ``tangram_int8``
+        is ``tangram`` quantized) and quantize them through
+        ``models/quantize.py``; the returned cfg has ``quant_weights=True``.
         """
         from repro_torch.models import detector as detector_lib
+        from repro_torch.models.quantize import quantize_params
 
         dev = resolve_device(device)
         if reduced:
@@ -118,9 +143,16 @@ class ModelSpec:
         else:
             cfg = (self.arch if canvas is None
                    else dataclasses.replace(self.arch, canvas=canvas))
+        int8 = self.dtype == "int8"
+        seed_name = (self.name[:-len("_int8")]
+                     if int8 and self.name.endswith("_int8") else self.name)
         gen = torch.Generator().manual_seed(
-            zlib.crc32(self.name.encode()) & 0x7FFFFFFF)
+            zlib.crc32(seed_name.encode()) & 0x7FFFFFFF)
+        cfg = dataclasses.replace(cfg, quant_weights=False)
         params = detector_lib.init_params(cfg, gen, dev)
+        if int8:
+            cfg = dataclasses.replace(cfg, quant_weights=True)
+            params = quantize_params(detector_lib.param_specs(cfg), params)
         return cfg, params, detector_lib.serve_fn(cfg)
 
 
@@ -133,14 +165,23 @@ def register_model(spec: ModelSpec) -> ModelSpec:
     return spec
 
 
+_seeded = False
+
+
 def _ensure_seeded():
-    if "tangram" in _MODELS:
+    global _seeded
+    if _seeded:
         return
+    _seeded = True
     from repro_torch.configs import tangram_detector
 
     register_model(ModelSpec(
         name="tangram", arch=tangram_detector.ARCH,
         description="the paper's detector (ViT-B/32 trunk, 1024^2 canvas)"))
+    register_model(ModelSpec(
+        name="tangram_int8", arch=tangram_detector.ARCH, dtype="int8",
+        description="tangram with int8-resident trunk weights "
+                    "(quantized serve path)"))
 
 
 def make_model(name: str) -> ModelSpec:

@@ -43,6 +43,16 @@ class Patch:
         return self.t_gen + self.slo
 
 
+def align_up(lo, hi, limit: int, align: int = 16):
+    """Grow ``[lo, hi)`` to a multiple of ``align`` and slide it back
+    inside ``[0, limit)``; numbers or numpy arrays (Algorithm 1's
+    size alignment)."""
+    size = -(-(hi - lo) // align) * align      # ceil, for ints and floats
+    hi = np.minimum(lo + size, limit)
+    lo = np.maximum(hi - size, 0)
+    return lo, hi
+
+
 def partition_host(boxes: np.ndarray, frame_w: int, frame_h: int,
                    zone_x: int, zone_y: int, align: int = 16,
                    frame_id: int = 0, camera_id: int = 0, t_gen: float = 0.0,
@@ -68,17 +78,29 @@ def partition_host(boxes: np.ndarray, frame_w: int, frame_h: int,
 
     patches = []
     for z, bs in sorted(zones.items()):
-        x0 = min(b[0] for b in bs)
-        y0 = min(b[1] for b in bs)
-        x1 = max(b[2] for b in bs)
-        y1 = max(b[3] for b in bs)
-        w = int(np.ceil((x1 - x0) / align) * align)
-        h = int(np.ceil((y1 - y0) / align) * align)
-        x1 = min(x0 + w, frame_w)
-        x0 = max(x1 - w, 0)
-        y1 = min(y0 + h, frame_h)
-        y0 = max(y1 - h, 0)
+        x0, x1 = align_up(min(b[0] for b in bs), max(b[2] for b in bs),
+                          frame_w, align)
+        y0, y1 = align_up(min(b[1] for b in bs), max(b[3] for b in bs),
+                          frame_h, align)
         patches.append(Patch(int(x0), int(y0), int(x1), int(y1),
                              frame_id=frame_id, camera_id=camera_id,
                              t_gen=t_gen, slo=slo))
     return patches
+
+
+def patch_pixels(frame: np.ndarray, p: Patch) -> np.ndarray:
+    return frame[p.y0:p.y1, p.x0:p.x1]
+
+
+def coverage(patches: List[Patch], boxes: np.ndarray) -> float:
+    """Fraction of ground-truth boxes fully covered by some patch
+    (the Table III accuracy proxy: a covered object is detectable)."""
+    if len(boxes) == 0:
+        return 1.0
+    covered = 0
+    for (x0, y0, x1, y1) in boxes:
+        for p in patches:
+            if p.x0 <= x0 and p.y0 <= y0 and p.x1 >= x1 and p.y1 >= y1:
+                covered += 1
+                break
+    return covered / len(boxes)

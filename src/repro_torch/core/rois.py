@@ -13,12 +13,16 @@ reference runs it as ``lax.while_loop`` on the device).  Step 4 orders
 components with a stable descending sort, which breaks count ties by the
 lower label first, exactly as ``jax.lax.top_k`` does; ``torch.topk``
 promises no order on ties.
+
+:func:`numpy_rois` is the reference's independent numpy implementation
+(a two-pass flood fill), the oracle the tests hold ``extract_rois`` to.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -105,3 +109,47 @@ def extract_rois(mask: torch.Tensor, cfg: RoIConfig = RoIConfig()
                          (x1[top_idx] + 1) * ds, (y1[top_idx] + 1) * ds],
                         dim=-1).to(torch.int32)
     return boxes * valid[:, None], valid
+
+
+# ------------------------------------------------------------- reference ----
+
+def numpy_rois(mask: np.ndarray, cfg: RoIConfig = RoIConfig()):
+    """Reference implementation with a classic two-pass flood fill."""
+    ds = cfg.downsample
+    h, w = mask.shape
+    small = mask[: h - h % ds, : w - w % ds].reshape(
+        h // ds, ds, w // ds, ds).any(axis=(1, 3))
+    for _ in range(cfg.dilate):
+        p = np.pad(small, 1)
+        small = (p[:-2, 1:-1] | p[2:, 1:-1] | p[1:-1, :-2] | p[1:-1, 2:]
+                 | p[1:-1, 1:-1])
+    hd, wd = small.shape
+    labels = -np.ones((hd, wd), np.int32)
+    comps = []
+    for i in range(hd):
+        for j in range(wd):
+            if small[i, j] and labels[i, j] < 0:
+                stack = [(i, j)]
+                labels[i, j] = len(comps)
+                px = []
+                while stack:
+                    y, x = stack.pop()
+                    px.append((y, x))
+                    for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                        yy, xx = y + dy, x + dx
+                        if 0 <= yy < hd and 0 <= xx < wd and small[yy, xx] \
+                                and labels[yy, xx] < 0:
+                            labels[yy, xx] = len(comps)
+                            stack.append((yy, xx))
+                comps.append(px)
+    comps.sort(key=len, reverse=True)
+    boxes, valid = [], []
+    for px in comps[: cfg.max_rois]:
+        if len(px) < cfg.min_area:
+            continue
+        ys = [p[0] for p in px]
+        xs = [p[1] for p in px]
+        boxes.append((min(xs) * ds, min(ys) * ds,
+                      (max(xs) + 1) * ds, (max(ys) + 1) * ds))
+        valid.append(True)
+    return np.array(boxes, np.int32).reshape(-1, 4), np.array(valid, bool)

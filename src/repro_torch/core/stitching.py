@@ -17,7 +17,7 @@ routine, so the two agree by construction.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +52,14 @@ class Canvas:
     def __post_init__(self):
         if not self.free and not self.placements:
             self.free = [FreeRect(0, 0, self.n, self.m)]
+
+    @property
+    def used_area(self) -> int:
+        return sum(p.w * p.h for p in self.placements)
+
+    @property
+    def efficiency(self) -> float:
+        return self.used_area / (self.m * self.n)
 
 
 def _choose(free: Sequence[FreeRect], w: int, h: int) -> Optional[int]:
@@ -126,6 +134,13 @@ class PackState:
         """Read-only probe: would a (w, h) patch fit an open canvas?"""
         return any(_choose(c.free, w, h) is not None for c in self.canvases)
 
+    def reset(self, patches: Sequence[Patch] = ()) -> None:
+        """Full repack: rebuild the state from an explicit queue."""
+        self.canvases = []
+        self.count = 0
+        for p in patches:
+            self.append(p)
+
 
 def stitch(patches: Sequence[Patch], m: int, n: int) -> List[Canvas]:
     """Pack patches (in queue order) onto canvases of size m x n.
@@ -159,6 +174,10 @@ class BatchPlan:
         if self.slot_capacity < max(self.num_patches, 1):
             object.__setattr__(self, "slot_capacity",
                                _bucket_pow2(self.num_patches, 1 << 30))
+
+    @property
+    def canvas_batch_shape(self) -> Tuple[int, int, int]:
+        return (self.num_canvases, self.canvas_m, self.canvas_n)
 
     def placements(self):
         """Yield (canvas_idx, patch_idx, x, y, w, h) for valid records."""
@@ -196,6 +215,13 @@ def build_batch_plan(patches: Sequence[Patch], canvases: Sequence[Canvas],
     return BatchPlan(canvas_m=m, canvas_n=n, num_canvases=b,
                      num_patches=len(patches), slots_per_canvas=k,
                      hmax=hmax, wmax=wmax, records=records)
+
+
+def total_efficiency(canvases: Sequence[Canvas]) -> float:
+    if not canvases:
+        return 0.0
+    used = sum(c.used_area for c in canvases)
+    return used / sum(c.m * c.n for c in canvases)
 
 
 def validate(canvases: Sequence[Canvas]) -> None:

@@ -16,8 +16,9 @@ during serving, throttled per ``--overload`` against
 edge pipeline.  On the card every camera's GMM update is K5.
 ``--async-device`` overlaps device work with ingestion
 (:class:`~repro_torch.core.engine.AsyncDeviceExecutor`).
-``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
-PyTorch versions of the kernels.
+``--quantize`` serves the detector's trunk int8-resident.  ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch versions of
+the kernels.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --frames 40 --slo 1.0
@@ -29,43 +30,42 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
 
 from repro_torch.config import DetectorConfig
 from repro_torch.core.clock import make_clock
+from repro_torch.core import config as config_lib
 from repro_torch.core.config import ServeConfig, make_classify
 from repro_torch.core.engine import (ServingEngine, make_executor,
                                      uniform_pool)
 from repro_torch.core.latency import LatencyTable, measure
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.models import detector as detector_lib
+from repro_torch.models.quantize import quantize_params
 from repro_torch.sources import RateProfile, make_source
 
 #: options of the JAX driver this port does not run yet -> ROADMAP item
-UNPORTED = {
-    "quantize": "ROADMAP queue 1, item 8 (int8-resident weights)",
-    "workers": "ROADMAP queue 1, item 10 (worker pools)",
-    "placement": "ROADMAP queue 1, item 10 (worker pools)",
-    "shards": "ROADMAP queue 1, item 11 (fleet sharding)",
-    "parallel": "ROADMAP queue 1, item 11 (fleet sharding)",
-    "planner": "ROADMAP queue 1, item 11 (fleet sharding)",
-    "online_latency": "ROADMAP queue 1, item 10 (online latency tables)",
-    "model": "ROADMAP queue 1, item 10 (multi-model serving)",
-    "model_map": "ROADMAP queue 1, item 10 (multi-model serving)",
-}
+UNPORTED = {("workers" if field == "n_workers" else field): item
+            for field, item in config_lib.UNPORTED.items()}
 
 
-def build_detector(canvas: int = 256, device: DeviceLike = None):
+def build_detector(canvas: int = 256, *, quantize: bool = False,
+                   device: DeviceLike = None):
     """The driver's small built-in detector (the JAX driver's dims),
-    weights from a ``torch.Generator`` seeded with 0.
-    Returns ``(cfg, params, serve_fn)``."""
+    weights from a ``torch.Generator`` seeded with 0; ``quantize`` serves
+    the same weights int8-resident (quantized through
+    ``models/quantize.py``).  Returns ``(cfg, params, serve_fn)``."""
     cfg = DetectorConfig(name="serve-det", canvas=canvas, patch=32,
                          n_layers=2, d_model=64, n_heads=4, d_ff=128,
                          param_dtype="float32", compute_dtype="float32")
     params = detector_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                       resolve_device(device))
+    if quantize:
+        cfg = dataclasses.replace(cfg, quant_weights=True)
+        params = quantize_params(detector_lib.param_specs(cfg), params)
     return cfg, params, detector_lib.serve_fn(cfg)
 
 
@@ -122,6 +122,8 @@ def summary_line(engine: ServingEngine, executor, stats, config: ServeConfig,
         overlap = "sync"
     if config.fuse:
         overlap += ", fused"
+    if config.quantize:
+        overlap += ", int8"
     violated = sum(o.violated for o in engine.outcomes)
     return (f"served {stats.patches_emitted} patches in "
             f"{executor.n_invocations} invocations ({overlap}, "
@@ -171,9 +173,12 @@ def main(argv=None):
     p.add_argument("--fuse", action="store_true",
                    help="fused path: K4 stitch->embed and K3 "
                         "decode->gather, no canvas batch on the card")
+    p.add_argument("--quantize", action="store_true",
+                   help="serve int8-resident trunk weights (the built-in "
+                        "detector's weights quantized through "
+                        "models/quantize.py)")
     # JAX driver options this port does not run yet: accepted so the
     # error names the ROADMAP item instead of an unknown flag
-    p.add_argument("--quantize", action="store_true")
     p.add_argument("--workers", type=int, default=1)
     p.add_argument("--shards", type=int, default=None)
     p.add_argument("--parallel", action="store_true")
@@ -204,11 +209,13 @@ def main(argv=None):
     config = ServeConfig(
         max_canvases=4, classify="slo" if len(slos) > 1 else None,
         executor="async_device" if args.async_device else "device",
-        fuse=args.fuse,
+        fuse=args.fuse, quantize=args.quantize, source=args.source,
         max_inflight=args.max_inflight, clock=args.clock,
         wall_speed=args.wall_speed, ingestion_window=args.ingestion_window)
     m = n = args.canvas
-    cfg, params, serve_fn = build_detector(args.canvas, device)
+    cfg, params, serve_fn = build_detector(args.canvas,
+                                           quantize=config.quantize,
+                                           device=device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {device} ({name})")

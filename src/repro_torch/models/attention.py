@@ -1,10 +1,14 @@
 """Grouped-query attention with RoPE: prefill, KV-cache decode, and the
 bidirectional encoder attention of the ViT trunk.
 
-Port of ``repro/models/attention.py`` (floating-point weights; int8 weights
-and caches are ROADMAP item 8, the sharding constraints ROADMAP item 14).
-Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wk`` / ``wv`` (d, Kv, Dh)
-or one fused ``wqkv`` (d, H + 2 Kv, Dh), and ``wo`` (H, Dh, d), no biases.
+Port of ``repro/models/attention.py`` (the sharding constraints are
+ROADMAP item 14).  Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wk`` /
+``wv`` (d, Kv, Dh) or one fused ``wqkv`` (d, H + 2 Kv, Dh), and ``wo``
+(H, Dh, d), no biases.  An int8-resident weight is ``{q, scale}``: int8
+values and a float32 scale over the output axes ((H, Dh) for the
+projections in, (d,) for ``wo``), dequantized in the compute dtype.  An
+int8 KV cache holds int8 ``k`` / ``v`` and float32 ``k_scale`` /
+``v_scale`` per position and KV head.
 
 The causal ``attention`` and ``decode_attention`` always go through
 :mod:`repro_torch.kernels.attention.ops`: with ``impl=None`` a CUDA tensor
@@ -50,27 +54,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ----------------------------------------------------------------- specs ----
 
+def _wspec(shape, dtype: torch.dtype, quant: bool,
+           scale_axes_from: int = 1):
+    """Weight spec; int8 + a float32 scale over ``shape[scale_axes_from:]``
+    when quantized."""
+    if quant:
+        return {"q": spec(shape, dtype=torch.int8, init="zeros"),
+                "scale": spec(shape[scale_axes_from:], dtype=torch.float32,
+                              init="ones")}
+    return spec(shape, dtype=dtype,
+                fan_in_axes=tuple(range(scale_axes_from)))
+
+
 def weight(p, compute_dtype: torch.dtype) -> torch.Tensor:
-    """A floating-point weight in the compute dtype."""
+    """A (possibly int8-quantised) weight in the compute dtype; the
+    dequantizing product is taken in the compute dtype, as the JAX package
+    takes it."""
     if isinstance(p, dict):
-        raise NotImplementedError("int8-quantised weights are not ported "
-                                  "yet (ROADMAP item 8)")
+        return p["q"].to(compute_dtype) * p["scale"].to(compute_dtype)
     return p.to(compute_dtype)
 
 
 def gqa_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
-              dtype: torch.dtype, fused: bool = False) -> dict:
-    wo = spec((n_heads, head_dim, d_model), dtype=dtype, fan_in_axes=(0, 1))
+              dtype: torch.dtype, fused: bool = False,
+              quant: bool = False) -> dict:
+    wo = _wspec((n_heads, head_dim, d_model), dtype, quant,
+                scale_axes_from=2)
     if fused:
-        return {"wqkv": spec((d_model, n_heads + 2 * n_kv_heads, head_dim),
-                             dtype=dtype, fan_in_axes=(0,)),
+        return {"wqkv": _wspec((d_model, n_heads + 2 * n_kv_heads, head_dim),
+                               dtype, quant),
                 "wo": wo}
-    return {"wq": spec((d_model, n_heads, head_dim), dtype=dtype,
-                       fan_in_axes=(0,)),
-            "wk": spec((d_model, n_kv_heads, head_dim), dtype=dtype,
-                       fan_in_axes=(0,)),
-            "wv": spec((d_model, n_kv_heads, head_dim), dtype=dtype,
-                       fan_in_axes=(0,)),
+    return {"wq": _wspec((d_model, n_heads, head_dim), dtype, quant),
+            "wk": _wspec((d_model, n_kv_heads, head_dim), dtype, quant),
+            "wv": _wspec((d_model, n_kv_heads, head_dim), dtype, quant),
             "wo": wo}
 
 
@@ -124,7 +140,8 @@ def encoder_attention(params: dict, x: torch.Tensor, *,
     default, and what the detector runs) is the plain path: scores taken
     in float32, a float32 softmax, the context in the compute dtype;
     ``impl="flash"`` runs K6 non-causal (its plain version on the CPU)."""
-    n_heads = params["wq"].shape[1]
+    wq = params["wq"]
+    n_heads = (wq["q"] if isinstance(wq, dict) else wq).shape[1]
     q, k, v = _qkv(params, x, n_heads, compute_dtype)
     if impl == "flash":
         return _out(params, flash_ops.flash_attention(q, k, v, causal=False),
@@ -142,10 +159,27 @@ def encoder_attention(params: dict, x: torch.Tensor, *,
 # ---------------------------------------------------------------- decode ----
 
 def init_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
-               dtype: torch.dtype, device: torch.device) -> dict:
+               dtype: torch.dtype, device: torch.device,
+               quant_kv: bool = False) -> dict:
     shape = (batch, max_seq, n_kv_heads, head_dim)
+    if quant_kv:
+        sshape = (batch, max_seq, n_kv_heads)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, 1, Kv, D) -> (int8 values, (B, 1, Kv) float32 scales)."""
+    x32 = x.to(torch.float32)
+    scale = x32.abs().amax(dim=-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
@@ -159,8 +193,12 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
     returned dict is ``cache`` itself: the JAX function returns a new cache
     (its ``"dus"`` update; the ``"masked"`` one serves a cache sharded on
     the sequence axis, which waits for ROADMAP item 14), so a decode loop
-    here moves no cache bytes but the new row.  Attention is K7 on a CUDA
-    tensor (``impl`` as in the module docstring).
+    here moves no cache bytes but the new row.  An int8 cache (``k_scale``
+    in ``cache``) takes the new row quantized, values and scales written in
+    place at ``pos``; the whole cache is then dequantized to the compute
+    dtype for attention, as the JAX package does before its decode kernel.
+    Attention is K7 on a CUDA tensor (``impl`` as in the module
+    docstring).
     """
     if isinstance(pos, torch.Tensor):
         raise TypeError("decode_attention: pos must be a Python int (a "
@@ -170,8 +208,17 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
     positions = torch.full((b, 1), pos, device=x.device)
     q = apply_rope(q, positions, rope_theta)
     k_new = apply_rope(k_new, positions, rope_theta)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    ctx = flash_ops.flash_decode(q, cache["k"].to(compute_dtype),
-                                 cache["v"].to(compute_dtype), pos, impl=impl)
+    if "k_scale" in cache:
+        for name, new in (("k", k_new), ("v", v_new)):
+            qv, scale = _quantize_kv(new)
+            cache[name][:, pos] = qv[:, 0]
+            cache[f"{name}_scale"][:, pos] = scale[:, 0]
+        k, v = (cache[name].to(compute_dtype)
+                * cache[f"{name}_scale"].to(compute_dtype)[..., None]
+                for name in ("k", "v"))
+    else:
+        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"].to(compute_dtype), cache["v"].to(compute_dtype)
+    ctx = flash_ops.flash_decode(q, k, v, pos, impl=impl)
     return _out(params, ctx, compute_dtype), cache

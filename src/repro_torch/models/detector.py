@@ -7,7 +7,8 @@ reference runs it through XLA, the port through ``torch.matmul``/einsum
 (cuBLAS on the card) in the compute dtype.
 
 Parameters are nested dicts of tensors in the JAX package's layouts, with
-the stacked ``layers`` axis unstacked into a list:
+the stacked ``layers`` axis unstacked into a list (with ``quant_weights``
+the trunk's attention and MLP kernels are int8, see :func:`param_specs`):
 
     {"trunk": {"patch_embed": {kernel (p*p*3, d), bias (d,)},
                "pos_embed": (1, side*side, d),
@@ -17,20 +18,21 @@ the stacked ``layers`` axis unstacked into a list:
      "det_head": {kernel (d, 5), bias (5,)}}
 
 :func:`init_params` draws them from a ``torch.Generator`` with the
-reference's init rules; :func:`convert_params` takes the JAX package's
-tree (as numpy arrays) instead.
+reference's init rules (:func:`param_specs`); :func:`convert_params` takes
+the JAX package's tree (as numpy arrays) instead.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import DetectorConfig, ViTConfig, dtype_of
+from repro_torch.models import attention as attn
 from repro_torch.models import layers, vit
-from repro_torch.param import from_numpy, map_tree
+from repro_torch.param import convert_tree, map_tree, spec
+from repro_torch.param import init_params as init_tree
 
 
 def trunk_cfg(cfg: DetectorConfig) -> ViTConfig:
@@ -38,43 +40,36 @@ def trunk_cfg(cfg: DetectorConfig) -> ViTConfig:
         name=f"{cfg.name}-trunk", img_res=cfg.canvas, patch=cfg.patch,
         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
         d_ff=cfg.d_ff, param_dtype=cfg.param_dtype,
-        compute_dtype=cfg.compute_dtype)
+        compute_dtype=cfg.compute_dtype, quant_weights=cfg.quant_weights)
 
 
 # ------------------------------------------------------------ parameters ----
-# (shape, init, fan_in): init is "normal" (std 1/sqrt(fan_in)), "pos"
-# (std 0.02), "zeros" or "ones" - the reference's ParamSpec rules.
 
-def _dense(d_in: int, d_out: int) -> dict:
-    return {"kernel": ((d_in, d_out), "normal", d_in),
-            "bias": ((d_out,), "zeros", 0)}
-
-
-def _norm(d: int) -> dict:
-    return {"scale": ((d,), "ones", 0), "bias": ((d,), "zeros", 0)}
-
-
-def param_shapes(cfg: DetectorConfig) -> dict:
+def param_specs(cfg: DetectorConfig) -> dict:
+    """The detector's :class:`~repro_torch.param.ParamSpec` tree, with the
+    reference's init rules.  With ``cfg.quant_weights`` the trunk's
+    attention and MLP kernels are int8 ``{q, scale}`` /
+    ``{kernel_q, kernel_scale, bias}``; the patch embed, position
+    embedding, norms and head stay in ``cfg.param_dtype``."""
+    dtype = dtype_of(cfg.param_dtype)
     d, h = cfg.d_model, cfg.n_heads
-    dh = d // h
+    quant = cfg.quant_weights
     side = cfg.canvas // cfg.patch
     layer = {
-        "ln1": _norm(d),
-        "attn": {"wq": ((d, h, dh), "normal", d),
-                 "wk": ((d, h, dh), "normal", d),
-                 "wv": ((d, h, dh), "normal", d),
-                 "wo": ((h, dh, d), "normal", h * dh)},
-        "ln2": _norm(d),
-        "mlp": {"fc1": _dense(d, cfg.d_ff), "fc2": _dense(cfg.d_ff, d)},
+        "ln1": layers.layernorm_specs(d, dtype),
+        "attn": attn.gqa_specs(d, h, h, d // h, dtype, quant=quant),
+        "ln2": layers.layernorm_specs(d, dtype),
+        "mlp": layers.gelu_mlp_specs(d, cfg.d_ff, dtype, quant=quant),
     }
     return {
         "trunk": {
-            "patch_embed": _dense(3 * cfg.patch * cfg.patch, d),
-            "pos_embed": ((1, side * side, d), "pos", 0),
+            "patch_embed": layers.dense_specs(3 * cfg.patch * cfg.patch, d,
+                                              dtype=dtype, bias=True),
+            "pos_embed": spec((1, side * side, d), dtype=dtype, init="pos"),
             "layers": [layer] * cfg.n_layers,
-            "ln_f": _norm(d),
+            "ln_f": layers.layernorm_specs(d, dtype),
         },
-        "det_head": _dense(d, 5),
+        "det_head": layers.dense_specs(d, 5, dtype=dtype, bias=True),
     }
 
 
@@ -82,21 +77,11 @@ def init_params(cfg: DetectorConfig, generator: torch.Generator,
                 device: torch.device) -> dict:
     """Random parameters drawn on the host from ``generator`` (so a seed
     gives the same weights on every device), cast to the param dtype and
-    moved to ``device``."""
-    dtype = dtype_of(cfg.param_dtype)
-
-    def leaf(spec):
-        shape, init, fan_in = spec
-        if init == "zeros":
-            t = torch.zeros(shape)
-        elif init == "ones":
-            t = torch.ones(shape)
-        else:
-            std = 0.02 if init == "pos" else 1.0 / math.sqrt(fan_in)
-            t = torch.randn(shape, generator=generator) * std
-        return t.to(device=device, dtype=dtype)
-
-    return map_tree(leaf, param_shapes(cfg))
+    moved to ``device``.  As in the JAX package, the int8 leaves of a
+    ``quant_weights`` config are zeros: quantize a floating-point tree
+    instead (``quantize.quantize_params``)."""
+    host = init_tree(param_specs(cfg), generator, torch.device("cpu"))
+    return map_tree(lambda t: t.to(device), host)
 
 
 def convert_params(tree: dict, cfg: DetectorConfig,
@@ -104,19 +89,32 @@ def convert_params(tree: dict, cfg: DetectorConfig,
     """The JAX package's detector parameters (nested dicts of arrays) ->
     the port's tree.  Stacked layers (``trunk.layers`` with a leading
     ``n_layers`` axis, ``scan_layers=True``) are unstacked into a list;
-    ``layer_{i}`` subtrees are taken in order.  Leaves are cast to
-    ``cfg.param_dtype``."""
-    dtype = dtype_of(cfg.param_dtype)
+    ``layer_{i}`` subtrees (under ``trunk.layers`` with
+    ``scan_layers=False``, or in the trunk itself) are taken in order.
+    Leaves are cast to ``cfg.param_dtype``, but for the int8-quantised
+    weights of a ``quant_weights`` tree (``{q, scale}``,
+    ``{kernel_q, kernel_scale}``), which keep int8 values and float32
+    scales."""
     trunk = dict(tree["trunk"])
+    # per-layer subtrees under trunk.layers, or beside it in the trunk
     if "layers" in trunk:
-        stacked = trunk.pop("layers")
-        per_layer = [map_tree(lambda a, i=i: np.asarray(a)[i], stacked)
-                     for i in range(cfg.n_layers)]
+        layers_tree = trunk.pop("layers")
+    elif "layer_0" in trunk:
+        layers_tree = trunk
     else:
-        per_layer = [trunk.pop(f"layer_{i}") for i in range(cfg.n_layers)]
+        raise KeyError("detector tree has neither trunk.layers nor "
+                       "trunk.layer_0")
+    if "layer_0" in layers_tree:
+        names = [f"layer_{i}" for i in range(cfg.n_layers)]
+        per_layer = [layers_tree[name] for name in names]
+        for name in names:
+            trunk.pop(name, None)
+    else:
+        per_layer = [map_tree(lambda a, i=i: np.asarray(a)[i], layers_tree)
+                     for i in range(cfg.n_layers)]
     trunk["layers"] = per_layer
     out = {"trunk": trunk, "det_head": tree["det_head"]}
-    return map_tree(lambda a: from_numpy(a, dtype, device), out)
+    return convert_tree(out, dtype_of(cfg.param_dtype), device)
 
 
 def embed_params(cfg: DetectorConfig, params: dict

@@ -1,48 +1,86 @@
 """Shared primitive layers: dense, norms, embeddings, MLPs.
 
 Port of the parts of ``repro/models/layers.py`` the detector and the
-decoder-only LM run (floating-point weights; int8 dense is ROADMAP item
-8).  Functions take plain dicts of tensors laid out as in the JAX package
-(dense kernels are (d_in, d_out)).  Norm statistics accumulate in float32
-whatever the compute dtype.  ``*_specs`` build :class:`ParamSpec` subtrees
-with the JAX package's init rules.
+decoder-only LM run.  Functions take plain dicts of tensors laid out as in
+the JAX package (dense kernels are (d_in, d_out)); an int8-resident dense
+holds ``kernel_q`` (int8) and ``kernel_scale`` (float32, one per output
+channel) instead of ``kernel``, dequantized in the compute dtype.  Norm
+statistics accumulate in float32 whatever the compute dtype.  ``*_specs``
+build :class:`ParamSpec` subtrees with the JAX package's init rules.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.quantize import quantize_kernel
 from repro_torch.param import spec
 
 
 # ----------------------------------------------------------------- specs ----
 
-def dense_specs(d_in: int, d_out: int, *, dtype: torch.dtype) -> dict:
-    return {"kernel": spec((d_in, d_out), dtype=dtype, fan_in_axes=(0,))}
+def dense_specs(d_in: int, d_out: int, *, dtype: torch.dtype,
+                bias: bool = False, quant: bool = False) -> dict:
+    if quant:
+        # int8 weight + per-output-channel float32 scale (serving residency)
+        p = {"kernel_q": spec((d_in, d_out), dtype=torch.int8, init="zeros"),
+             "kernel_scale": spec((d_out,), dtype=torch.float32,
+                                  init="ones")}
+    else:
+        p = {"kernel": spec((d_in, d_out), dtype=dtype, fan_in_axes=(0,))}
+    if bias:
+        p["bias"] = spec((d_out,), dtype=dtype, init="zeros")
+    return p
 
 
 def rmsnorm_specs(d: int, dtype: torch.dtype) -> dict:
     return {"scale": spec((d,), dtype=dtype, init="ones")}
 
 
+def layernorm_specs(d: int, dtype: torch.dtype) -> dict:
+    return {"scale": spec((d,), dtype=dtype, init="ones"),
+            "bias": spec((d,), dtype=dtype, init="zeros")}
+
+
 def embed_specs(vocab: int, d: int, dtype: torch.dtype) -> dict:
     return {"embedding": spec((vocab, d), dtype=dtype, init="embed")}
 
 
-def swiglu_specs(d: int, d_ff: int, dtype: torch.dtype) -> dict:
-    return {"gate": dense_specs(d, d_ff, dtype=dtype),
-            "up": dense_specs(d, d_ff, dtype=dtype),
-            "down": dense_specs(d_ff, d, dtype=dtype)}
+def swiglu_specs(d: int, d_ff: int, dtype: torch.dtype,
+                 quant: bool = False) -> dict:
+    return {"gate": dense_specs(d, d_ff, dtype=dtype, quant=quant),
+            "up": dense_specs(d, d_ff, dtype=dtype, quant=quant),
+            "down": dense_specs(d_ff, d, dtype=dtype, quant=quant)}
+
+
+def gelu_mlp_specs(d: int, d_ff: int, dtype: torch.dtype,
+                   quant: bool = False) -> dict:
+    return {"fc1": dense_specs(d, d_ff, dtype=dtype, bias=True, quant=quant),
+            "fc2": dense_specs(d_ff, d, dtype=dtype, bias=True, quant=quant)}
 
 
 # ---------------------------------------------------------------- apply ----
 
 def dense(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
           ) -> torch.Tensor:
-    y = x.to(compute_dtype) @ params["kernel"].to(compute_dtype)
+    if "kernel_q" in params:
+        # dequantize in the compute dtype, as the JAX package does (a
+        # float32 product rounded afterwards would differ in bf16)
+        w = (params["kernel_q"].to(compute_dtype)
+             * params["kernel_scale"].to(compute_dtype))
+    else:
+        w = params["kernel"].to(compute_dtype)
+    y = x.to(compute_dtype) @ w
     if "bias" in params:
         y = y + params["bias"].to(compute_dtype)
     return y
+
+
+def quantize_dense(kernel: torch.Tensor) -> dict:
+    """A (d_in, d_out) kernel -> ``{kernel_q, kernel_scale}``, one scale
+    per output channel."""
+    q, scale = quantize_kernel(kernel, n_reduce=1)
+    return {"kernel_q": q, "kernel_scale": scale}
 
 
 def layernorm(params: dict, x: torch.Tensor, eps: float,

@@ -20,6 +20,11 @@ per layer under ``"layer_{i}"`` (the port runs layers in a Python loop, not
                             "mlp": {"gate", "up", "down"}}, ...},
      "ln_f": {"scale"}, "lm_head": {"kernel": (d, V)}}
 
+With ``quant_weights`` the layer and ``lm_head`` kernels are int8
+(``{q, scale}`` / ``{kernel_q, kernel_scale}``, from
+``quantize.quantize_params``); with ``quant_kv`` the cache is int8 with
+float32 scales.
+
 Every layer's attention goes through K6 in prefill and K7 in decode on a
 CUDA tensor (``impl=None``); ``impl="torch"`` runs their plain versions, and
 a CPU tensor always does.  There are no sharding rules (ROADMAP item 14);
@@ -36,19 +41,22 @@ from repro_torch.config import TransformerConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
-from repro_torch.param import from_numpy, map_tree
+from repro_torch.param import convert_tree, map_tree
 from repro_torch.param import init_params as _init_tree
 
 
 # ----------------------------------------------------------------- specs ----
 
 def _layer_specs(cfg: TransformerConfig, dtype: torch.dtype) -> dict:
+    quant = cfg.quant_weights
     return {
         "ln_attn": layers.rmsnorm_specs(cfg.d_model, dtype),
         "attn": attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim, dtype, fused=cfg.fused_qkv),
+                               cfg.head_dim, dtype, fused=cfg.fused_qkv,
+                               quant=quant),
         "ln_mlp": layers.rmsnorm_specs(cfg.d_model, dtype),
-        "mlp": layers.swiglu_specs(cfg.d_model, cfg.d_ff, dtype),
+        "mlp": layers.swiglu_specs(cfg.d_model, cfg.d_ff, dtype,
+                                   quant=quant),
     }
 
 
@@ -62,14 +70,18 @@ def param_specs(cfg: TransformerConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_specs(cfg.d_model, cfg.vocab,
-                                          dtype=dtype)
+                                          dtype=dtype,
+                                          quant=cfg.quant_weights)
     return p
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> dict:
     """Random parameters with the JAX package's init rules, drawn from
-    ``generator`` on ``device`` (a CUDA generator draws them on the card)."""
+    ``generator`` on ``device`` (a CUDA generator draws them on the card).
+    As in the JAX package, the int8 leaves of a ``quant_weights`` config
+    are zeros: quantize a floating-point tree instead
+    (``quantize.quantize_params``)."""
     return _init_tree(param_specs(cfg), generator, device)
 
 
@@ -79,16 +91,18 @@ def convert_params(tree: dict, cfg: TransformerConfig,
     ``np.asarray``) -> the port's tree on ``device``.  A scanned tree
     (``scan_layers=True``: every leaf under ``"layers"`` has a leading
     ``n_layers`` axis) is unstacked into ``layer_{i}`` dicts; an unscanned
-    one is taken as it is.  Leaves are cast to ``cfg.param_dtype``."""
+    one is taken as it is.  Leaves are cast to ``cfg.param_dtype``, but for
+    the int8-quantised weights of a ``quant_weights`` tree (``{q, scale}``,
+    ``{kernel_q, kernel_scale}``), which keep int8 values and float32
+    scales."""
     device = resolve_device(device)
-    dtype = dtype_of(cfg.param_dtype)
     out = dict(tree)
     stacked = out["layers"]
     if "layer_0" not in stacked:
         out["layers"] = {f"layer_{i}": map_tree(
             lambda a, i=i: np.asarray(a)[i], stacked)
             for i in range(cfg.n_layers)}
-    return map_tree(lambda a: from_numpy(a, dtype, device), out)
+    return convert_tree(out, dtype_of(cfg.param_dtype), device)
 
 
 # --------------------------------------------------------------- forward ----
@@ -144,11 +158,14 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                device: DeviceLike = None) -> dict:
     """A zeroed KV cache, ``{"layer_{i}": {"k", "v"}}`` of (batch, max_seq,
-    n_kv_heads, head_dim) in the compute dtype."""
+    n_kv_heads, head_dim) in the compute dtype; with ``cfg.quant_kv``
+    int8 ``k`` / ``v`` and float32 ``k_scale`` / ``v_scale`` of (batch,
+    max_seq, n_kv_heads)."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
     return {f"layer_{i}": attn.init_cache(batch, max_seq, cfg.n_kv_heads,
-                                          cfg.head_dim, dtype, device)
+                                          cfg.head_dim, dtype, device,
+                                          quant_kv=cfg.quant_kv)
             for i in range(cfg.n_layers)}
 
 

@@ -55,6 +55,29 @@ def from_numpy(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+#: leaves of an int8-quantised weight and the dtype each keeps
+QUANT_LEAVES = {"q": torch.int8, "scale": torch.float32,
+                "kernel_q": torch.int8, "kernel_scale": torch.float32}
+
+
+def convert_tree(tree, dtype: torch.dtype, device: torch.device):
+    """A tree of numpy arrays (e.g. the JAX package's parameters through
+    ``np.asarray``) as tensors on ``device``.  Leaves are cast to
+    ``dtype``, but for int8-quantised weights (``{q, scale}`` or
+    ``{kernel_q, kernel_scale[, bias]}``), whose values stay int8 and
+    whose scales stay float32."""
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return from_numpy(node, dtype, device)
+        quant = "q" in node or "kernel_q" in node
+        return {k: (from_numpy(v, QUANT_LEAVES[k], device)
+                    if quant and k in QUANT_LEAVES else walk(v))
+                for k, v in node.items()}
+    return walk(tree)
+
+
 def leaves(tree):
     """The leaves of nested dicts and lists, in the tree's order."""
     if isinstance(tree, (dict, list)):

@@ -141,7 +141,7 @@ def test_serve_config_round_trips_and_validates():
     assert cfg.replace(max_inflight=2).max_inflight == 2
     assert make_classify("slo") is slo_class and make_classify(None) is None
     with pytest.raises(ValueError, match="unknown ServeConfig"):
-        ServeConfig.from_dict({"quantize": True})
+        ServeConfig.from_dict({"use_pallas": True})
     with pytest.raises(ValueError):
         ServeConfig(max_inflight=0)
     with pytest.raises(ValueError, match="unknown classifier"):
@@ -154,8 +154,8 @@ def test_make_executor_by_name():
     assert type(make_executor("device", **kw)) is DeviceExecutor
     ex = make_executor("async_device", **kw)
     assert isinstance(ex, AsyncDeviceExecutor) and ex.max_inflight == 3
-    with pytest.raises(ValueError, match="unknown executor 'sim'"):
-        make_executor("sim", **kw)
+    with pytest.raises(ValueError, match="unknown executor 'workers'"):
+        make_executor("workers", **kw)
     with pytest.raises(ValueError, match="unknown stitch impl"):
         make_executor("device", impl="pallas", **kw)
 
@@ -164,7 +164,7 @@ def test_tangram_spec_matches_reference_economics():
     t, j = tmodels.make_model("tangram"), jmodels.make_model("tangram")
     assert (t.canvas_m, t.canvas_n, t.weight_bytes, t.load_s) == \
         (j.canvas_m, j.canvas_n, j.weight_bytes, j.load_s)
-    assert tmodels.model_names() == ("tangram",)
+    assert tmodels.model_names() == ("tangram", "tangram_int8")
     table = t.latency_table(max_batch=4)
     assert sorted(table.table) == [1, 2, 3, 4]
     assert all(math.isfinite(mu) and mu > 0 for mu, _ in

@@ -5,6 +5,8 @@ package, so it runs on a host with only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +15,11 @@ from repro_torch.configs import get
 from repro_torch.configs.reduced import reduce_arch
 from repro_torch.core import gmm
 from repro_torch.core import sequence_packing
+from repro_torch.core.config import ServeConfig
 from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
 from repro_torch.core.latency import LatencyTable
 from repro_torch.core.partitioning import Patch
+from repro_torch.core.scheduler import TangramScheduler
 from repro_torch.core.stitching import build_batch_plan, stitch
 from repro_torch.kernels.attention import flash as flash_kernels
 from repro_torch.kernels.attention import ops as attn_ops
@@ -25,6 +29,8 @@ from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
 from repro_torch.launch.serve import build_detector, fused_kwargs
 from repro_torch.models import transformer
+from repro_torch.models.quantize import quantize_params
+from repro_torch.serverless.platform import Platform
 from repro_torch.sources import make_source
 
 pytestmark = pytest.mark.cuda
@@ -190,23 +196,17 @@ def _unmatched(a, b, score_tol, box_tol, threshold=0.5):
     return bad
 
 
-@pytest.mark.parametrize("fuse", [False, True])
-@pytest.mark.parametrize("executor", ["device", "async_device"])
-def test_executor_on_card_matches_plain_run(cuda, executor, fuse):
-    """The small driver detector served on the card: kernels and plain
-    versions route the same detections and evidence.  The executors' clock
-    is pinned so completions deliver in submit order in both runs (with
-    measured wall times, two invocations may finish in either order).
-    Unfused, the kernels are copies and the detections equal; fused, K4
-    sums in another order than the plain matmul (float32 here), so each
-    detection must have a partner within 1e-4 in score and 1e-3 px, or
-    lie within 1e-4 of the threshold."""
+def _served_on_card(cuda, executor, fuse, quantize=False):
+    """The small driver detector (int8-resident with ``quantize``) served
+    on the card through the kernels and through the plain versions; checks
+    the launches and returns both runs' routed outputs."""
     frames = {}
     src = make_source("synthetic", n_frames=16, canvas=128, slo=0.3,
                       device=cuda, frame_sink=lambda f, px, n:
                       frames.__setitem__(f, (px, n)))
     arrivals = list(src.events(None))
-    cfg, params, serve_fn = build_detector(128, cuda)
+    cfg, params, serve_fn = build_detector(128, quantize=quantize,
+                                           device=cuda)
     table = LatencyTable({1: (0.02, 0.002), 4: (0.05, 0.004)})
     fused = fused_kwargs(cfg, params) if fuse else {}
     outs = []
@@ -235,6 +235,10 @@ def test_executor_on_card_matches_plain_run(cuda, executor, fuse):
                    for k in launched), launched
         outs.append(routed)
     assert len(outs[0]) == len(outs[1]) > 0
+    return outs
+
+
+def _assert_same_routing(outs, fuse):
     for (dets_k, px_k), (dets_p, px_p) in zip(*outs):
         if fuse:
             assert not _unmatched(dets_k, dets_p, 1e-4, 1e-3)
@@ -245,6 +249,55 @@ def test_executor_on_card_matches_plain_run(cuda, executor, fuse):
         for fid in px_p:
             for a, b in zip(px_k[fid], px_p[fid]):
                 np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("executor", ["device", "async_device"])
+def test_executor_on_card_matches_plain_run(cuda, executor, fuse):
+    """The small driver detector served on the card: kernels and plain
+    versions route the same detections and evidence.  The executors' clock
+    is pinned so completions deliver in submit order in both runs (with
+    measured wall times, two invocations may finish in either order).
+    Unfused, the kernels are copies and the detections equal; fused, K4
+    sums in another order than the plain matmul (float32 here), so each
+    detection must have a partner within 1e-4 in score and 1e-3 px, or
+    lie within 1e-4 of the threshold."""
+    _assert_same_routing(_served_on_card(cuda, executor, fuse), fuse)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("executor", ["device", "async_device"])
+def test_int8_executor_on_card_matches_plain_run(cuda, executor, fuse):
+    """The same with the detector's trunk int8-resident (``--quantize``):
+    K1-K4 take the same inputs (the patch embed stays full precision), so
+    the same bounds hold."""
+    _assert_same_routing(_served_on_card(cuda, executor, fuse,
+                                         quantize=True), fuse)
+
+
+def test_scheduler_on_card_device_executor(cuda):
+    """``TangramScheduler`` with a fused device executor on the card: every
+    patch served once, K4/K3 launched, and the platform carries only the
+    meter (cost and platform invocations 0)."""
+    cfg, params, serve_fn = build_detector(256, device=cuda)
+    table = LatencyTable({1: (0.02, 0.002), 4: (0.05, 0.004)})
+    ex = make_executor("device", serve_fn=serve_fn, params=params,
+                       canvas_m=256, canvas_n=256, device=cuda,
+                       **fused_kwargs(cfg, params))
+    rng = np.random.default_rng(0)
+    streams = [[Patch(0, 0, int(rng.integers(16, 128)),
+                      int(rng.integers(16, 128)), frame_id=f, camera_id=c,
+                      t_gen=f / 10.0, slo=1.0)
+                for f in range(8) for _ in range(3)] for c in range(2)]
+    before = dict(kernels.LAUNCHES)
+    res = TangramScheduler(256, 256, table, Platform(table), executor=ex,
+                           config=ServeConfig(max_canvases=4)).run(
+        streams, 40e6)
+    s = res.summary()
+    assert s["patches"] == 48 and s["invocations"] == 0
+    assert s["cost_usd"] == 0.0 and 0 < s["mean_canvas_eff"] <= 1
+    assert kernels.LAUNCHES["stitch_embed"] > before["stitch_embed"]
+    assert ex.n_invocations == len(res.batch_sizes) > 0
 
 
 def _gmm_case(kind, h, w, rng):
@@ -542,6 +595,50 @@ def test_lm_prefill_and_decode_on_card_run_k6_and_k7(cuda):
                                              tok[:, pos:pos + 1], cache, pos)
         torch.testing.assert_close(got[:, 0], want[:, pos], atol=1e-4,
                                    rtol=1e-4)
+    assert kernels.LAUNCHES["flash_decode"] == (
+        before["flash_decode"] + 8 * cfg.n_layers)
+
+
+def test_int8_lm_on_card_runs_k6_and_k7(cuda):
+    """The reduced minitron-4b with int8 weights and an int8 KV cache on
+    the card: K6 in prefill and K7 in decode over the dequantized cache,
+    kernel logits against plain, and the int8 model tracking the fp one
+    (tests/test_quantize.py's correlations)."""
+    cfg = reduce_arch(get("minitron-4b"))
+    qcfg = dataclasses.replace(cfg, quant_weights=True, quant_kv=True)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    qparams = quantize_params(transformer.param_specs(qcfg), params)
+    tok = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab, size=(2, 64))).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    last, _ = transformer.prefill(qcfg, qparams, tok)
+    assert kernels.LAUNCHES["flash_attention"] == (
+        before["flash_attention"] + cfg.n_layers)
+    last_plain, _ = transformer.prefill(qcfg, qparams, tok, impl="torch")
+    assert kernels.LAUNCHES["flash_attention"] == (
+        before["flash_attention"] + cfg.n_layers)
+    torch.testing.assert_close(last, last_plain, atol=1e-4, rtol=1e-4)
+    fp_last, _ = transformer.prefill(cfg, params, tok, impl="torch")
+    corr = lambda a, b: float(np.corrcoef(a.float().cpu().numpy().ravel(),
+                                          b.float().cpu().numpy().ravel())
+                              [0, 1])
+    assert corr(last, fp_last) > 0.99
+    caches = [transformer.init_cache(c, 2, 128, cuda)
+              for c in (qcfg, qcfg, cfg)]
+    assert caches[0]["layer_0"]["k"].dtype == torch.int8
+    before = dict(kernels.LAUNCHES)
+    for pos in range(8):
+        t = tok[:, pos:pos + 1]
+        got, _ = transformer.decode_step(qcfg, qparams, t, caches[0], pos)
+        plain, _ = transformer.decode_step(qcfg, qparams, t, caches[1], pos,
+                                           impl="torch")
+        fp, _ = transformer.decode_step(cfg, params, t, caches[2], pos,
+                                        impl="torch")
+        torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+    assert corr(got, fp) > 0.99
+    # layer 0's new K rows do not depend on attention: the same bits
+    assert torch.equal(caches[0]["layer_0"]["k"], caches[1]["layer_0"]["k"])
     assert kernels.LAUNCHES["flash_decode"] == (
         before["flash_decode"] + 8 * cfg.n_layers)
 

@@ -93,6 +93,14 @@ def test_convert_params_unstacks_layers():
                        layers[1]["ln2"]["scale"])
 
 
+def test_convert_params_refuses_a_trunk_without_layers():
+    jcfg, tcfg, jparams, _ = _pair("float32")
+    np_tree = jax.tree_util.tree_map(np.asarray, jparams)
+    np_tree["trunk"].pop("layers")
+    with pytest.raises(KeyError, match="neither trunk.layers nor"):
+        tdet.convert_params(np_tree, tcfg, CPU)
+
+
 def test_bf16_convert_keeps_bits():
     jcfg, tcfg, jparams, tparams = _pair("bfloat16")
     pe = tparams["trunk"]["patch_embed"]["kernel"]

@@ -25,6 +25,11 @@ sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+# the simulation substrate and the paper's metrics, named so that a
+# module missing from the walk still fails here
+names += ["repro_torch.serverless.platform", "repro_torch.core.scheduler",
+          "repro_torch.core.baselines", "repro_torch.core.adaptive",
+          "repro_torch.core.cost", "repro_torch.models.quantize"]
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -219,8 +219,8 @@ def jax_weights(monkeypatch):
     (``jax.random.PRNGKey(0)``, through ``convert_params``), so both
     drivers' summary lines can be held equal on invocations and routed
     detections too."""
-    def build(canvas=256, device=None):
-        cfg, params, _, _ = jserve.build_detector(canvas)
+    def build(canvas=256, quantize=False, device=None):
+        cfg, params, _, _ = jserve.build_detector(canvas, quantize=quantize)
         tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
                                  dataclasses.fields(DetectorConfig)})
         tparams = tdet.convert_params(
@@ -265,6 +265,41 @@ def test_serve_cli_fused_matches_jax_serve(executor, jax_weights, capsys):
     assert _summary(got)[0] > 0
 
 
+@pytest.mark.parametrize("fuse", [[], ["--fuse"]])
+def test_serve_cli_quantized_matches_jax_driver(fuse, jax_weights, capsys):
+    """``--quantize``: both drivers serve the JAX driver's weights
+    quantized (the port through ``convert_params`` of the JAX int8 tree)
+    and print the same N, M, D and evidence, with ", int8"."""
+    args = ["--quantize", "--frames", "16", "--canvas", "128", "--slo",
+            "5.0"] + fuse
+    jserve.main(args)
+    want = capsys.readouterr().out
+    tserve.main(["--device", "cpu"] + args)
+    got = capsys.readouterr().out
+    assert ", int8" in want and ", int8" in got
+    assert (", fused" in got) == bool(fuse)
+    _assert_same_summary(_summary(got), _summary(want))
+    assert _summary(got)[0] > 0
+
+
+def test_serve_cli_quantize_builds_int8_weights(capsys):
+    """The port's own ``--quantize`` build: int8 trunk kernels quantized
+    from the fp weights ``build_detector`` draws without it."""
+    cfg, params, _ = tserve.build_detector(128, device="cpu")
+    qcfg, qparams, _ = tserve.build_detector(128, quantize=True,
+                                             device="cpu")
+    assert qcfg.quant_weights and not cfg.quant_weights
+    wq = qparams["trunk"]["layers"][0]["attn"]["wq"]
+    assert wq["q"].dtype == torch.int8 and wq["scale"].dtype == torch.float32
+    fp = params["trunk"]["layers"][0]["attn"]["wq"]
+    assert torch.allclose(wq["q"].float() * wq["scale"], fp,
+                          atol=float(wq["scale"].max()) / 2 + 1e-7)
+    tserve.main(["--device", "cpu", "--quantize", "--frames", "16",
+                 "--canvas", "128", "--slo", "5.0"])
+    out = capsys.readouterr().out
+    assert ", int8" in out and _summary(out)[0] > 0 and _summary(out)[4] == 0
+
+
 def test_serve_cli_async_and_live_source(capsys):
     tserve.main(["--device", "cpu", "--frames", "16", "--canvas", "128",
                  "--slo", "5.0", "--async-device", "--source", "synthetic",
@@ -275,7 +310,7 @@ def test_serve_cli_async_and_live_source(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--quantize"], 8), (["--workers", "2"], 10), (["--shards", "2"], 11),
+    (["--workers", "2"], 10), (["--shards", "2"], 11),
     (["--parallel"], 11), (["--online-latency"], 10),
     (["--model", "tangram"], 10), (["--model-map", "0.5=tangram"], 10),
     (["--placement", "round"], 10), (["--planner", "cost"], 11)])

@@ -236,10 +236,6 @@ def test_unported_features_raise_naming_their_item():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="item 13"):
         dataclasses.replace(tcfg, moe=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dataclasses.replace(tcfg, quant_weights=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dataclasses.replace(tcfg, quant_kv=True, fused_qkv=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         get("deepseek-moe-16b")
     with pytest.raises(KeyError):
