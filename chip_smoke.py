@@ -56,7 +56,9 @@ Phases (any failure raises, so the exit code is non-zero):
 5d. serve the trace at SLO 1.0 s through ``TangramScheduler`` over a fused
    ``DeviceExecutor`` of the full-width detector and print its
    ``Results.summary()`` (cost and platform invocations read 0: the
-   platform carries only the meter);
+   platform carries only the meter); again with ``online_latency=True``
+   (a one-worker pool feeds the online table every completion), and
+   print both violation rates (a reading, not a gate);
 5e. profile the full-width detector on the card over 1, 2, 4 and 8
    canvases, and run Tangram, Clipper, ELF and MArk in simulation over
    that table (``benchmarks/fig12_e2e.py``'s grid: 20/40/80 Mbps x SLO
@@ -69,8 +71,24 @@ Phases (any failure raises, so the exit code is non-zero):
    fused tolerances, 0 frames held, K5 once per frame in the kernel run and
    never in the plain run; print each 4K frame's seconds per edge stage;
    run the serve driver on the recording once (``--source file --fuse``);
+5f. serve the registry's three detectors at full width (``vit_s16``:
+   ViT-S/16 trunk at patch 16, a 64x64 token grid a canvas;
+   ``efficientnet_b7``: 18 layers at d 512, patch 32; ``tangram``) on
+   three 2048x1024 cameras, one an SLO class (0.5 / 1.0 / 2.0 s, made as
+   the serve driver's comma list of SLOs makes them), routed by
+   ``MODEL_MAP``: unfused and fused with the sync executor on each
+   model's profiled table, kernels and plain (unfused evidence, heads and
+   detections equal; fused within phase 5b's limits); then through
+   ``TangramScheduler`` over a two-worker ``device_worker_pool`` with
+   model placement, weight caches and online tables, unfused and fused,
+   each invocation replayed through the plain versions and held the same
+   way; every model's invocations must launch K1/K2 (K4/K3) and the plain
+   runs nothing, with 0 frames held; print the per-model and per-worker
+   rows (weight hits, drift) and the invocations;
 6. time each kernel against its plain version and its bound (K1-K4 at the
-   main path's largest invocation, K5 on 4K and 2048x1024 frames), and
+   main path's largest invocation, K4 and K3 again at ``vit_s16``'s and K4
+   at ``efficientnet_b7``'s largest fused invocation of phase 5f, K5 on
+   4K and 2048x1024 frames), and
    time the unfused and the fused invocation's stages.  Every kernel (and
    library yardstick) gets two times: ``ms_call``, calls back to back
    between CUDA events, which holds the wrapper's host time wherever it
@@ -114,13 +132,15 @@ Phases (any failure raises, so the exit code is non-zero):
    through K7 over the dequantized cache (its logits correlating with a
    bf16 cache's above 0.995); print the resident bytes, the prefill and
    step times and the peak device memory;
-9. print one JSON line of kernels (K1-K7) and, last,
+9. print one JSON line of kernels (K1-K7, and the K4/K3 rows of phase 5f's
+   models, named ``kernel[model]``) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import gc
@@ -149,12 +169,17 @@ from repro_torch.core import partitioning  # noqa: E402
 from repro_torch.core import sequence_packing  # noqa: E402
 from repro_torch.core.config import ServeConfig  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
-    ServingEngine, make_executor, uniform_pool)
-from repro_torch.core.models import make_model  # noqa: E402
+    InvokerPool, ModelRuntime, ServingEngine, make_executor, slo_class,
+    uniform_pool)
+from repro_torch.core.invoker import SLOAwareInvoker  # noqa: E402
+from repro_torch.core.models import make_model, register_model  # noqa: E402
 from repro_torch.core.partitioning import Patch  # noqa: E402
 from repro_torch.core.rois import RoIConfig, extract_rois  # noqa: E402
 from repro_torch.core.scheduler import TangramScheduler  # noqa: E402
 from repro_torch.core.stitching import build_batch_plan, stitch  # noqa: E402
+from repro_torch.core.workers import (  # noqa: E402
+    WorkerPoolExecutor, device_worker_pool, make_placement, weight_caches,
+    worker_device)
 from repro_torch.data.synthetic import Scene, preset  # noqa: E402
 from repro_torch.data.video import load_frames  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -168,7 +193,8 @@ from repro_torch.kernels.stitch import fused_embed  # noqa: E402
 from repro_torch.kernels.stitch import ops as stitch_ops  # noqa: E402
 from repro_torch.kernels.stitch import stitch as stitch_kernels  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
-    fused_kwargs, profile, summary_line)
+    build_source, detail_lines, fused_fields, fused_kwargs, profile,
+    summary_line)
 from repro_torch.models import detector as detector_lib  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -254,6 +280,10 @@ LM_INT8_SEQ, LM_INT8_STEPS = 2048, 32   # int8 prefill B=2 x 2048, decode
 SIM_CAMERAS, SIM_FRAMES = 4, 30
 SIM_BWS = (20e6, 40e6, 80e6)
 SIM_SLOS = (0.5, 1.0, 1.5)
+# Phase 5f: the registry's three detectors at full width, one SLO class
+# each, on one camera a class.
+MODEL_MAP = {"0.5": "vit_s16", "1.0": "efficientnet_b7", "2.0": "tangram"}
+MODEL_FRAMES = 24
 
 
 def log(msg: str) -> None:
@@ -1088,14 +1118,21 @@ def match_detections(a: dict, b: dict, score_tol: float, box_tol: float):
     return matched, excused, bad
 
 
+def patches_of(run: dict) -> list:
+    """Each invocation's detector patch (``run["patch"]`` in a multi-model
+    run, else the main path's)."""
+    return run.get("patch") or [PATCH] * len(run["invocations"])
+
+
 def decoded_grid_diffs(a: dict, b: dict):
     """Both runs' raw heads decoded by the plain K3 per invocation: the
     largest score and box differences over cells both keep at 0.5."""
     d_score = d_box = 0.0
-    for inv, (ra,), (rb,) in zip(a["invocations"], a["heads"], b["heads"]):
+    for inv, patch, (ra,), (rb,) in zip(a["invocations"], patches_of(a),
+                                        a["heads"], b["heads"]):
         rec = torch.from_numpy(inv.batch_plan().records)
         ga, gb = (stitch_ops.unstitch_decode_reference(
-            torch.from_numpy(r), rec, PATCH, len(inv.patches))
+            torch.from_numpy(r), rec, patch, len(inv.patches))
             for r in (ra, rb))
         both = (ga[..., 0] >= 0.5) & (gb[..., 0] >= 0.5)
         if both.any():
@@ -1110,22 +1147,24 @@ def kept_by_one_run(a: dict, b: dict, what: str):
     >= 0.5) and the other does not, from both runs' raw heads decoded by
     the plain K3.  Each must have its score within SCORE_TOL of 0.5 in a
     run that claims it in both, or its decoded centre within EDGE_TOL px
-    of its placement's edge in either run.  Returns the counts (kept by
-    ``a`` only, kept by ``b`` only)."""
+    (scaled to the invocation's patch) of its placement's edge in either
+    run.  Returns the counts (kept by ``a`` only, kept by ``b`` only)."""
     only = [0, 0]
-    for inv, (ra,), (rb,) in zip(a["invocations"], a["heads"], b["heads"]):
+    for inv, patch, (ra,), (rb,) in zip(a["invocations"], patches_of(a),
+                                        a["heads"], b["heads"]):
         records = inv.batch_plan().records
         raws = [torch.from_numpy(r) for r in (ra, rb)]
         ga, gb = (stitch_ops.unstitch_decode_reference(
-            r, torch.from_numpy(records), PATCH, len(inv.patches))
+            r, torch.from_numpy(records), patch, len(inv.patches))
             for r in raws)
+        edge_tol = EDGE_TOL * patch / PATCH
         keep_a, keep_b = ga[..., 0] >= 0.5, gb[..., 0] >= 0.5
         differ = keep_a != keep_b
         if not differ.any():
             continue
         where = {int(r[1]): (bi, *map(int, r[2:]))
                  for bi, per in enumerate(records) for r in per if r[0] > 0}
-        centres = [decoded_centres(r, PATCH) for r in raws]
+        centres = [decoded_centres(r, patch) for r in raws]
         for slot, gy, gx in differ.nonzero().tolist():
             sa, sb = float(ga[slot, gy, gx, 0]), float(gb[slot, gy, gx, 0])
             bi, x, y, w, h = where[slot]
@@ -1137,7 +1176,7 @@ def kept_by_one_run(a: dict, b: dict, what: str):
             near_threshold = (sa > 0 and sb > 0
                               and min(abs(sa - 0.5), abs(sb - 0.5))
                               <= SCORE_TOL)
-            if not near_threshold and dist > EDGE_TOL:
+            if not near_threshold and dist > edge_tol:
                 raise AssertionError(
                     f"{what}: slot {slot} cell ({gy}, {gx}) kept by one run "
                     f"only, scores {sa:.4f} / {sb:.4f}, centre {dist:.3f} px "
@@ -1282,11 +1321,15 @@ def int8_phase(build, table, arrivals, frames, device, by_path) -> None:
             by_path[f"int8_fused_{key}_slo{slo}"] = run["launches"]
 
 
-def scheduler_phase(build, table, arrivals, frames, device, by_path) -> None:
+def scheduler_phase(build, table, arrivals, frames, device, by_path,
+                    online: bool = False) -> float:
     """Phase 5d: ``TangramScheduler`` over a fused ``DeviceExecutor`` of the
-    full-width detector, the trace at SLO 1.0.  The platform carries only
-    the meter, so the record's cost and platform invocations read 0, as
-    in the JAX package."""
+    full-width detector, the trace at SLO 1.0; returns its violation rate.
+    The platform carries only the meter, so the record's cost and platform
+    invocations read 0, as in the JAX package.  ``online``: the invokers
+    fire against an ``OnlineLatencyTable`` seeded with ``table``, which a
+    one-worker pool around the executor feeds every completion (as the
+    serve driver's ``--online-latency`` does)."""
     trace = [dataclasses.replace(a, patch=dataclasses.replace(a.patch,
                                                               slo=1.0))
              for a in arrivals]
@@ -1294,25 +1337,37 @@ def scheduler_phase(build, table, arrivals, frames, device, by_path) -> None:
     ex = make_executor("device", serve_fn=serve_fn, params=params,
                        canvas_m=CANVAS, canvas_n=CANVAS, device=device,
                        **fused_kwargs(cfg, params))
-    source = trace_source(trace, frames)(ex)
+    executor = WorkerPoolExecutor([ex]) if online else ex
+    source = trace_source(trace, frames)(executor)
     sched = TangramScheduler(
         CANVAS, CANVAS, table, Platform(table, PlatformConfig()),
-        config=ServeConfig(max_canvases=4, executor="device", fuse=True),
-        executor=ex)
+        config=ServeConfig(max_canvases=4, executor="device", fuse=True,
+                           online_latency=online),
+        executor=executor)
+    if online:
+        executor.estimator = sched.estimator
+    key = "scheduler_fused_online_slo1.0" if online else \
+        "scheduler_fused_slo1.0"
     reset_launches()
     t0 = time.perf_counter()
     res = sched.serve_source(source, name="tangram_on_card")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    by_path["scheduler_fused_slo1.0"] = dict(LAUNCHES)
-    check_launches({"launches": dict(LAUNCHES)}, FUSED, "scheduler fused")
+    by_path[key] = dict(LAUNCHES)
+    check_launches({"launches": dict(LAUNCHES)}, FUSED, key)
     summary = res.summary()
+    if online:
+        log(f"  online table: {sched.estimator.n_observations} "
+            f"observations, drift {sched.estimator.drift():.3f}x; "
+            f"t_slack now " + ", ".join(
+                f"{sched.estimator.t_slack(b) * 1e3:.1f} ms ({b})"
+                for b in (1, 2, 4)))
     log(f"  TangramScheduler on the card ({wall:.2f}s wall, "
         f"{ex.n_invocations} device invocations, {ex.n_detections} "
         f"detections routed): Results.summary() = {json.dumps(summary)}")
     spans = sorted({(o.t_submit, o.t_finish) for o in res.outcomes})
     log("  invocations, measured wall (t_finish - t_submit) against the "
-        "table's t_slack: " + ", ".join(
+        "seed table's t_slack: " + ", ".join(
             f"{(f - s) * 1e3:.1f} ms vs {table.t_slack(b) * 1e3:.1f} ms "
             f"({b} canvases)" for (s, f), b in zip(spans, res.batch_sizes)))
     if summary["patches"] != len(trace) or len(ex.frames) != 0:
@@ -1321,6 +1376,10 @@ def scheduler_phase(build, table, arrivals, frames, device, by_path) -> None:
                              f"held")
     if ex.n_invocations != len(res.batch_sizes) or res.invocations != 0:
         raise AssertionError("scheduler: invocations do not add up")
+    if online and sched.estimator.n_observations != ex.n_invocations:
+        raise AssertionError("scheduler: the online table missed "
+                             "completions")
+    return res.violation_rate
 
 
 def sim_streams(device):
@@ -1387,6 +1446,300 @@ def simulation_phase(build, device) -> None:
         f"{time.perf_counter() - t0:.2f}s")
 
 
+# --------------------------------------------------------------- phase 5f ----
+
+def model_trace(device):
+    """The 2048x1024 cameras of phase 5f, one a class of ``MODEL_MAP``
+    (scene i, camera i), made through K5 and merged by arrival as the
+    serve driver's comma list of SLOs makes them (its ``build_source``)."""
+    frames = {}
+    args = argparse.Namespace(
+        frames=MODEL_FRAMES, canvas=CANVAS, bandwidth_mbps=40.0,
+        overload="drop", fps=10.0, source="trace", scene=0, cameras=1,
+        frames_path=None)
+    reset_launches()
+    t0 = time.perf_counter()
+    src = build_source(args, slos=[float(k) for k in MODEL_MAP],
+                       device=device, frame_sink=lambda f, rgb, n:
+                       frames.__setitem__(f, (rgb, n)))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"  edge: {len(MODEL_MAP)} cameras x {MODEL_FRAMES} frames of "
+        f"{2 * CANVAS}x{CANVAS} -> {len(src.arrivals)} patches in "
+        f"{time.perf_counter() - t0:.2f}s, launches {launches}")
+    if launches["gmm_update"] != len(MODEL_MAP) * MODEL_FRAMES:
+        raise AssertionError(f"phase 5f edge: K5 launched "
+                             f"{launches['gmm_update']} times")
+    return src.arrivals, frames, launches
+
+
+def recording_runtime(build, heads: list, fuse: bool) -> ModelRuntime:
+    """A model's runtime whose detector appends its head outputs to
+    ``heads`` ((obj, boxes) unfused, the raw head fused)."""
+    cfg, params, serve_fn = build
+
+    def serve(p, canvases):
+        obj, boxes = serve_fn(p, canvases)
+        heads.append((obj, boxes))
+        return obj, boxes
+
+    fields = fused_fields(cfg, params) if fuse else {}
+    if fuse:
+        tokens_fn = fields["tokens_fn"]
+
+        def tokens(p, t):
+            raw = tokens_fn(p, t)
+            heads.append((raw,))
+            return raw
+
+        fields["tokens_fn"] = tokens
+    return ModelRuntime(serve, params, CANVAS, CANVAS, **fields)
+
+
+def model_executor(name, impl, runtimes, fuse, device, record):
+    """A device executor over the models' runtimes (tangram's the default
+    one), instrumented: ``record["invs"]`` gets each invocation as it
+    launches, ``record["by_model"]`` the launches it made, and
+    ``record["outputs"]`` what each completion routed."""
+    rt = runtimes["tangram"]
+    fused = {}
+    if fuse:
+        fused = dict(fuse=True, tokens_fn=rt.tokens_fn,
+                     embed_kernel=rt.embed_kernel, embed_bias=rt.embed_bias,
+                     patch=rt.patch)
+    ex = make_executor(name, serve_fn=rt.serve_fn, params=rt.params,
+                       canvas_m=CANVAS, canvas_n=CANVAS, device=device,
+                       impl=impl, models=runtimes, max_inflight=4, **fused)
+    launch, release = ex._launch, ex.on_complete
+
+    def counted(inv):
+        before = dict(LAUNCHES)
+        payload = launch(inv)
+        row = record["by_model"].setdefault(inv.model,
+                                            dict.fromkeys(LAUNCHES, 0))
+        for k in LAUNCHES:
+            row[k] += LAUNCHES[k] - before[k]
+        record["invs"].append(inv)
+        return payload
+
+    def on_complete(comp):
+        record["outputs"][id(comp.invocation)] = comp.outputs
+        release(comp)
+
+    ex._launch, ex.on_complete = counted, on_complete
+    return ex
+
+
+def model_result(record: dict, heads: list, builds: dict) -> dict:
+    """A multi-model run in :func:`serve_run`'s shape, in launch order,
+    with each invocation's detector patch."""
+    routed, pixels = {}, {}
+    invs = record["invs"]
+    for inv in invs:
+        per_frame, per_frame_pixels = record["outputs"][id(inv)]
+        for fid, dets in per_frame.items():
+            routed.setdefault(fid, []).extend(dets)
+        for fid, px in per_frame_pixels.items():
+            pixels.setdefault(fid, []).extend(px)
+    return {"routed": routed, "pixels": pixels, "invocations": invs,
+            "bounds": [[(p.frame_id, p.x0, p.y0) for p in inv.patches]
+                       for inv in invs],
+            "heads": [tuple(t.float().cpu().numpy() for t in h)
+                      for h in heads],
+            "patch": [builds[inv.model][0].patch for inv in invs],
+            "by_model": record["by_model"], "launches": dict(LAUNCHES)}
+
+
+def check_model_launches(run: dict, kernels: tuple, what: str) -> None:
+    """Every model's invocations launched ``kernels`` and nothing else."""
+    by_model = run["by_model"]
+    if set(by_model) != set(MODEL_MAP.values()):
+        raise AssertionError(f"{what}: models served {sorted(by_model)}")
+    for model, row in by_model.items():
+        if not all((row[k] > 0) == (k in kernels) for k in row):
+            raise AssertionError(f"{what}: {model} launched {row}, "
+                                 f"expected {kernels} only")
+    log(f"  {what}: launches by model " + ", ".join(
+        f"{m} {{{', '.join(f'{k}: {v}' for k, v in row.items() if v)}}}"
+        for m, row in sorted(by_model.items())))
+
+
+def models_serve(impl, builds, tables, arrivals, frames, device, fuse):
+    """The three-class trace through one sync executor over the three
+    models, each class's invoker on its model's profiled table."""
+    heads, record = [], {"by_model": {}, "invs": [], "outputs": {}}
+    runtimes = {n: recording_runtime(b, heads, fuse)
+                for n, b in builds.items()}
+    ex = model_executor("device", impl, runtimes, fuse, device, record)
+    for fid, (rgb, n) in frames.items():
+        ex.add_frame(fid, rgb, n)
+    config = ServeConfig(max_canvases=4, executor="device", fuse=fuse,
+                         classify="slo", model_map=MODEL_MAP)
+    engine = ServingEngine(InvokerPool(
+        lambda key: SLOAwareInvoker(CANVAS, CANVAS,
+                                    tables[config.resolve_model(key)],
+                                    config.max_canvases),
+        classify=slo_class, model_of=config.resolve_model), ex)
+    reset_launches()
+    t0 = time.perf_counter()
+    engine.run(arrivals)
+    torch.cuda.synchronize()
+    log(f"  [{'fused' if fuse else 'unfused'}, {impl or 'kernels'}] "
+        + summary_line(engine, ex,
+                       make_source("trace", arrivals=arrivals).stats(),
+                       config, time.perf_counter() - t0))
+    for line in detail_lines(engine, ex):
+        log(f"  {line}")
+    if len(ex.frames) != 0:
+        raise AssertionError(f"phase 5f: {len(ex.frames)} frames held")
+    return model_result(record, heads, builds)
+
+
+def pool_serve(builds, tables, arrivals, frames, device, fuse):
+    """``TangramScheduler`` over a two-worker model-placement pool of
+    async executors (worker i on ``worker_device(i)``: one card, both on
+    it), online latency tables seeded with the profiled ones, and weight
+    caches sized to the largest model, as the serve driver sizes them."""
+    config = ServeConfig(max_canvases=4, model_map=MODEL_MAP,
+                         classify="slo", n_workers=2, placement="model",
+                         online_latency=True, executor="async_device",
+                         fuse=fuse)
+    specs = {n: make_model(n) for n in config.model_names()}
+    caches = weight_caches(
+        config.n_workers, max(s.weight_bytes for s in specs.values()),
+        {n: (s.weight_bytes, s.load_s) for n, s in specs.items()})
+    heads, record = [], {"by_model": {}, "invs": [], "outputs": {}}
+    runtimes = {n: recording_runtime(b, heads, fuse)
+                for n, b in builds.items()}
+    pool = device_worker_pool(
+        config.n_workers,
+        lambda i: model_executor("async_device", None, runtimes, fuse,
+                                 worker_device(i, device), record),
+        placement=make_placement(config.placement), weight_caches=caches)
+    sched = TangramScheduler(CANVAS, CANVAS, tables["tangram"],
+                             Platform(tables["tangram"], PlatformConfig()),
+                             config=config, executor=pool)
+    pool.estimator = sched.estimator
+    source = trace_source(arrivals, frames)(pool)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = sched.serve_source(source, name="models_pool")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = res.summary()
+    what = f"pool {'fused' if fuse else 'unfused'}"
+    log(f"  [{what}] {summary['patches']} patches in "
+        f"{pool.n_invocations} invocations ({wall:.2f}s wall), violation "
+        f"rate {summary['violation_rate']}, {pool.n_detections} detections, "
+        f"{len(pool.frames)} frames held")
+    for model, row in summary["models"].items():
+        log(f"    model {model}: {json.dumps(row)}")
+    for row in summary["per_worker"]:
+        log(f"    worker {row['worker']}: {row['invocations']} invocations, "
+            f"{row['patches']} patches, busy {row['busy_s']}s, "
+            f"utilization {row['utilization']}, drift {row['drift']}x, "
+            f"weights {json.dumps(row['weights'])}")
+    log("    invocations (model, canvases, patches): " + ", ".join(
+        f"({inv.model}, {len(inv.canvases)}, {len(inv.patches)})"
+        for inv in record["invs"]))
+    if summary["patches"] != len(arrivals) or len(pool.frames) != 0:
+        raise AssertionError(f"{what}: {summary['patches']} of "
+                             f"{len(arrivals)} patches, {len(pool.frames)} "
+                             f"frames held")
+    if any(sched.estimator.table(m).n_observations == 0 for m in specs):
+        raise AssertionError(f"{what}: the online tables learned nothing")
+    run = model_result(record, heads, builds)
+    run["summary"] = summary
+    return run
+
+
+def replay_plain(kern: dict, builds, frames, device, fuse) -> dict:
+    """Every invocation of ``kern`` again, in launch order, through a sync
+    executor on the plain versions: the same models and plans, so the
+    outputs compare invocation for invocation whatever the run's timing
+    made of its boundaries."""
+    heads, record = [], {"by_model": {}, "invs": [], "outputs": {}}
+    runtimes = {n: recording_runtime(b, heads, fuse)
+                for n, b in builds.items()}
+    ex = model_executor("device", "torch", runtimes, fuse, device, record)
+    for fid, (rgb, n) in frames.items():
+        ex.add_frame(fid, rgb, n)
+    reset_launches()
+    for inv in kern["invocations"]:
+        ex.on_complete(ex.submit(inv).completion)
+    if len(ex.frames) != 0:
+        raise AssertionError(f"plain replay: {len(ex.frames)} frames held")
+    return model_result(record, heads, builds)
+
+
+def models_phase(build, device, by_path: dict) -> dict:
+    """Phase 5f: ``vit_s16``, ``efficientnet_b7`` and ``tangram`` at full
+    width on the three-class trace, routed by ``MODEL_MAP``: sync runs
+    (kernels and plain, unfused and fused) on the profiled tables, then
+    the two-worker model-placement pool with online tables, each of its
+    invocations replayed through the plain versions."""
+    builds = {"tangram": build}
+    for name in MODEL_MAP.values():
+        if name in builds:
+            continue
+        t0 = time.perf_counter()
+        builds[name] = make_model(name).build(reduced=False, device=device)
+        cfg = builds[name][0]
+        log(f"  built {name}: canvas {cfg.canvas}, patch {cfg.patch}, "
+            f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+            f"d_ff {cfg.d_ff}, {cfg.param_dtype} ({cfg.n_params / 1e6:.1f}M "
+            f"params, {weight_bytes(builds[name][1]) / 1e6:.2f} MB; "
+            f"registry weight_bytes "
+            f"{make_model(name).weight_bytes / 1e6:.2f} MB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+    arrivals, frames, edge = model_trace(device)
+    by_path["models_edge"] = edge
+    for name, b in builds.items():
+        calibrate_head(b, arrivals, frames, device)
+    tables = {}
+    for name, (_, params, serve_fn) in builds.items():
+        tables[name] = profile(serve_fn, params, CANVAS, CANVAS, device)
+        log(f"  {name} latency table: " + str(
+            {k: (round(v[0], 5), round(v[1], 5))
+             for k, v in tables[name].table.items()}))
+        # the registry spec carries the profiled table, so the pool's
+        # scheduler seeds its online tables with what the card measured
+        register_model(dataclasses.replace(make_model(name),
+                                           table=tables[name]))
+    runs, per_model = {}, {}
+    for fuse, kernels in ((False, UNFUSED), (True, FUSED)):
+        kind = "fused" if fuse else "unfused"
+        kern = models_serve(None, builds, tables, arrivals, frames, device,
+                            fuse)
+        plain = models_serve("torch", builds, tables, arrivals, frames,
+                             device, fuse)
+        check_model_launches(kern, kernels, f"{kind} kernels")
+        check_model_launches(plain, (), f"{kind} plain")
+        if fuse:
+            same_bounds_and_evidence(kern, runs["unfused"],
+                                     "fused vs unfused")
+            compare_fused(kern, plain, "fused kernels vs plain")
+        else:
+            same_result(kern, plain, "unfused kernels vs plain")
+        runs[kind] = kern
+        pool = pool_serve(builds, tables, arrivals, frames, device, fuse)
+        check_model_launches(pool, kernels, f"pool {kind}")
+        replay = replay_plain(pool, builds, frames, device, fuse)
+        check_model_launches(replay, (), f"pool {kind} plain replay")
+        if fuse:
+            compare_fused(pool, replay, "pool fused kernels vs plain")
+        else:
+            same_result(pool, replay, "pool unfused kernels vs plain")
+        for key, run in (("sync", kern), ("plain", plain), ("pool", pool),
+                         ("pool_plain", replay)):
+            by_path[f"models_{kind}_{key}"] = run["launches"]
+            for model, row in run["by_model"].items():
+                per_model.setdefault(model, {})[
+                    f"models_{kind}_{key}"] = row
+    return {"builds": builds, "frames": frames, "fused": runs["fused"],
+            "by_model_path": per_model}
+
+
 # ---------------------------------------------------------------- phase 6 ----
 
 def main_path_plan(run: dict, frames: dict, device):
@@ -1429,44 +1782,64 @@ def time_invocation(plan, slots, records, build) -> None:
         f"{host.nbytes / 1e6:.1f} MB")
 
 
-def fused_rows(plan, slots, records, build, launches, worst) -> list:
+def fused_rows(plan, slots, records, build, launches, worst,
+               model=None) -> list:
     """Time K4/K3 on one plan with the model's own weights and head, and
     the fused invocation's device stages.  K4's bound: 2*B*seq*K*d
     operations at the bf16 peak, or the bytes it must move (records,
     placed f32 pixels, weights, bias, tokens written), whichever is
     larger; K3's: the bytes (records, raw head, grids written) or about
-    30 float32 operations per cell at the CUDA cores' peak."""
+    30 float32 operations per cell at the CUDA cores' peak.  With
+    ``model`` the rows are that registry model's (named ``kernel[model]``)
+    and ``worst`` is None: the error is this plan's, kernel vs plain."""
     cfg, params, _ = build
+    patch = cfg.patch
     tokens_fn = detector_lib.tokens_fn(cfg)
     kernel, bias = detector_lib.embed_params(cfg, params)
     m = n = CANVAS
     b, cap = plan.num_canvases, plan.slot_capacity
-    seq = (m // PATCH) * (n // PATCH)
+    seq = (m // patch) * (n // patch)
     k_dim, d = kernel.shape
     before = dict(LAUNCHES)
     tokens = stitch_ops.stitch_embed(slots, records, kernel, bias, m, n,
-                                     PATCH)
+                                     patch)
     raw = tokens_fn(params, tokens)
+    if worst is None:
+        # phase 3b's tolerances: bf16 K4 within 2e-2, K3 within 1e-5 with
+        # equal hit masks
+        plain_tokens = stitch_ops.stitch_embed(slots, records, kernel, bias,
+                                               m, n, patch, impl="torch")
+        torch.testing.assert_close(tokens.float(), plain_tokens.float(),
+                                   atol=2e-2, rtol=2e-2)
+        got = stitch_ops.unstitch_decode(raw, records, patch, cap)
+        want = stitch_ops.unstitch_decode(raw, records, patch, cap,
+                                          impl="torch")
+        if not torch.equal(got[..., 0] > 0, want[..., 0] > 0):
+            raise AssertionError(f"{model}: K3 hit masks differ")
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        worst = {"stitch_embed_bfloat16": max_abs_err(tokens, plain_tokens),
+                 "stitch_embed_float32": None,
+                 "unstitch_decode": max_abs_err(got, want)}
     # the library yardstick for K4: one cuBLAS GEMM plus bias on the canvas
     # batch already stitched and patchified in bf16 (the port never calls it)
     x = vit.patchify(stitch_ops.stitch_canvases(slots, records, m, n),
-                     PATCH).to(kernel.dtype).contiguous()
+                     patch).to(kernel.dtype).contiguous()
     k4_plain = time_ms(lambda: stitch_ops.stitch_embed(
-        slots, records, kernel, bias, m, n, PATCH, impl="torch"), iters=10)
+        slots, records, kernel, bias, m, n, patch, impl="torch"), iters=10)
     k4 = timed(lambda: stitch_ops.stitch_embed(
-        slots, records, kernel, bias, m, n, PATCH, impl="cuda"))
+        slots, records, kernel, bias, m, n, patch, impl="cuda"))
     k4_lib = timed(lambda: torch.matmul(x, kernel) + bias)
     trunk_ms = time_ms(lambda: tokens_fn(params, tokens), iters=10)
     k3_plain = time_ms(lambda: stitch_ops.unstitch_decode(
-        raw, records, PATCH, cap, impl="torch"), iters=10)
+        raw, records, patch, cap, impl="torch"), iters=10)
     k3 = timed(lambda: stitch_ops.unstitch_decode(
-        raw, records, PATCH, cap, impl="cuda"))
+        raw, records, patch, cap, impl="cuda"))
     # what one launch costs the card: a trivial PyTorch kernel in the same
     # graph harness, the floor K3's device time reads against
     one = torch.zeros(1, device=raw.device)
     launch_floor = graph_ms(lambda: one.fill_(1.0))
     k4_ms, k3_ms = k4["ms_call"], k3["ms_call"]
-    grids = stitch_ops.unstitch_decode(raw, records, PATCH, cap)
+    grids = stitch_ops.unstitch_decode(raw, records, patch, cap)
     LAUNCHES.update(before)      # timing launches not counted
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1512,6 +1885,15 @@ def fused_rows(plan, slots, records, build, launches, worst) -> list:
          "library_ms": None, "launch_floor_ms": launch_floor,
          "redesigned": "slot-major, one launch, no memset",
          **device_keys(k3)}]
+    if model is not None:
+        shape = (f"B={b} canvases of {m}^2, patch {patch}, K={k_dim}, "
+                 f"d={d}, {seq} tokens and a {m // patch}x{n // patch} head "
+                 f"grid a canvas, {plan.slots_per_canvas} records a canvas, "
+                 f"{cap} slots")
+        for row in rows:
+            row.update(name=f"{row['name']}[{model}]", kernel=row["name"],
+                       model=model, shape=shape)
+        log(f"  {model}: {shape}")
     log(f"  stitch_embed: {fmt_times(k4)} (plain {k4_plain:.4f} ms, cuBLAS "
         f"GEMM + bias {fmt_times(k4_lib)}, bound "
         f"{rows[0]['bound_ms']:.4f} ms for {k4_ops / 1e9:.2f} GFLOP / "
@@ -2530,8 +2912,13 @@ def main() -> None:
         "unfused and fused, kernels and plain, sync and async")
     int8_phase(build, table, arrivals, frames, device, by_path)
     log("phase 5d: TangramScheduler over a fused device executor, the "
-        "trace at SLO 1.0")
-    scheduler_phase(build, table, arrivals, frames, device, by_path)
+        "trace at SLO 1.0, on the profiled table and on an online table "
+        "seeded with it")
+    static = scheduler_phase(build, table, arrivals, frames, device, by_path)
+    online = scheduler_phase(build, table, arrivals, frames, device, by_path,
+                             online=True)
+    log(f"  phase 5d violation rate at SLO 1.0 s (a reading, not a gate): "
+        f"static table {static:.4f}, online table {online:.4f}")
     log("phase 5e: Tangram, Clipper, ELF and MArk in simulation on a table "
         "measured on the card")
     simulation_phase(build, device)
@@ -2548,6 +2935,12 @@ def main() -> None:
         del file_runs
         edge_split(path, device)
         serve_cli(path)
+
+    log(f"phase 5f: vit_s16, efficientnet_b7 and tangram at full width, "
+        f"routed by SLO class {MODEL_MAP}: sync (kernels, plain; unfused, "
+        f"fused), then a two-worker model-placement pool with online "
+        f"latency tables")
+    models = models_phase(build, device, by_path)
 
     # "launches": the main path (the sync kernel serves: unfused for K1/K2,
     # fused for K4/K3; the 4K file serve with kernels for K5); each path's
@@ -2567,6 +2960,24 @@ def main() -> None:
     plan, slots, records = main_path_plan(file_kern, file_frames, device)
     fused_rows(plan, slots, records, build, launches, worst_fused)
     del file_kern, file_frames, plan, slots, records
+    log("  K4/K3 at the registry detectors' widths, at each one's largest "
+        "fused invocation of phase 5f:")
+    for model in ("vit_s16", "efficientnet_b7"):
+        plan, slots, records = main_path_plan(
+            {"invocations": [inv for inv in models["fused"]["invocations"]
+                             if inv.model == model]},
+            models["frames"], device)
+        paths = models["by_model_path"][model]
+        model_rows = fused_rows(plan, slots, records,
+                                models["builds"][model],
+                                paths["models_fused_sync"], None,
+                                model=model)
+        for row in model_rows:
+            row["launches_by_path"] = {path: counts[row["kernel"]]
+                                       for path, counts in paths.items()}
+        # efficientnet_b7's head grid is tangram's (patch 32): its K4 row
+        rows += model_rows if model == "vit_s16" else model_rows[:1]
+    del models, plan, slots, records
     rows.append(gmm_row(scene_state, device, launches["gmm_update"],
                         worst_gmm))
     del build, table, runs, fused_runs, frames, arrivals, scene_state
@@ -2592,8 +3003,9 @@ def main() -> None:
     lm_int8_phase(lm, device, by_path)
     del lm
     for row in rows:
-        row["launches_by_path"] = {path: counts[row["name"]]
-                                   for path, counts in by_path.items()}
+        if "launches_by_path" not in row:      # phase 5f's rows have theirs
+            row["launches_by_path"] = {path: counts[row["name"]]
+                                       for path, counts in by_path.items()}
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

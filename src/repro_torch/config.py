@@ -1,5 +1,5 @@
 """Config dataclasses for the decoder-only LM, the detector, its ViT
-trunk, and the card.
+trunk, EfficientNet, and the card.
 
 Port of the parts of ``repro/config.py`` the ported paths need.
 ``dtype_of`` maps the configs' dtype names to torch dtypes.
@@ -7,7 +7,8 @@ Port of the parts of ``repro/config.py`` the ported paths need.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -118,6 +119,45 @@ class DetectorConfig:
         per_layer = 4 * d * d + 2 * d * self.d_ff + 4 * d
         return (self.n_layers * per_layer + 3 * self.patch**2 * d + d * 5
                 + self.n_tokens * d)
+
+
+@dataclasses.dataclass(frozen=True)
+class EfficientNetConfig:
+    """EfficientNet with compound scaling (B0 base scaled by width/depth):
+    the fields ``models/efficientnet.param_specs`` reads.  The classifier's
+    forward pass is ROADMAP item 13; the registry reads the parameter
+    count (``efficientnet_b7``'s weight economics)."""
+
+    name: str
+    img_res: int
+    width_mult: float
+    depth_mult: float
+    n_classes: int = 1000
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    # B0 stage template: (expand, channels, repeats, stride, kernel)
+    STAGES: Tuple[Tuple[int, int, int, int, int], ...] = (
+        (1, 16, 1, 1, 3),
+        (6, 24, 2, 2, 3),
+        (6, 40, 2, 2, 5),
+        (6, 80, 3, 2, 3),
+        (6, 112, 3, 1, 5),
+        (6, 192, 4, 2, 5),
+        (6, 320, 1, 1, 3),
+    )
+    stem_channels: int = 32
+    head_channels: int = 1280
+
+    def scaled_channels(self, c: int) -> int:
+        c = c * self.width_mult
+        new_c = max(8, int(c + 4) // 8 * 8)
+        if new_c < 0.9 * c:
+            new_c += 8
+        return new_c
+
+    def scaled_repeats(self, r: int) -> int:
+        return int(math.ceil(self.depth_mult * r))
 
 
 @dataclasses.dataclass(frozen=True)

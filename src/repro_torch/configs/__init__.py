@@ -3,6 +3,8 @@
 Port of ``repro/configs/__init__.py`` for the ids the port runs.  Each
 module defines ``ARCH``; the other ids of the JAX registry raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
+``vit-s16`` and ``efficientnet-b7`` give their ``ARCH`` (the registry's
+detectors read them); their classifiers are ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ ARCH_IDS = (
     "tangram-detector",
 )
 
-PORTED = ("minitron-4b", "tangram-detector")
+PORTED = ("minitron-4b", "tangram-detector", "vit-s16", "efficientnet-b7")
 
 #: where each unported id is ported
 UNPORTED = {
@@ -33,8 +35,6 @@ UNPORTED = {
     "dit-s2": "ROADMAP item 13 (models/dit.py)",
     "dit-xl2": "ROADMAP item 13 (models/dit.py)",
     "deit-b": "ROADMAP item 13 (models/vit.py classifier)",
-    "vit-s16": "ROADMAP items 10 and 13 (models/vit.py classifier)",
-    "efficientnet-b7": "ROADMAP items 10 and 13 (models/efficientnet.py)",
     "vit-b16": "ROADMAP item 13 (models/vit.py classifier)",
 }
 

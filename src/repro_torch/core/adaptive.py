@@ -31,10 +31,11 @@ uses: :class:`ClassSpec` + :func:`pool_from_specs` give each SLO class
 its own canvas size, latency table, and starting budget, with or without
 the AIMD controller on top.
 
-The violation excess is measured against the class's *current* latency
-estimate, not the snapshot taken when the invocation fired, so a latency
-table that learns online (``OnlineLatencyTable``, ROADMAP item 10) and
-the margin would compose instead of counting one delay twice.
+With an :class:`~repro_torch.core.latency.OnlineLatencyTable` as a
+class's latency source the two feedback loops compose instead of counting
+one delay twice: drift folds into the table, and the violation excess is
+measured against the class's *current* estimate, not the snapshot taken
+when the invocation fired.
 """
 from __future__ import annotations
 
@@ -82,8 +83,10 @@ class AdaptiveInvokerPool(InvokerPool):
 
     def __init__(self, make_invoker: Callable[[object], SLOAwareInvoker],
                  classify: Callable[[Patch], object] = slo_class,
-                 cfg: Optional[AIMDConfig] = None):
-        super().__init__(make_invoker, classify)
+                 cfg: Optional[AIMDConfig] = None,
+                 model_of: Optional[Callable[[object],
+                                             Optional[str]]] = None):
+        super().__init__(make_invoker, classify, model_of=model_of)
         self.cfg = cfg or AIMDConfig()
         self.state: Dict[object, ClassState] = {}
 
@@ -156,7 +159,9 @@ class ClassSpec:
 def pool_from_specs(specs: Mapping[object, ClassSpec],
                     default: Optional[ClassSpec] = None,
                     classify: Callable[[Patch], object] = slo_class,
-                    adaptive: Optional[AIMDConfig] = None
+                    adaptive: Optional[AIMDConfig] = None,
+                    model_of: Optional[Callable[[object],
+                                                Optional[str]]] = None
                     ) -> InvokerPool:
     """Pool with per-class canvas geometry, optionally AIMD-controlled.
 
@@ -164,7 +169,9 @@ def pool_from_specs(specs: Mapping[object, ClassSpec],
     to ``default`` (the unified unknown-name ``ValueError`` surfaces a
     missing class early when no default is given).  Pass an
     :class:`AIMDConfig` to put the completion-feedback controller on top
-    of every class.
+    of every class; ``model_of`` tags fired invocations with their
+    class's registry model (see
+    :class:`~repro_torch.core.engine.InvokerPool`).
     """
     def make(key):
         spec = specs.get(key, default)
@@ -173,19 +180,22 @@ def pool_from_specs(specs: Mapping[object, ClassSpec],
         return spec.build()
 
     if adaptive is not None:
-        return AdaptiveInvokerPool(make, classify, adaptive)
-    return InvokerPool(make, classify)
+        return AdaptiveInvokerPool(make, classify, adaptive,
+                                   model_of=model_of)
+    return InvokerPool(make, classify, model_of=model_of)
 
 
 def adaptive_uniform_pool(canvas_m: int, canvas_n: int,
                           latency: LatencyTable, max_canvases: int = 8,
                           incremental: bool = True,
                           classify: Optional[Callable[[Patch], object]] = None,
-                          cfg: Optional[AIMDConfig] = None
+                          cfg: Optional[AIMDConfig] = None,
+                          model_of: Optional[Callable[[object],
+                                                      Optional[str]]] = None
                           ) -> AdaptiveInvokerPool:
     """AIMD counterpart of :func:`repro_torch.core.engine.uniform_pool`: one
     shared geometry spec, per-class budgets/margins adapted online."""
     return AdaptiveInvokerPool(
         lambda key: SLOAwareInvoker(canvas_m, canvas_n, latency,
                                     max_canvases, incremental=incremental),
-        classify=classify or (lambda p: None), cfg=cfg)
+        classify=classify or (lambda p: None), cfg=cfg, model_of=model_of)

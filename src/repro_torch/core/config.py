@@ -5,12 +5,12 @@ registry name (``make_classify`` / ``make_clock`` / ``make_executor`` /
 ``make_source`` resolve them), so a config round-trips through JSON with
 ``to_dict`` / ``from_dict`` (the nested ``AIMDConfig`` included).
 
-The fields of the worker pools, the fleet and multi-model serving
-(``n_workers``, ``placement``, ``shards``, ``planner``, ``parallel``,
-``model``, ``model_map``, ``online_latency``) are kept so that a JAX
-config loads here, but nothing in the port runs them yet:
-``TangramScheduler`` refuses each with ``NotImplementedError`` naming its
-ROADMAP item (10 or 11), as the serve driver does.
+The fleet's fields (``shards``, ``planner``, ``parallel``) are kept so
+that a JAX config loads here, but nothing in the port runs them yet:
+``TangramScheduler`` refuses each with ``NotImplementedError`` naming
+ROADMAP item 11, as the serve driver does.  Model routing
+(``model`` / ``model_map``: :meth:`ServeConfig.resolve_model`), worker
+pools (``n_workers``, ``placement``) and the online latency table run.
 """
 from __future__ import annotations
 
@@ -24,18 +24,18 @@ from repro_torch.core.registry import lookup
 #: ServeConfig fields the port does not run yet -> the ROADMAP item that
 #: ports them (the serve driver's flags and ``TangramScheduler`` name it)
 UNPORTED = {
-    "n_workers": "ROADMAP queue 1, item 10 (worker pools)",
-    "placement": "ROADMAP queue 1, item 10 (worker pools)",
     "shards": "ROADMAP queue 1, item 11 (fleet sharding)",
     "parallel": "ROADMAP queue 1, item 11 (fleet sharding)",
     "planner": "ROADMAP queue 1, item 11 (fleet sharding)",
-    "online_latency": "ROADMAP queue 1, item 10 (online latency tables)",
-    "model": "ROADMAP queue 1, item 10 (multi-model serving)",
-    "model_map": "ROADMAP queue 1, item 10 (multi-model serving)",
 }
 
-#: classifier registry for the ``classify`` field (None: one shared queue)
+#: classifier registry for the ``classify`` field (None: one shared
+#: queue); register project classifiers so configs stay serializable
 _CLASSIFIERS: dict = {}
+
+
+def register_classify(name: str, fn: Callable[[Patch], object]) -> None:
+    _CLASSIFIERS[name] = fn
 
 
 def make_classify(name: Optional[str]
@@ -68,21 +68,25 @@ class ServeConfig:
     wall_speed: float = 1.0          # engine seconds per wall second
     check_invariants: bool = False
 
-    # --- worker pool (ROADMAP item 10) ------------------------------------
+    # --- worker pool ------------------------------------------------------
     n_workers: int = 1
     placement: Optional[str] = None  # least | round | affinity | model
+                                     # (None: least)
 
     # --- fleet sharding (ROADMAP item 11) ---------------------------------
     shards: Optional[int] = None
     planner: Optional[str] = None    # cost | equal
     parallel: bool = False
 
-    # --- models (ROADMAP item 10) -----------------------------------------
-    model: Optional[str] = None
+    # --- models (registry names; see repro_torch.core.models) --------------
+    model: Optional[str] = None      # default model for every class (None:
+                                     # the single-model pipeline)
     model_map: Optional[Dict[str, str]] = None
+                                     # SLO class (as str) -> model name;
+                                     # unmapped classes fall back to model
 
-    # --- latency estimator (ROADMAP item 10) ------------------------------
-    online_latency: bool = False
+    # --- latency estimator ------------------------------------------------
+    online_latency: bool = False     # OnlineLatencyTable feedback loop
 
     # --- ingestion (source layer) ---------------------------------------
     source: str = "trace"            # trace | synthetic | file
@@ -109,6 +113,28 @@ class ServeConfig:
 
     def replace(self, **changes) -> "ServeConfig":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def multi_model(self) -> bool:
+        """True when a default model and/or a class->model map is set."""
+        return self.model is not None or bool(self.model_map)
+
+    def resolve_model(self, key: object) -> Optional[str]:
+        """SLO class key -> registry model name.  Keys match ``model_map``
+        by their ``str()`` (JSON object keys are strings); misses fall
+        back to the default ``model``."""
+        if self.model_map:
+            name = self.model_map.get(str(key))
+            if name is not None:
+                return name
+        return self.model
+
+    def model_names(self) -> list:
+        """Every registry model this config names (sorted)."""
+        names = set(self.model_map.values()) if self.model_map else set()
+        if self.model is not None:
+            names.add(self.model)
+        return sorted(names)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -23,9 +23,12 @@ Completion``.  :class:`SimExecutor` submits to the serverless
 and reports readiness through a ``torch.cuda.Event`` recorded after the
 launch, probed with ``.query()`` (on the CPU every launch is ready at
 once).  Invocation boundaries depend only on arrivals and the batcher, so
-a trace produces the same patch->invocation groupings on all three.
-:class:`Results` is a run's record (violations, cost, batching), as
-``core.scheduler`` and ``core.baselines`` assemble it.
+a trace produces the same patch->invocation groupings on all three.  A
+:class:`~repro_torch.core.workers.WorkerPoolExecutor` puts several
+executors behind the same protocol: handles ready together deliver in
+(worker, submit) order, and each worker's finishes are clamped monotone
+on their own.  :class:`Results` is a run's record (violations, cost,
+batching), as ``core.scheduler`` and ``core.baselines`` assemble it.
 
 Batcher protocol (duck-typed; ``SLOAwareInvoker`` conforms):
 
@@ -101,7 +104,7 @@ class Results:
     transmission_seconds: float
     mean_consolidation: float = 0.0   # patches per invocation (platform view)
     worker_stats: Optional[List[dict]] = None  # per-worker pool counters
-                                      # (worker pools: ROADMAP item 10)
+                                      # (WorkerPoolExecutor.worker_stats)
     source_stats: Optional[dict] = None  # ingestion-side accounting
                                       # (SourceStats.to_dict(): frames
                                       # dropped/degraded under
@@ -225,6 +228,7 @@ class Completion:
     t_finish: float
     record: object = None     # platform ExecutionRecord (SimExecutor)
     outputs: object = None    # (per-frame detections, per-frame pixels)
+    worker: int = 0           # pool worker that ran it (0 outside a pool)
     model: Optional[str] = None  # registry model that ran it (filled from
                               # the invocation at delivery when unset)
 
@@ -237,14 +241,20 @@ class ExecHandle:
     (a sync device run): the engine then schedules delivery on its heap.
     ``None`` means the work is still on the card; the engine resolves the
     handle when it reports ready, the in-flight bound is hit, or the trace
-    drains.  ``seq`` (submit order) breaks ties between ready handles.
+    drains.  ``worker`` is the pool worker the invocation was placed on (0
+    outside a pool) and ``seq`` the engine's submit order: ``(worker,
+    seq)`` orders handles that report ready at the same harvest.
     """
     invocation: Invocation
     t_finish: Optional[float] = None
     completion: Optional[Completion] = None
     payload: object = None            # executor-private in-flight state
+    worker: int = 0
     seq: int = -1
     model: Optional[str] = None       # invocation's model key (engine-set)
+    load_s: float = 0.0               # weight-cache load seconds still to
+                                      # add to t_finish at resolve (async
+                                      # handles; 0 once applied)
 
 
 # ----------------------------------------------------------- invoker pool ----
@@ -258,14 +268,19 @@ class InvokerPool:
     """Per-class SLO-aware invokers behind one batcher interface.
 
     ``classify`` maps a patch to its class key; ``make_invoker(key)``
-    builds the class's invoker on first use.  Fired invocations are tagged
-    with their class ``key``.
+    builds the class's invoker on first use, so each class can have its
+    own canvas geometry and latency table.  Fired invocations are tagged
+    with their class ``key`` and, when ``model_of`` is given, with the
+    registry model its class resolves to (``model_of(key)``).
     """
 
     def __init__(self, make_invoker: Callable[[object], SLOAwareInvoker],
-                 classify: Callable[[Patch], object] = slo_class):
+                 classify: Callable[[Patch], object] = slo_class,
+                 model_of: Optional[Callable[[object],
+                                             Optional[str]]] = None):
         self.make_invoker = make_invoker
         self.classify = classify
+        self.model_of = model_of
         self.invokers: Dict[object, SLOAwareInvoker] = {}
 
     def _invoker(self, key: object) -> SLOAwareInvoker:
@@ -275,8 +290,11 @@ class InvokerPool:
         return inv
 
     def _tag(self, fired, key):
+        model = self.model_of(key) if self.model_of is not None else None
         for f in fired:
             f.key = key
+            if f.model is None:
+                f.model = model
         return fired
 
     def on_patch(self, t_now: float, patch: Patch) -> List[Invocation]:
@@ -315,14 +333,17 @@ class InvokerPool:
 
 def uniform_pool(canvas_m: int, canvas_n: int, latency, max_canvases: int = 8,
                  incremental: bool = True,
-                 classify: Optional[Callable[[Patch], object]] = None
+                 classify: Optional[Callable[[Patch], object]] = None,
+                 model_of: Optional[Callable[[object],
+                                             Optional[str]]] = None
                  ) -> InvokerPool:
     """Pool where every class shares one geometry/latency spec;
-    ``classify=None`` is the paper's single shared queue."""
+    ``classify=None`` is the paper's single shared queue, ``model_of``
+    tags fired invocations with their class's model."""
     return InvokerPool(
         lambda key: SLOAwareInvoker(canvas_m, canvas_n, latency,
                                     max_canvases, incremental=incremental),
-        classify=classify or (lambda p: None))
+        classify=classify or (lambda p: None), model_of=model_of)
 
 
 # -------------------------------------------------------------- executors ----
@@ -334,17 +355,34 @@ class SimExecutor:
     known immediately and the engine schedules delivery on the event
     heap — the simulation analogue of "the device will interrupt us at
     t_finish".
+
+    Multi-model serving: ``model_loads`` maps a registry model name to its
+    weight-load seconds and ``model_tables`` to its latency table.  A
+    model-tagged invocation is submitted with its own profile and load
+    cost, and the platform's per-model warm pools keep an instance warm
+    for one model and cold for another; untagged invocations keep the
+    single-model behaviour.
     """
 
-    def __init__(self, platform: Platform):
+    def __init__(self, platform: Platform,
+                 model_loads: Optional[Dict[str, float]] = None,
+                 model_tables: Optional[Dict[str, object]] = None):
         self.platform = platform
+        self.model_loads = model_loads or {}
+        self.model_tables = model_tables or {}
 
     def submit(self, inv: Invocation) -> ExecHandle:
         size = (inv.cost_canvases if inv.cost_canvases is not None
                 else len(inv.canvases))
-        rec = self.platform.submit(inv.t_submit, size,
-                                   n_patches=len(inv.patches),
-                                   model=inv.model)
+        if inv.model is None:
+            rec = self.platform.submit(inv.t_submit, size,
+                                       n_patches=len(inv.patches))
+        else:
+            rec = self.platform.submit(
+                inv.t_submit, size, n_patches=len(inv.patches),
+                model=inv.model,
+                model_load_s=self.model_loads.get(inv.model, 0.0),
+                latency=self.model_tables.get(inv.model))
         comp = Completion(inv, rec.t_finish, record=rec, model=inv.model)
         return ExecHandle(inv, t_finish=rec.t_finish, completion=comp)
 
@@ -390,6 +428,14 @@ class DeviceExecutor:
     JAX executor silently falls back to the unfused path, which here would
     hide the kernels).  Owns the refcounted frame store: the engine's
     completion event releases each routed patch's frame.
+
+    Multi-model serving: ``models`` maps a registry model name to a
+    :class:`ModelRuntime`, or to a zero-argument callable returning one
+    (built on first use and cached).  A model-tagged invocation runs its
+    model's runtime; untagged invocations, and tags missing from the
+    mapping, run the default runtime of the positional arguments.  With
+    ``fuse=True`` every runtime must carry the fused fields: an eager
+    entry is checked at construction, a lazy one when it is built.
     """
 
     def __init__(self, serve_fn, params, canvas_m: int, canvas_n: int, *,
@@ -398,34 +444,58 @@ class DeviceExecutor:
                  fuse: bool = False, tokens_fn: Optional[Callable] = None,
                  embed_kernel: Optional[torch.Tensor] = None,
                  embed_bias: Optional[torch.Tensor] = None,
-                 patch: Optional[int] = None):
+                 patch: Optional[int] = None,
+                 models: Optional[Dict[str, object]] = None):
         if impl is not None and impl not in stitch_ops.IMPLS:
             raise ValueError(f"unknown stitch impl {impl!r}; choose from "
                              f"{list(stitch_ops.IMPLS)}")
-        if fuse:
-            missing = [k for k, v in (("tokens_fn", tokens_fn),
-                                      ("embed_kernel", embed_kernel),
-                                      ("embed_bias", embed_bias),
-                                      ("patch", patch)) if v is None]
-            if missing:
-                raise ValueError(f"fuse=True needs the fused fields; "
-                                 f"missing {missing}")
-            if canvas_m % patch or canvas_n % patch:
-                raise ValueError(f"fuse=True needs the canvas "
-                                 f"{canvas_m}x{canvas_n} to be a multiple "
-                                 f"of the patch {patch}")
-        self.runtime = ModelRuntime(serve_fn, params, canvas_m, canvas_n,
-                                    tokens_fn, embed_kernel, embed_bias,
-                                    patch)
+        self.fuse = fuse
+        self.runtime = self._checked(
+            ModelRuntime(serve_fn, params, canvas_m, canvas_n, tokens_fn,
+                         embed_kernel, embed_bias, patch), None)
+        self.models = dict(models) if models else {}
+        self._runtimes: Dict[Optional[str], ModelRuntime] = {
+            None: self.runtime}
+        for name, entry in self.models.items():
+            if isinstance(entry, ModelRuntime):
+                self._runtimes[name] = self._checked(entry, name)
         self.device = resolve_device(device)
         self.impl = impl
-        self.fuse = fuse
         self.clock = clock
         self.store = FrameStore()
         self.n_invocations = 0
         self.n_fused = 0
         self.n_detections = 0
         self.evidence_bytes = 0
+
+    def _checked(self, rt: ModelRuntime, model: Optional[str]
+                 ) -> ModelRuntime:
+        """``rt``, or a ValueError when ``fuse=True`` and it lacks the
+        fused fields or its canvas is not a multiple of its patch."""
+        if not self.fuse:
+            return rt
+        what = "the default runtime" if model is None else f"model {model!r}"
+        missing = [k for k in ("tokens_fn", "embed_kernel", "embed_bias",
+                               "patch") if getattr(rt, k) is None]
+        if missing:
+            raise ValueError(f"fuse=True needs the fused fields; {what} "
+                             f"is missing {missing}")
+        if rt.canvas_m % rt.patch or rt.canvas_n % rt.patch:
+            raise ValueError(f"fuse=True needs the canvas {rt.canvas_m}x"
+                             f"{rt.canvas_n} of {what} to be a multiple of "
+                             f"the patch {rt.patch}")
+        return rt
+
+    def _runtime(self, model: Optional[str]) -> ModelRuntime:
+        """An invocation's model tag -> its runtime (the default for None
+        or an unmapped tag); a lazy entry is built once and cached."""
+        rt = self._runtimes.get(model)
+        if rt is None:
+            entry = self.models.get(model)
+            rt = (self.runtime if entry is None
+                  else self._checked(entry(), model))
+            self._runtimes[model] = rt
+        return rt
 
     # ------------------------------------------------------- frame store ----
 
@@ -449,7 +519,7 @@ class DeviceExecutor:
         """Host-side packing + queueing of the device work; nothing here
         waits for the card (the host-to-device copies aside)."""
         t0 = self.clock()
-        rt = self.runtime
+        rt = self._runtime(inv.model)
         plan = inv.batch_plan()
         stitch_ops.check_records(plan)
         crops = []
@@ -523,7 +593,8 @@ class DeviceExecutor:
         self.evidence_bytes += sum(
             a.nbytes for v in per_frame_pixels.values() for a in v)
         return Completion(inv, inv.t_submit + wall,
-                          outputs=(per_frame, per_frame_pixels))
+                          outputs=(per_frame, per_frame_pixels),
+                          model=inv.model)
 
     def submit(self, inv: Invocation) -> ExecHandle:
         comp = self._finalize(inv, self._launch(inv))
@@ -573,21 +644,22 @@ _EXECUTORS = {
 
 def make_executor(name: str, **cfg):
     """Executor-name -> instance (``sim`` | ``device`` | ``async_device``).
-    ``cfg`` forwards to the constructor: ``sim`` takes ``platform=``, the
-    device executors the
-    pipeline arguments.  Keys of the other substrate (and
-    ``max_inflight`` for the sync executors) are accepted and dropped, so
-    one config dict drives any name."""
+    ``cfg`` forwards to the constructor: ``sim`` takes ``platform=`` (and
+    ``model_loads=`` / ``model_tables=``), the device executors the
+    pipeline arguments (and ``models=``).  Keys of the other substrate
+    (and ``max_inflight`` for the sync executors) are accepted and
+    dropped, so one config dict drives any name."""
     cls = lookup("executor", _EXECUTORS, name)
     device_only = {"fuse", "tokens_fn", "embed_kernel", "embed_bias",
                    "patch", "serve_fn", "params", "canvas_m", "canvas_n",
-                   "device", "impl", "clock"}
+                   "device", "impl", "clock", "models"}
+    sim_only = {"platform", "model_loads", "model_tables"}
     if cls is SimExecutor:
         drop = {"max_inflight"} | device_only
     elif cls is AsyncDeviceExecutor:
-        drop = {"platform"}
+        drop = sim_only
     else:
-        drop = {"max_inflight", "platform"}
+        drop = {"max_inflight"} | sim_only
     return cls(**{k: v for k, v in cfg.items() if k not in drop})
 
 
@@ -631,7 +703,7 @@ class ServingEngine:
         self._scheduled: List = []   # heap of (t_finish, seq, ExecHandle)
         self._inflight: collections.deque = collections.deque()
         self._event_seq = 0
-        self._last_async_finish = 0.0
+        self._last_async_finish: Dict[int, float] = {}   # per worker
         self.inflight_high_water = 0
 
     @property
@@ -789,10 +861,16 @@ class ServingEngine:
             self.inflight_high_water = max(self.inflight_high_water,
                                            len(self._inflight))
 
+    @staticmethod
+    def _delivery_order(handle: ExecHandle):
+        """Handles ready at the same harvest deliver in (worker index,
+        submit seq) order, so multi-worker replays are reproducible."""
+        return (handle.worker, handle.seq)
+
     def _harvest_ready(self):
         """Deliver async completions the card has already finished
-        (non-blocking; every in-flight handle is probed, ready ones are
-        delivered in submit order)."""
+        (non-blocking; every in-flight handle is probed, so a slow batch
+        on one worker does not hold back finished ones on another)."""
         ready = self._ready_probe
         if ready is None:
             return
@@ -800,18 +878,18 @@ class ServingEngine:
             done = [h for h in self._inflight if ready(h)]
             if not done:
                 return
-            for handle in sorted(done, key=lambda h: h.seq):
+            for handle in sorted(done, key=self._delivery_order):
                 self._inflight.remove(handle)
                 self._resolve_inflight(handle)
 
     def _resolve_one(self):
-        """Retire one in-flight handle: the oldest ready one, else block
-        on the FIFO head."""
+        """Retire one in-flight handle: the lowest (worker, seq) ready
+        one, else block on the FIFO head."""
         ready = self._ready_probe
         if ready is not None:
             done = [h for h in self._inflight if ready(h)]
             if done:
-                handle = min(done, key=lambda h: h.seq)
+                handle = min(done, key=self._delivery_order)
                 self._inflight.remove(handle)
                 self._resolve_inflight(handle)
                 return
@@ -819,9 +897,12 @@ class ServingEngine:
 
     def _resolve_inflight(self, handle: ExecHandle):
         comp = self.executor.resolve(handle)
-        # one card is one serial stream: clamp finishes monotone
-        comp.t_finish = max(self._last_async_finish, comp.t_finish)
-        self._last_async_finish = comp.t_finish
+        # a worker is a serial queue, so its finishes are clamped monotone;
+        # across workers finishes interleave, and one clamp for all would
+        # invent violations for a fast worker delivered after a slow one
+        last = self._last_async_finish.get(handle.worker, 0.0)
+        comp.t_finish = max(last, comp.t_finish)
+        self._last_async_finish[handle.worker] = comp.t_finish
         self._deliver(comp)
 
     def _deliver_scheduled(self):

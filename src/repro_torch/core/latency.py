@@ -1,9 +1,12 @@
 """Latency Estimator (Section III-C).
 
-Port of ``LatencyTable``, ``measure``, ``AnalyticalLatencyModel`` and
-``detector_latency_model`` from ``repro/core/latency.py``.  A table maps a
-canvas batch size to a profiled ``(mu, sigma)`` and serves the conservative
-slack ``T_slack = mu + k * sigma`` (k = 3 in the paper).  Two sources:
+Port of ``repro/core/latency.py``.  A table maps a canvas batch size to a
+profiled ``(mu, sigma)`` and serves the conservative slack
+``T_slack = mu + k * sigma`` (k = 3 in the paper).
+:class:`OnlineLatencyTable` refreshes a table from delivered completions
+(EWMA, per-worker drift), :class:`LatencyBank` keeps one estimator per
+model, and ``to_dict`` / :func:`latency_from_dict` log and rebuild them.
+A table has two sources:
 
 * :func:`measure` times a real callable (the paper's offline profiling,
   scaled down); on the card pass ``sync=torch.cuda.synchronize`` so the
@@ -14,12 +17,15 @@ slack ``T_slack = mu + k * sigma`` (k = 3 in the paper).  Two sources:
 from __future__ import annotations
 
 import dataclasses
+import math
+import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.config import HardwareConfig
+from repro_torch.core.registry import lookup, unknown_name
 
 
 @dataclasses.dataclass
@@ -80,6 +86,238 @@ class LatencyTable:
             return 0.0
         mu, sigma = self.mu_sigma(batch)
         return mu + self.slack_sigmas * sigma
+
+    # JSON stringifies the int batch keys and turns the (mu, sigma) tuples
+    # into lists, so these helpers, not ``dataclasses.asdict``, are the
+    # logging surface
+    def to_dict(self) -> dict:
+        return {"kind": "profile",
+                "slack_sigmas": self.slack_sigmas,
+                "table": {str(k): [float(m), float(s)]
+                          for k, (m, s) in sorted(self.table.items())}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LatencyTable":
+        return cls({int(k): (float(m), float(s))
+                    for k, (m, s) in d["table"].items()},
+                   slack_sigmas=float(d.get("slack_sigmas", 3.0)))
+
+
+class OnlineLatencyTable:
+    """A latency estimator that refreshes itself from delivered completions.
+
+    With no observations it is exactly the profiled ``seed`` table; then
+    every observed ``(batch, elapsed)`` folds in:
+
+    * batch sizes observed directly serve an EWMA mean and an
+      EWMA-variance sigma (floored at the drift-scaled seed sigma);
+    * other batch sizes serve the seed scaled by the EWMA of observed/seed
+      ratios, clamped to ``ratio_bounds``.
+
+    Per-worker drift ratios are tracked beside (``drift(worker=i)``); the
+    served estimate aggregates every worker, since the invoker cannot know
+    where its next batch lands.  Non-finite or non-positive observations
+    are rejected (``n_rejected``), and valid ones are clamped into
+    ``ratio_bounds`` times the seed before the update, so every served
+    ``(mu, sigma)`` stays finite with ``mu > 0``.
+
+    It duck-types :class:`LatencyTable` (``mu_sigma`` / ``t_slack`` /
+    ``slack_sigmas``): hand the same instance to the invokers and to the
+    worker pool that calls :meth:`observe`.
+    """
+
+    _TINY = 1e-12
+
+    def __init__(self, seed: LatencyTable, alpha: float = 0.25,
+                 ratio_bounds: Tuple[float, float] = (0.05, 50.0)):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        lo, hi = ratio_bounds
+        if not 0.0 < lo <= hi:
+            raise ValueError(f"bad ratio_bounds {ratio_bounds}")
+        self.seed = seed
+        self.alpha = alpha
+        self.ratio_bounds = ratio_bounds
+        self._mu: Dict[int, float] = {}
+        self._var: Dict[int, float] = {}
+        self._count: Dict[int, int] = {}
+        self._ratio: Optional[float] = None
+        self._worker_ratio: Dict[object, float] = {}
+        self.n_observations = 0
+        self.n_rejected = 0
+        # the EWMA updates are read-modify-write: observers and readers on
+        # other threads take this lock
+        self._lock = threading.RLock()
+
+    @property
+    def slack_sigmas(self) -> float:
+        return self.seed.slack_sigmas
+
+    def _clamped(self, ratio: Optional[float]) -> float:
+        if ratio is None:
+            return 1.0
+        lo, hi = self.ratio_bounds
+        return min(max(ratio, lo), hi)
+
+    def drift(self, worker: Optional[object] = None) -> float:
+        """Clamped EWMA of observed/seed latency (1.0: the profile holds).
+        ``worker=None``, or a worker with no observations, reads the
+        aggregate."""
+        with self._lock:
+            if worker is not None and worker in self._worker_ratio:
+                return self._clamped(self._worker_ratio[worker])
+            return self._clamped(self._ratio)
+
+    def observe(self, batch: int, elapsed: float,
+                worker: Optional[object] = None,
+                model: Optional[str] = None) -> bool:
+        """Fold one delivered completion in; False (and no change) for a
+        non-finite or non-positive ``elapsed`` or an empty batch.
+        ``model`` is accepted and ignored, so this table and
+        :class:`LatencyBank` are interchangeable behind the worker pool."""
+        try:
+            elapsed = float(elapsed)
+        except (TypeError, ValueError):
+            with self._lock:
+                self.n_rejected += 1
+            return False
+        if batch < 1 or not math.isfinite(elapsed) or elapsed <= 0.0:
+            with self._lock:
+                self.n_rejected += 1
+            return False
+        with self._lock:
+            self.n_observations += 1
+            a = self.alpha
+            lo, hi = self.ratio_bounds
+            seed_mu = max(self.seed.mu_sigma(batch)[0], self._TINY)
+            elapsed = min(max(elapsed, lo * seed_mu), hi * seed_mu)
+            if batch not in self._mu:
+                self._mu[batch] = elapsed
+                self._var[batch] = 0.0
+                self._count[batch] = 1
+            else:
+                delta = elapsed - self._mu[batch]
+                self._mu[batch] += a * delta
+                # EWMA variance (West): decay the old spread, add the new
+                # deviation's share
+                self._var[batch] = (1.0 - a) * (self._var[batch]
+                                                + a * delta * delta)
+                self._count[batch] += 1
+            r = elapsed / seed_mu             # in [lo, hi] by construction
+            self._ratio = r if self._ratio is None else (
+                self._ratio + a * (r - self._ratio))
+            if worker is not None:
+                prev = self._worker_ratio.get(worker)
+                self._worker_ratio[worker] = r if prev is None else (
+                    prev + a * (r - prev))
+        return True
+
+    def mu_sigma(self, batch: int) -> Tuple[float, float]:
+        with self._lock:
+            if self.n_observations == 0:
+                return self.seed.mu_sigma(batch)  # exactly the seed
+            r = self._clamped(self._ratio)
+            seed_mu, seed_sigma = self.seed.mu_sigma(batch)
+            if batch in self._mu:
+                mu = max(self._mu[batch], self._TINY)
+                sigma = max(math.sqrt(max(self._var[batch], 0.0)),
+                            seed_sigma * r, 0.0)
+                return mu, sigma
+            return max(seed_mu * r, self._TINY), max(seed_sigma * r, 0.0)
+
+    def t_slack(self, batch: int) -> float:
+        if batch <= 0:
+            return 0.0
+        mu, sigma = self.mu_sigma(batch)
+        return mu + self.slack_sigmas * sigma
+
+    def to_dict(self) -> dict:
+        """The seed profile and the EWMA knobs; the learned state is not
+        kept, so a loaded estimator starts at its seed."""
+        return {"kind": "online",
+                "seed": self.seed.to_dict(),
+                "alpha": self.alpha,
+                "ratio_bounds": list(self.ratio_bounds)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "OnlineLatencyTable":
+        return cls(LatencyTable.from_dict(d["seed"]),
+                   alpha=float(d.get("alpha", 0.25)),
+                   ratio_bounds=tuple(d.get("ratio_bounds", (0.05, 50.0))))
+
+
+class LatencyBank:
+    """Per-model latency estimates behind one estimator interface.
+
+    ``tables`` maps a registry model name to its estimator (a
+    :class:`LatencyTable`, or an :class:`OnlineLatencyTable` for the
+    feedback loop).  Observations route to the invocation's model's table,
+    so each model tracks its own device speed.  An untagged observation
+    (``model=None``) goes to the ``default`` table, which is the sole
+    entry when the bank holds one, else nowhere (``observe`` returns
+    False).
+    """
+
+    def __init__(self, tables: Dict[str, object],
+                 default: Optional[str] = None):
+        if not tables:
+            raise ValueError("LatencyBank needs at least one table")
+        self.tables: Dict[str, object] = dict(tables)
+        if default is not None and default not in self.tables:
+            raise unknown_name("model", default, self.tables)
+        if default is None and len(self.tables) == 1:
+            default = next(iter(self.tables))
+        self.default = default
+
+    def table(self, model: Optional[str]):
+        """The estimator for one model (``None``: the default table)."""
+        if model is None:
+            model = self.default
+        return lookup("model", self.tables, model)
+
+    def observe(self, batch: int, elapsed: float,
+                worker: Optional[object] = None,
+                model: Optional[str] = None) -> bool:
+        name = model if model is not None else self.default
+        tbl = self.tables.get(name)
+        observe = getattr(tbl, "observe", None)
+        if observe is None:
+            return False
+        return observe(batch, elapsed, worker=worker)
+
+    def drift(self, worker: Optional[object] = None,
+              model: Optional[str] = None) -> float:
+        """One model's drift, or (``model=None``) the mean over the
+        models that track one."""
+        if model is not None:
+            drift = getattr(self.table(model), "drift", None)
+            return drift(worker=worker) if drift is not None else 1.0
+        drifts = [t.drift(worker=worker) for t in self.tables.values()
+                  if hasattr(t, "drift")]
+        if not drifts:
+            return 1.0
+        return sum(drifts) / len(drifts)
+
+    def to_dict(self) -> dict:
+        return {"kind": "bank",
+                "default": self.default,
+                "tables": {name: t.to_dict()
+                           for name, t in sorted(self.tables.items())}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LatencyBank":
+        return cls({name: latency_from_dict(t)
+                    for name, t in d["tables"].items()},
+                   default=d.get("default"))
+
+
+def latency_from_dict(d: dict):
+    """Inverse of the ``to_dict`` family, keyed on the embedded ``kind``
+    (``profile`` | ``online`` | ``bank``)."""
+    loaders = {"profile": LatencyTable.from_dict,
+               "online": OnlineLatencyTable.from_dict,
+               "bank": LatencyBank.from_dict}
+    return lookup("latency spec kind", loaders, d.get("kind", "profile"))(d)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,14 @@
 """Model registry: named :class:`ModelSpec` records behind ``make_model``.
 
-Port of ``repro/core/models.py`` with the ``tangram`` entry (the paper's
-detector: ViT-B/32 trunk on 1024^2 canvases, bf16) and its int8-resident
-variant ``tangram_int8``.  A spec carries identity, canvas geometry,
-weight economics (``weight_bytes`` / ``load_s``), a latency profile
-(explicit, or the analytical model over the trunk dims on an H100), and
-:meth:`build`, which makes a servable detector on a device.
+Port of ``repro/core/models.py`` with the JAX registry's entries: the
+paper's detector ``tangram`` (ViT-B/32 trunk on 1024^2 canvases, bf16),
+``vit_s16`` (the ViT-S/16 trunk at patch 16), ``efficientnet_b7`` (a
+transformer trunk sized to B7's compute class, B7's weight economics),
+and the int8-resident variants ``tangram_int8`` and ``vit_s16_int8``.  A
+spec carries identity, canvas geometry, weight economics
+(``weight_bytes`` / ``load_s``), a latency profile (explicit, or the
+analytical model over the trunk dims on an H100), and :meth:`build`,
+which makes a servable detector on a device.
 """
 from __future__ import annotations
 
@@ -173,7 +176,8 @@ def _ensure_seeded():
     if _seeded:
         return
     _seeded = True
-    from repro_torch.configs import tangram_detector
+    from repro_torch.configs import efficientnet_b7, tangram_detector, vit_s16
+    from repro_torch.models.efficientnet import count_params
 
     register_model(ModelSpec(
         name="tangram", arch=tangram_detector.ARCH,
@@ -182,6 +186,35 @@ def _ensure_seeded():
         name="tangram_int8", arch=tangram_detector.ARCH, dtype="int8",
         description="tangram with int8-resident trunk weights "
                     "(quantized serve path)"))
+
+    # a lighter detector on the ViT-S/16 trunk (patch 16: a 64x64 token
+    # grid on a 1024^2 canvas): the choice for tight SLO classes
+    v = vit_s16.ARCH
+    vit_s16_det = DetectorConfig(
+        name="vit-s16-det", canvas=1024, patch=v.patch,
+        n_layers=v.n_layers, d_model=v.d_model, n_heads=v.n_heads,
+        d_ff=v.d_ff, param_dtype="bfloat16", compute_dtype="bfloat16")
+    register_model(ModelSpec(
+        name="vit_s16", arch=vit_s16_det,
+        description="detector on the ViT-S/16 trunk (light, fine patches)"))
+    register_model(ModelSpec(
+        name="vit_s16_int8", arch=vit_s16_det, dtype="int8",
+        description="vit_s16 with int8-resident trunk weights"))
+
+    # EfficientNet-B7-class detector: the detector head runs on a ViT
+    # trunk, so the servable build is a transformer sized to B7's compute
+    # class, and the weight economics come from the conv net's count
+    e = efficientnet_b7.ARCH
+    register_model(ModelSpec(
+        name="efficientnet_b7",
+        arch=DetectorConfig(
+            name="efficientnet-b7-det", canvas=1024, patch=32,
+            n_layers=18, d_model=512, n_heads=8, d_ff=2048,
+            param_dtype="bfloat16", compute_dtype="bfloat16"),
+        weight_bytes=float(count_params(e)
+                           * _DTYPE_BYTES.get(e.param_dtype, 4)),
+        description="EfficientNet-B7-class detector (conv-net weight "
+                    "economics, transformer substitute trunk)"))
 
 
 def make_model(name: str) -> ModelSpec:

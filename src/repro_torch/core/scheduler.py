@@ -16,25 +16,40 @@ platform model.  A ctor-supplied ``executor`` (e.g. a
 it is; the platform then only carries the cost meter, so the record's
 cost and platform invocations read 0, as in the JAX package.
 
-Worker pools, online latency tables and multi-model serving (ROADMAP
-item 10) and fleet sharding (item 11) are not ported: a config that asks
-for them raises ``NotImplementedError`` naming the item.  The pre-config
-keyword arguments (``max_canvases=``, ``adaptive=``, ...) still work
-through a deprecation shim that warns once and forwards onto the config.
+``config.model`` / ``model_map`` serve registry models
+(:mod:`~repro_torch.core.models`): each class's invoker takes its model's
+canvas geometry and latency table, and fired invocations carry the
+model's name to the executor, the placement and the platform's per-model
+warm pools.  ``config.n_workers > 1`` or ``online_latency`` run a
+:class:`~repro_torch.core.workers.WorkerPoolExecutor` over platform
+shards, with an :class:`~repro_torch.core.latency.OnlineLatencyTable`
+(one a model, in a ``LatencyBank``) fed by every completion.  Fleet
+sharding (``shards``, ROADMAP item 11) is not ported: the scheduler
+refuses it naming the item.  The pre-config keyword arguments
+(``max_canvases=``, ``adaptive=``, ...) still work through a deprecation
+shim that warns once and forwards onto the config.
 """
 from __future__ import annotations
 
 import warnings
 from typing import Callable, Optional, Sequence
 
-from repro_torch.core.adaptive import adaptive_uniform_pool
+from repro_torch.core.adaptive import (AdaptiveInvokerPool,
+                                       adaptive_uniform_pool)
 from repro_torch.core.clock import Clock, make_clock
 from repro_torch.core.config import UNPORTED, ServeConfig, make_classify
-from repro_torch.core.engine import (PatchOutcome, Results, ServingEngine,
-                                     SimExecutor, uniform_pool)
-from repro_torch.core.latency import LatencyTable
+from repro_torch.core.engine import (InvokerPool, PatchOutcome, Results,
+                                     ServingEngine, SimExecutor,
+                                     uniform_pool)
+from repro_torch.core.invoker import SLOAwareInvoker
+from repro_torch.core.latency import (LatencyBank, LatencyTable,
+                                      OnlineLatencyTable)
+from repro_torch.core.models import make_model
 from repro_torch.core.partitioning import Patch
-from repro_torch.serverless.platform import Platform, mean_consolidation
+from repro_torch.core.registry import unknown_name
+from repro_torch.core.workers import WorkerPoolExecutor, make_placement
+from repro_torch.serverless.platform import (Platform, mean_consolidation,
+                                             split_platform)
 from repro_torch.serverless.platform import model_stats as records_model_stats
 
 __all__ = ["PatchOutcome", "Results", "ServeConfig", "TangramScheduler"]
@@ -77,10 +92,11 @@ class TangramScheduler:
         config = config if config is not None else ServeConfig()
         self._executor_override = executor
         # Old keyword arguments forward onto the config; a classify
-        # callable or a Clock instance, which a config cannot express,
-        # becomes a direct override of the named reference.
+        # callable, a Clock or a placement instance, which a config cannot
+        # express, becomes a direct override of the named reference.
         classify_override: Optional[Callable[[Patch], object]] = None
         clock_override: Optional[Clock] = None
+        placement_override: object = None
         if legacy:
             unknown = set(legacy) - set(_LEGACY_FIELDS)
             if unknown:
@@ -94,28 +110,75 @@ class TangramScheduler:
                     classify_override = value
                 elif name == "clock" and isinstance(value, Clock):
                     clock_override = value
+                elif name == "placement" and not (
+                        value is None or isinstance(value, str)):
+                    placement_override = value
                 else:
                     fields[name] = value
             config = config.replace(**fields)
 
-        for field in ("n_workers", "placement", "online_latency", "model",
-                      "model_map", "shards"):
-            value = getattr(config, field)
-            if value and not (field == "n_workers" and value == 1):
-                raise _unported(field, value)
+        if config.shards is not None:
+            raise _unported("shards", config.shards)
         self.config = config
         classify = (classify_override if classify_override is not None
                     else make_classify(config.classify))
-        if config.adaptive is not None:
-            self.pool = adaptive_uniform_pool(
-                canvas_m, canvas_n, latency, config.max_canvases,
-                incremental=config.incremental, classify=classify,
-                cfg=config.adaptive)
+        self.estimator = None          # OnlineLatencyTable | LatencyBank
+        self._model_specs: dict = {}
+        self._model_tables: dict = {}  # base tables (platform sampling)
+        if config.multi_model:
+            # each class's invoker takes its model's canvas geometry and
+            # latency table off the registry spec; the ctor's canvas and
+            # latency are the single-model fallback and unused here
+            specs = {n: make_model(n) for n in config.model_names()}
+            self._model_specs = specs
+            base = {n: (s.table if s.table is not None
+                        else s.latency_table())
+                    for n, s in specs.items()}
+            self._model_tables = base
+            if config.online_latency:
+                online = {n: OnlineLatencyTable(t) for n, t in base.items()}
+                self.estimator = LatencyBank(online)
+                invoker_tables = online
+            else:
+                invoker_tables = dict(base)
+
+            def make_invoker(key):
+                model = config.resolve_model(key)
+                if model is None:
+                    raise unknown_name("SLO class", key,
+                                       config.model_map or {})
+                spec = specs[model]
+                return SLOAwareInvoker(spec.canvas_m, spec.canvas_n,
+                                       invoker_tables[model],
+                                       config.max_canvases,
+                                       incremental=config.incremental)
+
+            pool_classify = classify or (lambda p: None)
+            if config.adaptive is not None:
+                self.pool = AdaptiveInvokerPool(
+                    make_invoker, pool_classify, config.adaptive,
+                    model_of=config.resolve_model)
+            else:
+                self.pool = InvokerPool(make_invoker, pool_classify,
+                                        model_of=config.resolve_model)
         else:
-            self.pool = uniform_pool(
-                canvas_m, canvas_n, latency, config.max_canvases,
-                incremental=config.incremental, classify=classify)
+            if config.online_latency:
+                latency = self.estimator = OnlineLatencyTable(latency)
+            if config.adaptive is not None:
+                self.pool = adaptive_uniform_pool(
+                    canvas_m, canvas_n, latency, config.max_canvases,
+                    incremental=config.incremental, classify=classify,
+                    cfg=config.adaptive)
+            else:
+                self.pool = uniform_pool(
+                    canvas_m, canvas_n, latency, config.max_canvases,
+                    incremental=config.incremental, classify=classify)
         self.platform = platform
+        self.n_workers = config.n_workers
+        self.placement = (placement_override
+                          if placement_override is not None
+                          else make_placement(config.placement)
+                          if config.placement is not None else None)
         self.clock = clock_override
         self.check_invariants = config.check_invariants
 
@@ -128,6 +191,32 @@ class TangramScheduler:
         if self.config.clock == "virtual":
             return None
         return make_clock(self.config.clock, speed=self.config.wall_speed)
+
+    def _sim_executor(self, platform: Platform) -> SimExecutor:
+        """A SimExecutor over ``platform``; with models, each model's
+        submissions carry its weight-load seconds and sample its own base
+        latency table."""
+        if not self._model_specs:
+            return SimExecutor(platform)
+        loads = {n: s.load_s for n, s in self._model_specs.items()}
+        return SimExecutor(platform, model_loads=loads,
+                           model_tables=self._model_tables)
+
+    def _executor(self):
+        """A ctor-supplied executor as it is (the platform then carries
+        only the cost meter); else one SimExecutor, or a worker pool over
+        platform shards (one shared cost meter) when ``n_workers > 1`` or
+        an estimator needs the completions."""
+        if self._executor_override is not None:
+            return self._executor_override, [self.platform]
+        if self.n_workers == 1 and self.estimator is None:
+            return self._sim_executor(self.platform), [self.platform]
+        platforms = (split_platform(self.platform, self.n_workers)
+                     if self.n_workers > 1 else [self.platform])
+        pool = WorkerPoolExecutor([self._sim_executor(p) for p in platforms],
+                                  placement=self.placement,
+                                  estimator=self.estimator)
+        return pool, platforms
 
     def run(self, streams: Sequence[Sequence[Patch]], bandwidth_bps: float,
             name: str = "tangram") -> Results:
@@ -143,11 +232,7 @@ class TangramScheduler:
         """Serve any :mod:`repro_torch.sources` source end to end and
         assemble the ``Results`` record (bandwidth and drop/degrade
         accounting from ``source.stats()``)."""
-        # a ctor-supplied executor is used as it is; the platform then
-        # carries only the cost meter
-        executor = (self._executor_override
-                    if self._executor_override is not None
-                    else SimExecutor(self.platform))
+        executor, platforms = self._executor()
         engine = ServingEngine(self.pool, executor,
                                clock=self._clock(),
                                check_invariants=self.check_invariants,
@@ -158,8 +243,12 @@ class TangramScheduler:
         source_stats = stats.to_dict()
         source_stats["backlog_high_water"] = engine.backlog_high_water
         source_stats["ingestion_window"] = self.config.ingestion_window
-        records = self.platform.records
+        records = [r for p in platforms for r in p.records]
         model_stats = records_model_stats(records)
+        cache_stats = (executor.model_cache_stats()
+                       if hasattr(executor, "model_cache_stats") else {})
+        for model, row in cache_stats.items():
+            model_stats.setdefault(model, {}).update(row)
         return Results(
             name=name, outcomes=outcomes,
             canvas_efficiencies=[c.efficiency for inv in engine.invocations
@@ -173,5 +262,8 @@ class TangramScheduler:
             exec_seconds=self.platform.meter.busy_seconds,
             transmission_seconds=stats.transmission_seconds,
             mean_consolidation=mean_consolidation(records),
+            worker_stats=(executor.worker_stats()
+                          if isinstance(executor, WorkerPoolExecutor)
+                          else None),
             source_stats=source_stats,
             model_stats=model_stats or None)

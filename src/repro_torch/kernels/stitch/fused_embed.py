@@ -90,6 +90,20 @@ def check_wgmma_shape(name: str, b: int, seq: int, kdim: int, d: int, k: int,
                          f"{_SMEM_LIMIT}")
 
 
+def decode_plan(num_patches: int, side_m: int, side_n: int):
+    """Grid of the K3 launch and whether it stores 16 bytes a lane, as the
+    source's ``launch_unstitch_decode`` launches it: one block per (output
+    slot, tile of ``_DEC_TILE`` cells), the vector stores when the cells
+    of a slot are a multiple of 4.  Raises when the tiles overflow the
+    grid's y dimension."""
+    cells = side_m * side_n
+    tiles = -(-cells // _DEC_TILE)
+    if tiles > _MAX_GRID_YZ:
+        raise ValueError(f"unstitch_decode: {side_m}x{side_n} cells exceed "
+                         f"{_MAX_GRID_YZ} tiles of {_DEC_TILE}")
+    return (num_patches, tiles), cells % 4 == 0
+
+
 def _check_tensor(name: str, what: str, t: torch.Tensor, device: torch.device,
                   dim: int, dtypes) -> None:
     if t.device != device:
@@ -205,9 +219,7 @@ def unstitch_decode_cuda(raw: torch.Tensor, records: torch.Tensor,
     if num_patches == 0 or b == 0 or k == 0:
         return torch.zeros((num_patches, side_m, side_n, 5),
                            dtype=torch.float32, device=device)
-    if -(-side_m * side_n // _DEC_TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: {side_m}x{side_n} cells exceed "
-                         f"{_MAX_GRID_YZ} tiles of {_DEC_TILE}")
+    decode_plan(num_patches, side_m, side_n)
     out = torch.empty((num_patches, side_m, side_n, 5), dtype=torch.float32,
                       device=device)     # every byte written by the kernel
     _run(library().tangram_unstitch_decode, device, raw.data_ptr(),

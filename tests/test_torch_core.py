@@ -164,7 +164,9 @@ def test_tangram_spec_matches_reference_economics():
     t, j = tmodels.make_model("tangram"), jmodels.make_model("tangram")
     assert (t.canvas_m, t.canvas_n, t.weight_bytes, t.load_s) == \
         (j.canvas_m, j.canvas_n, j.weight_bytes, j.load_s)
-    assert tmodels.model_names() == ("tangram", "tangram_int8")
+    assert tmodels.model_names() == ("efficientnet_b7", "tangram",
+                                     "tangram_int8", "vit_s16",
+                                     "vit_s16_int8")
     table = t.latency_table(max_batch=4)
     assert sorted(table.table) == [1, 2, 3, 4]
     assert all(math.isfinite(mu) and mu > 0 for mu, _ in

@@ -16,10 +16,15 @@ from repro_torch.configs.reduced import reduce_arch
 from repro_torch.core import gmm
 from repro_torch.core import sequence_packing
 from repro_torch.core.config import ServeConfig
-from repro_torch.core.engine import ServingEngine, make_executor, uniform_pool
+from repro_torch.core.engine import (InvokerPool, ModelRuntime, ServingEngine,
+                                     make_executor, slo_class, uniform_pool)
+from repro_torch.core.invoker import SLOAwareInvoker
 from repro_torch.core.latency import LatencyTable
+from repro_torch.core.models import make_model
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.scheduler import TangramScheduler
+from repro_torch.core.workers import (device_worker_pool, make_placement,
+                                      worker_device)
 from repro_torch.core.stitching import build_batch_plan, stitch
 from repro_torch.kernels.attention import flash as flash_kernels
 from repro_torch.kernels.attention import ops as attn_ops
@@ -27,7 +32,8 @@ from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.stitch import fused_embed
 from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
-from repro_torch.launch.serve import build_detector, fused_kwargs
+from repro_torch.launch.serve import (build_detector, fused_fields,
+                                      fused_kwargs)
 from repro_torch.models import transformer
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serverless.platform import Platform
@@ -857,13 +863,13 @@ def test_stitch_entry_writes_every_byte(cuda, dtype, kind):
     assert torch.equal(_bytes(out), _bytes(want))
 
 
-def _k3_case(side, dtype, device, seed=41):
-    """Raw heads and records for K3 at patch 32: slots named twice (within
-    a canvas and across canvases), the last ten slots never named,
-    placement edges at any pixel offset, and a third of the centre logits
-    at +-30 (saturated sigmoid: decoded centres on cell edges)."""
+def _k3_case(side, dtype, device, seed=41, patch=32):
+    """Raw heads and records for K3 (patch 32 unless given): slots named
+    twice (within a canvas and across canvases), the last ten slots never
+    named, placement edges at any pixel offset, and a third of the centre
+    logits at +-30 (saturated sigmoid: decoded centres on cell edges)."""
     rng = np.random.default_rng(seed)
-    b, k, cap, patch = 3, 64, 120, 32
+    b, k, cap = 3, 64, 120
     m = side * patch
     records = _random_records(rng, b, k, m, m, m // 2, m // 2, cap - 10)
     raw = rng.normal(size=(b, side, side, 5)).astype(np.float32)
@@ -911,3 +917,147 @@ def test_decode_entry_writes_every_byte(cuda, dtype, side):
     want = ops.unstitch_decode(raw, rec, patch, cap, impl="torch")
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------- the registry detectors' widths ----
+
+@pytest.mark.parametrize("kind", ["random", "flush", "many"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("patch,d", [(16, 384), (32, 512)])
+def test_fused_kernels_at_registry_widths(cuda, patch, d, dtype, tol, kind):
+    """K4 and K3 at ``vit_s16``'s shape (patch 16: K = 768, d 384, 4,096
+    tokens and a 64x64 head grid a canvas) and ``efficientnet_b7``'s (patch
+    32, d 512: a last column tile of 128), on packer plans and on about
+    1,700 scattered records a canvas, against their plain versions with the
+    tolerances of ``test_fused_kernels_against_plain``."""
+    m = 1024
+    rng = np.random.default_rng(13)
+    if kind == "many":
+        # one placement a 22 x 22 px cell: about 1,700 records a canvas
+        b = 2
+        records, (cap, hmax, wmax) = _scattered_records(rng, b, m, m,
+                                                        cell=(22, 22))
+        assert 1500 < records.shape[1] <= 2048
+        slots = torch.from_numpy(rng.normal(
+            size=(cap, hmax, wmax, 3)).astype(np.float32)).to(cuda)
+    else:
+        plan, patches = _plan(kind, m, rng)
+        crops = [rng.normal(size=(p.h, p.w, 3)).astype(np.float32)
+                 for p in patches]
+        slots = torch.from_numpy(ops.pack_plan_host(crops, plan)).to(cuda)
+        records, b, cap = plan.records, plan.num_canvases, plan.slot_capacity
+    rec = torch.from_numpy(records).to(cuda)
+    wdt = DTYPES[dtype]
+    kernel = torch.from_numpy(
+        rng.normal(size=(patch * patch * 3, d)).astype(np.float32)
+        / np.sqrt(patch * patch * 3)).to(cuda, wdt)
+    bias = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        cuda, wdt)
+    before = dict(kernels.LAUNCHES)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = ops.stitch_embed(slots, rec, kernel, bias, m, m, patch)
+        want = ops.stitch_embed(slots, rec, kernel, bias, m, m, patch,
+                                impl="torch")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    side = m // patch
+    assert got.shape == want.shape == (b, side * side, d)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    raw = torch.from_numpy(rng.normal(size=(b, side, side, 5)).astype(
+        np.float32)).to(cuda, wdt)
+    grids = ops.unstitch_decode(raw, rec, patch, cap)
+    plain = ops.unstitch_decode(raw, rec, patch, cap, impl="torch")
+    assert torch.equal(grids[..., 0] > 0, plain[..., 0] > 0)
+    torch.testing.assert_close(grids, plain, atol=1e-5, rtol=1e-5)
+    assert kernels.LAUNCHES["stitch_embed"] == before["stitch_embed"] + 1
+    assert kernels.LAUNCHES["unstitch_decode"] == \
+        before["unstitch_decode"] + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_side_64(cuda, dtype):
+    """K3 on a 64x64 head grid at patch 16 (``vit_s16``): duplicates,
+    unnamed slots and saturated centres as at side 32."""
+    raw, rec, patch, cap = _k3_case(64, DTYPES[dtype], cuda, patch=16)
+    got = ops.unstitch_decode(raw, rec, patch, cap)
+    want = ops.unstitch_decode(raw, rec, patch, cap, impl="torch")
+    assert got.shape == (cap, 64, 64, 5)
+    assert torch.equal(got[..., 0] > 0, want[..., 0] > 0)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert not got[cap - 10:].any() and (got[..., 0] > 0).any()
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_two_worker_model_pool_on_card(cuda, fuse):
+    """Two async workers on ``worker_device(i)`` (one card: both on it),
+    model placement over two reduced registry models (``vit_s16`` at
+    patch 16, ``efficientnet_b7`` at 32) on a two-class trace: kernels and
+    plain versions route the same detections and evidence, each model's
+    invocations launch K1/K2 (or K4/K3), and no frame is held."""
+    frames, arrivals = {}, []
+    for i, slo in enumerate((0.3, 2.0)):
+        src = make_source("synthetic", n_frames=16, canvas=128, slo=slo,
+                          scene=i, camera_id=i, device=cuda,
+                          frame_sink=lambda f, px, n:
+                          frames.__setitem__(f, (px, n)))
+        arrivals.extend(src.events(None))
+    arrivals.sort(key=lambda a: a.t_arrive)
+    names = {0.3: "vit_s16", 2.0: "efficientnet_b7"}
+    builds = {n: make_model(n).build(canvas=128, device=cuda)
+              for n in names.values()}
+    table = LatencyTable({1: (0.02, 0.002), 4: (0.05, 0.004)})
+    paths = (("stitch_embed", "unstitch_decode") if fuse
+             else ("stitch", "unstitch"))
+    outs = []
+    for impl in (None, "torch"):
+        models = {n: ModelRuntime(fn, pr, 128, 128,
+                                  **(fused_fields(c, pr) if fuse else {}))
+                  for n, (c, pr, fn) in builds.items()}
+        cfg, params, fn = builds["vit_s16"]
+        pool = device_worker_pool(
+            2, lambda i: make_executor(
+                "async_device", serve_fn=fn, params=params, canvas_m=128,
+                canvas_n=128, device=worker_device(i), impl=impl,
+                clock=lambda: 0.0, models=models,
+                **(fused_kwargs(cfg, params) if fuse else {})),
+            placement=make_placement("model"))
+        assert [w.device for w in pool.workers] == [
+            torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(2)]
+        for fid, (px, n) in frames.items():
+            pool.add_frame(fid, px, n)
+        launched = {}
+        routed = {}
+        for w in pool.workers:
+            launch = w._launch
+
+            def counted(inv, launch=launch):
+                before = dict(kernels.LAUNCHES)
+                payload = launch(inv)
+                row = launched.setdefault(inv.model, {})
+                for k in before:
+                    row[k] = row.get(k, 0) + kernels.LAUNCHES[k] - before[k]
+                return payload
+            w._launch = counted
+            release = w.on_complete
+
+            def on_complete(comp, release=release):
+                routed[id(comp.invocation)] = comp.outputs
+                release(comp)
+            w.on_complete = on_complete
+        engine = ServingEngine(
+            InvokerPool(lambda key: SLOAwareInvoker(128, 128, table, 4),
+                        classify=slo_class, model_of=names.get), pool)
+        engine.run(arrivals)
+        assert len(pool.frames) == 0
+        assert set(launched) == set(names.values())
+        for row in launched.values():
+            assert all((row[k] > 0) == (impl is None and k in paths)
+                       for k in row), launched
+        assert {ws["worker"] for ws in pool.worker_stats()
+                if ws["invocations"]} == {0, 1}
+        outs.append([routed[id(inv)] for inv in engine.invocations])
+    _assert_same_routing(outs, fuse)

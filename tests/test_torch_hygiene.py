@@ -29,7 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 # module missing from the walk still fails here
 names += ["repro_torch.serverless.platform", "repro_torch.core.scheduler",
           "repro_torch.core.baselines", "repro_torch.core.adaptive",
-          "repro_torch.core.cost", "repro_torch.models.quantize"]
+          "repro_torch.core.cost", "repro_torch.models.quantize",
+          "repro_torch.core.workers", "repro_torch.models.efficientnet"]
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -86,6 +86,10 @@ def _k4_smem(k, patch):
     (1, 15, 768, 12, 32),        # a 96 x 160 canvas: 15 tokens
     (3, 1024, 768, 2048, 32),    # the most records a canvas may hold
     (2, 4096, 64, 5, 16),
+    (4, 4096, 384, 64, 16),      # vit_s16: 64x64 tokens, K 768, d 384
+    (4, 4096, 384, 2048, 16),
+    (4, 1024, 512, 64, 32),      # efficientnet_b7's trunk: d 512
+    (4, 1024, 512, 2048, 32),
 ])
 def test_stitch_embed_wgmma_plan(b, seq, d, k, patch):
     grid, smem = fused_embed.wgmma_plan(b, seq, d, k, patch)
@@ -121,6 +125,37 @@ def test_check_wgmma_shape_rejects(kdim, d, slot_elems, k, match):
 def test_check_wgmma_shape_accepts(k, patch):
     fused_embed.check_wgmma_shape("stitch_embed", 4, 1024, patch * patch * 3,
                                   768, k, patch, 402_653_184 // 4)
+
+
+@pytest.mark.parametrize("k", [1, 64, 512, 2048])
+@pytest.mark.parametrize("seq,d,patch", [(4096, 384, 16), (1024, 512, 32)])
+def test_check_wgmma_shape_accepts_the_registry_detectors(seq, d, patch, k):
+    """vit_s16 (patch 16: K = 768, d 384, 4,096 tokens a canvas) and
+    efficientnet_b7 (patch 32, d 512) up to 2,048 records a canvas: d 384
+    fills two column tiles of 192, d 512 two and a third of 128 columns;
+    a 2,048-record block at patch 16 needs 164,920 bytes."""
+    fused_embed.check_wgmma_shape("stitch_embed", 4, seq, patch * patch * 3,
+                                  d, k, patch, 402_653_184 // 4)
+    grid, smem = fused_embed.wgmma_plan(4, seq, d, k, patch)
+    assert grid == ({384: 2, 512: 3}[d], seq // 128, 4)
+    if (k, patch) == (2048, 16):
+        assert smem == 164920
+
+
+@pytest.mark.parametrize("p,side,want", [
+    (73, 32, ((73, 4), True)),       # tangram: 32x32 cells a canvas
+    (73, 64, ((73, 16), True)),      # vit_s16: 64x64 cells
+    (1, 33, ((1, 5), False)),        # 1089 cells: scalar stores
+    (4096, 64, ((4096, 16), True)),
+])
+def test_unstitch_decode_plan(p, side, want):
+    """K3: one block per (slot, 256 cells), 16-byte stores when a slot's
+    cells are a multiple of 4; every cell of every slot in one tile."""
+    grid, vec = fused_embed.decode_plan(p, side, side)
+    assert (grid, vec) == want
+    assert (grid[1] - 1) * 256 < side * side <= grid[1] * 256
+    with pytest.raises(ValueError, match="tiles of 256"):
+        fused_embed.decode_plan(1, 4096, 4097)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

@@ -465,10 +465,7 @@ def test_scheduler_on_a_device_executor_equals_jax():
 
 def test_unported_config_fields_name_their_item():
     _, tt = tables()
-    for kw, item in ((dict(n_workers=2), 10), (dict(online_latency=True), 10),
-                     (dict(model="tangram"), 10),
-                     (dict(model_map={"1.0": "tangram"}), 10),
-                     (dict(placement="round"), 10), (dict(shards=2), 11)):
+    for kw, item in ((dict(shards=2), 11),):
         with pytest.raises(NotImplementedError,
                            match=rf"ROADMAP queue 1, item {item} "):
             TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt),
@@ -489,8 +486,15 @@ def test_legacy_keywords_warn_and_forward():
         TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt), max_canvases=2)
     with pytest.raises(TypeError, match="unexpected"):
         TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt), bogus=1)
-    with pytest.raises(NotImplementedError, match="item 10 "):
-        TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt), n_workers=2)
+    with pytest.raises(NotImplementedError, match="item 11 "):
+        TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt),
+                         config=ServeConfig(shards=2), n_workers=2)
+    # a placement instance, which a config cannot name, is an override
+    from repro_torch.core.workers import RoundRobinPlacement
+    rr = RoundRobinPlacement()
+    s = TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt), n_workers=2,
+                         placement=rr)
+    assert s.placement is rr and s.config.n_workers == 2
 
 
 def test_serve_config_round_trips_aimd():
@@ -568,3 +572,104 @@ def test_numpy_rois_equals_jax_and_extract_rois(seed):
     tb, tv = rois.extract_rois(torch.from_numpy(mask), cfg)
     got = sorted(map(tuple, tb[tv].tolist()))
     assert got == sorted(map(tuple, boxes.tolist())) and len(got) > 0
+
+
+# ------------------------------------------ models, pools, online tables ----
+
+@pytest.fixture
+def registered_models():
+    """Two explicit-table models registered in both registries (the two
+    packages' analytical profiles price different hardware), removed
+    after the test."""
+    from repro.core import models as jmodels
+    from repro_torch.core import models as tmodels
+    jmodels.make_model("tangram")             # seed both registries first
+    tmodels.make_model("tangram")
+    specs = {"sched_light": (0.5, 4e6, CANVAS),
+             "sched_heavy": (2.0, 30e6, 2 * CANVAS)}
+    for name, (scale, weight_bytes, canvas) in specs.items():
+        table = {b: (mu * scale, s * scale) for b, (mu, s) in TABLE.items()}
+        jmodels.register_model(jmodels.ModelSpec(
+            name=name, canvas_m=canvas, canvas_n=canvas,
+            weight_bytes=weight_bytes, table=JLatencyTable(dict(table))))
+        tmodels.register_model(tmodels.ModelSpec(
+            name=name, canvas_m=canvas, canvas_n=canvas,
+            weight_bytes=weight_bytes, table=LatencyTable(dict(table))))
+    yield
+    for name in specs:
+        jmodels._MODELS.pop(name)
+        tmodels._MODELS.pop(name)
+
+
+MAP = {"0.4": "sched_light", "2.0": "sched_heavy"}
+POOL_CASES = {
+    "model": dict(model="sched_light"),
+    "model_map": dict(classify="slo", model_map=MAP, model="sched_heavy"),
+    "model_map_aimd": dict(classify="slo", model_map=MAP,
+                           model="sched_heavy", adaptive="aimd"),
+    "workers": dict(n_workers=2),
+    "online": dict(online_latency=True),
+    "online_models": dict(classify="slo", model_map=MAP,
+                          model="sched_light", online_latency=True),
+    **{f"workers_{p}": dict(classify="slo", model_map=MAP,
+                            model="sched_heavy", n_workers=2, placement=p)
+       for p in ("least", "round", "affinity", "model")},
+    "workers_online_models": dict(classify="slo", model_map=MAP,
+                                  model="sched_light", n_workers=3,
+                                  placement="model", online_latency=True),
+}
+
+
+@pytest.mark.parametrize("bandwidth", [10e6, 40e6])
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_scheduler_models_pools_online_equal_jax(case, bandwidth,
+                                                 registered_models):
+    """``model`` / ``model_map``, ``n_workers`` with each placement and
+    ``online_latency``: ``Results.summary()`` (per-model rows with the
+    weight-cache counters, per-worker rows with drift) and every platform
+    record equal the JAX scheduler's on the same streams."""
+    jcfg, tcfg = _configs({"config": POOL_CASES[case]})
+    js, ts = both_streams(n_cams=3, n_frames=25, slos=(0.4, 1.0, 2.0),
+                          seed=11)
+    jt, tt = tables()
+    plat = dict(max_instances=6, pre_warm=1, cold_start_s=0.3)
+    jplat, tplat = jplatform(jt, **plat), tplatform(tt, **plat)
+    jsched = JScheduler(CANVAS, CANVAS, jt, jplat, config=jcfg)
+    tsched = TangramScheduler(CANVAS, CANVAS, tt, tplat, config=tcfg)
+    want = jsched.run(js, bandwidth)
+    got = tsched.run(ts, bandwidth)
+    summary = got.summary()
+    assert summary == want.summary()
+    assert summary["patches"] == sum(len(s) for s in ts) > 0
+    if tcfg.multi_model:
+        assert set(summary["models"]) <= {"sched_light", "sched_heavy"}
+        assert all(o.model is not None for o in got.outcomes)
+    if tcfg.n_workers > 1 or tcfg.online_latency:
+        assert len(summary["per_worker"]) == tcfg.n_workers
+    if tcfg.online_latency:
+        assert "drift" in summary["per_worker"][0]
+        assert type(tsched.estimator).__name__ == \
+            type(jsched.estimator).__name__
+    assert got.batch_sizes == want.batch_sizes
+    assert [(o.t_submit, o.t_finish, o.model) for o in got.outcomes] == \
+        [(o.t_submit, o.t_finish, o.model) for o in want.outcomes]
+
+
+def test_scheduler_unmapped_class_without_default_raises(registered_models):
+    _, tt = tables()
+    sched = TangramScheduler(
+        CANVAS, CANVAS, tt, tplatform(tt),
+        config=ServeConfig(classify="slo", model_map={"0.4": "sched_light"}))
+    _, ts = both_streams(slos=(1.0,))
+    with pytest.raises(ValueError, match="unknown SLO class 1.0"):
+        sched.run(ts, 40e6)
+
+
+def test_serve_config_model_routing_equals_jax():
+    for kw in (dict(), dict(model="tangram"), dict(model_map=MAP),
+               dict(model_map=MAP, model="tangram")):
+        j, t = JServeConfig(**kw), ServeConfig(**kw)
+        assert t.multi_model == j.multi_model
+        assert t.model_names() == j.model_names()
+        for key in (0.4, "0.4", 2.0, 1.0, None):
+            assert t.resolve_model(key) == j.resolve_model(key)

@@ -310,10 +310,7 @@ def test_serve_cli_async_and_live_source(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--workers", "2"], 10), (["--shards", "2"], 11),
-    (["--parallel"], 11), (["--online-latency"], 10),
-    (["--model", "tangram"], 10), (["--model-map", "0.5=tangram"], 10),
-    (["--placement", "round"], 10), (["--planner", "cost"], 11)])
+    (["--shards", "2"], 11), (["--parallel"], 11), (["--planner", "cost"], 11)])
 def test_unported_options_name_their_roadmap_item(flag, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP queue 1, item {item} "):
@@ -325,3 +322,199 @@ def test_serve_cli_cuda_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--frames", "2", "--canvas", "64"])
+
+
+# ------------------------------------------ models, pools, online tables ----
+
+MODEL_ARGS = ["--frames", "16", "--canvas", "128", "--slo", "0.5,2.0",
+              "--model-map", "0.5=vit_s16", "--model-map", "2.0=tangram"]
+
+
+class _JaxBuilt:
+    """A port registry spec whose ``build`` returns the JAX registry
+    build's weights (``jax.random`` seeded by the model's name) through
+    ``convert_params``."""
+
+    def __init__(self, name):
+        from repro_torch.core.models import make_model
+        self.name, self.spec = name, make_model(name)
+
+    def __getattr__(self, attr):
+        return getattr(self.spec, attr)
+
+    def build(self, canvas=None, reduced=True, device=None):
+        from repro.core.models import make_model as jmake_model
+        cfg, params, _, _ = jmake_model(self.name).build(canvas=canvas)
+        tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
+                                 dataclasses.fields(DetectorConfig)})
+        tparams = tdet.convert_params(
+            jax.tree_util.tree_map(np.asarray, params), tcfg,
+            torch.device("cpu"))
+        return tcfg, tparams, tdet.serve_fn(tcfg)
+
+
+def _step_clock(step=0.05):
+    """An executor clock that advances ``step`` a reading: an invocation's
+    measured wall time depends on the order of the executor's calls
+    alone, which both drivers share."""
+    calls = iter(range(1 << 30))
+    return lambda: next(calls) * step
+
+
+@pytest.fixture
+def pinned_drivers(monkeypatch):
+    """Both drivers on the JAX registry builds' weights, one fixed latency
+    table for every profile, and step clocks on every executor, so
+    invocation boundaries (online tables included) cannot depend on this
+    host's timing."""
+    from repro.core.latency import LatencyTable as JTable
+    monkeypatch.setattr(tserve, "make_model", _JaxBuilt)
+    monkeypatch.setattr(jserve, "measure",
+                        lambda *a, **k: JTable(dict(TABLE)))
+    monkeypatch.setattr(tserve, "profile",
+                        lambda *a, **k: LatencyTable(dict(TABLE)))
+    for mod in (jserve, tserve):
+        make = mod.make_executor
+        monkeypatch.setattr(
+            mod, "make_executor",
+            lambda name, _make=make, **cfg: _make(name, clock=_step_clock(),
+                                                  **cfg))
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--async-device"], ["--online-latency"],
+    ["--online-latency", "--async-device"],
+    ["--workers", "2", "--placement", "model"],
+    ["--workers", "2", "--placement", "model", "--online-latency"],
+    ["--workers", "2", "--placement", "affinity", "--fuse"],
+    ["--fuse", "--online-latency"]])
+def test_serve_cli_models_pools_online_match_jax_driver(extra,
+                                                        pinned_drivers,
+                                                        capsys):
+    """``--model-map`` over two registry models, ``--workers 2`` and
+    ``--online-latency``: N, M, D, the evidence MB and 0 frames held equal
+    the JAX driver's, and so do the patches each model served.  Which
+    worker takes an invocation follows the least-outstanding count, so
+    each executor's readiness probe (JAX arrays may still be computing on
+    the CPU; the port's CPU tensors are ready at once); the per-worker
+    rows, weight-cache hits and violations are not compared."""
+    jserve.main(MODEL_ARGS + extra)
+    want = capsys.readouterr().out
+    tserve.main(["--device", "cpu"] + MODEL_ARGS + extra)
+    got = capsys.readouterr().out
+    _assert_same_summary(_summary(got), _summary(want))
+    assert _summary(got)[0] > 0 and _summary(got)[2] > 0
+    for out in (want, got):
+        assert "models: tangram, vit_s16 (default tangram)" in out
+
+    def rows(out, prefix):
+        return [re.match(r"  \w+ \S+: \d+ \w+", line)[0]
+                for line in out.splitlines() if line.startswith(prefix)]
+    assert rows(got, "  model ") == rows(want, "  model ")
+    assert len(rows(got, "  model ")) == 2
+    workers = [int(n) for n in re.findall(r"  worker \d+: (\d+) invoc", got)]
+    assert sum(workers) == _summary(got)[1]
+    if "--workers" in extra:
+        assert "2 worker(s)" in got and len(workers) == 2
+    assert (", online latency" in got) == ("--online-latency" in extra)
+
+
+def test_serve_cli_quantize_maps_models_to_int8(monkeypatch, capsys):
+    """``--quantize`` with models serves their registered ``_int8``
+    variants (``vit_s16_int8``; ``efficientnet_b7`` has none)."""
+    tserve.main(["--device", "cpu", "--quantize", "--frames", "16",
+                 "--canvas", "128", "--slo", "0.5,2.0", "--model-map",
+                 "0.5=vit_s16", "--model-map", "2.0=efficientnet_b7"])
+    out = capsys.readouterr().out
+    assert "models: efficientnet_b7, vit_s16_int8" in out
+    assert ", int8" in out and _summary(out)[4] == 0
+    assert "  model vit_s16_int8:" in out
+
+
+def test_fused_model_runtimes_match_jax_unfused_engine(detector):
+    """``DeviceExecutor(models=, fuse=True)``: two registry models' fused
+    runtimes (K4/K3 plain versions) route what the JAX engine's unfused
+    executor routes with the same models, on one two-class trace."""
+    from repro.core.engine import InvokerPool as JInvokerPool
+    from repro.core.engine import ModelRuntime as JModelRuntime
+    from repro.core.engine import slo_class as jslo_class
+    from repro.core.invoker import SLOAwareInvoker as JSLOAwareInvoker
+    from repro.core.models import make_model as jmake_model
+    from repro_torch.core.engine import (DeviceExecutor, InvokerPool,
+                                         ModelRuntime, slo_class)
+    from repro_torch.core.invoker import SLOAwareInvoker
+
+    names = {0.3: "vit_s16", 5.0: "efficientnet_b7"}
+    frames, arrivals = {}, []
+    for i, slo in enumerate(sorted(names)):
+        src = jmake_source("synthetic", n_frames=16, canvas=CANVAS, slo=slo,
+                           scene=i, camera_id=i,
+                           frame_sink=lambda f, px, n:
+                           frames.__setitem__(f, (px, n)))
+        arrivals.extend(src.events(None))
+    arrivals.sort(key=lambda a: a.t_arrive)
+    jruntimes, truntimes = {}, {}
+    for name in names.values():
+        cfg, params, serve_fn, _ = jmake_model(name).build(canvas=CANVAS)
+        jruntimes[name] = JModelRuntime(serve_fn, params, CANVAS, CANVAS)
+        tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
+                                 dataclasses.fields(DetectorConfig)})
+        tparams = tdet.convert_params(
+            jax.tree_util.tree_map(np.asarray, params), tcfg,
+            torch.device("cpu"))
+        truntimes[name] = ModelRuntime(
+            tdet.serve_fn(tcfg), tparams, CANVAS, CANVAS,
+            **tserve.fused_fields(tcfg, tparams))
+    jparams, jfn, _, _ = detector[0]
+    tparams, tfn, tcfg = detector[1]
+    jex = JDeviceExecutor(jfn, jparams, CANVAS, CANVAS, clock=lambda: 0.0,
+                          models=jruntimes)
+    tex = DeviceExecutor(tfn, tparams, CANVAS, CANVAS, device="cpu",
+                         clock=lambda: 0.0, models=truntimes,
+                         **tserve.fused_kwargs(tcfg, tparams))
+    results = []
+    for ex, pool_cls, inv_cls, table_cls, cls_fn, engine_cls, patch_cls, \
+            arr_cls in (
+            (jex, JInvokerPool, JSLOAwareInvoker, JLatencyTable, jslo_class,
+             JServingEngine, None, None),
+            (tex, InvokerPool, SLOAwareInvoker, LatencyTable, slo_class,
+             ServingEngine, Patch, Arrival)):
+        routed, pixels = _capture(ex)
+        for fid, (px, n) in frames.items():
+            ex.add_frame(fid, px, n)
+        pool = pool_cls(lambda key, _i=inv_cls, _t=table_cls:
+                        _i(CANVAS, CANVAS, _t(dict(TABLE)), 4),
+                        classify=cls_fn, model_of=names.get)
+        engine = engine_cls(pool, ex)
+        engine.run(arrivals if patch_cls is None else
+                   [arr_cls(a.t_arrive,
+                            patch_cls(**dataclasses.asdict(a.patch)),
+                            a.n_bytes) for a in arrivals])
+        results.append(_result(engine, ex, routed, pixels))
+        results[-1]["models"] = sorted({inv.model
+                                        for inv in engine.invocations})
+    want, got = results
+    assert got["fused"] == len(got["bounds"]) >= 2 and want["fused"] == 0
+    assert got["models"] == want["models"] == sorted(names.values())
+    assert sum(len(v) for v in want["routed"].values()) > 0
+    _assert_same(got, want)
+
+
+def test_fused_executor_refuses_a_model_without_fused_fields():
+    """Every fused runtime needs the fused fields: an eager entry raises
+    at construction, a lazy one when it is first built."""
+    from repro_torch.core.engine import DeviceExecutor, ModelRuntime
+    cfg, params, fn = tserve.build_detector(CANVAS, device="cpu")
+    bare = ModelRuntime(fn, params, CANVAS, CANVAS)
+    with pytest.raises(ValueError, match="model 'plain' is missing"):
+        DeviceExecutor(fn, params, CANVAS, CANVAS, device="cpu",
+                       models={"plain": bare},
+                       **tserve.fused_kwargs(cfg, params))
+    ex = DeviceExecutor(fn, params, CANVAS, CANVAS, device="cpu",
+                        models={"lazy": lambda: bare},
+                        **tserve.fused_kwargs(cfg, params))
+    with pytest.raises(ValueError, match="model 'lazy' is missing"):
+        ex._runtime("lazy")
+    assert ex._runtime("unmapped") is ex.runtime
+    with pytest.raises(ValueError, match="default runtime is missing"):
+        DeviceExecutor(fn, params, CANVAS, CANVAS, device="cpu", fuse=True)
