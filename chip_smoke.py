@@ -85,6 +85,23 @@ Phases (any failure raises, so the exit code is non-zero):
    way; every model's invocations must launch K1/K2 (K4/K3) and the plain
    runs nothing, with 0 frames held; print the per-model and per-worker
    rows (weight hits, drift) and the invocations;
+5g. fleet sharding: three 2048x1024 cameras (24 frames each through K5)
+   served by the full-width ``tangram`` detector through the serve
+   driver's ``--shards 2`` objects (cameras 0 and 2 on shard 0, camera 1
+   on shard 1), each shard's sync executor on its own CUDA stream,
+   unfused and fused, sequential (``ShardedEngine``) and ``--parallel``
+   (``ParallelShardedEngine``, a thread a shard): require every patch
+   served, 0 frames held, each shard's trunk on its own stream, K1/K2
+   (K4/K3) launched once an invocation summed over the shards, the same
+   per-shard boundaries, evidence and detections (heads bit-equal, or the
+   difference printed and held to phase 5b's limits) sequential and
+   parallel, every invocation replayed through a plain executor and held
+   as phase 5f holds its pool, and the shards' patches those of the
+   unsharded run; print the shard rows, stream ids and wall times; then
+   ``TangramScheduler(shards=4, planner="cost")`` over 1,000 simulated
+   cameras (``FleetCameraSource``, 60 s) on phase 5e's table, sequential
+   and parallel, with equal ``Results.summary()`` required and the host's
+   arrivals per second printed;
 6. time each kernel against its plain version and its bound (K1-K4 at the
    main path's largest invocation, K4 and K3 again at ``vit_s16``'s and K4
    at ``efficientnet_b7``'s largest fused invocation of phase 5f, K5 on
@@ -141,6 +158,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import gc
@@ -177,9 +195,10 @@ from repro_torch.core.partitioning import Patch  # noqa: E402
 from repro_torch.core.rois import RoIConfig, extract_rois  # noqa: E402
 from repro_torch.core.scheduler import TangramScheduler  # noqa: E402
 from repro_torch.core.stitching import build_batch_plan, stitch  # noqa: E402
+from repro_torch.core.fleet import fleet_uniform_pool  # noqa: E402
 from repro_torch.core.workers import (  # noqa: E402
-    WorkerPoolExecutor, device_worker_pool, make_placement, weight_caches,
-    worker_device)
+    WorkerPoolExecutor, device_worker_pool, make_placement,
+    share_frame_store, weight_caches, worker_device)
 from repro_torch.data.synthetic import Scene, preset  # noqa: E402
 from repro_torch.data.video import load_frames  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -194,7 +213,7 @@ from repro_torch.kernels.stitch import ops as stitch_ops  # noqa: E402
 from repro_torch.kernels.stitch import stitch as stitch_kernels  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     build_source, detail_lines, fused_fields, fused_kwargs, profile,
-    summary_line)
+    shard_lines, shard_stream, sharded_engine, summary_line)
 from repro_torch.models import detector as detector_lib  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -202,7 +221,7 @@ from repro_torch.models import vit  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
 from repro_torch.serverless.platform import (  # noqa: E402
     Platform, PlatformConfig)
-from repro_torch.sources import make_source  # noqa: E402
+from repro_torch.sources import FleetCameraSource, make_source  # noqa: E402
 
 CANVAS = 1024
 PATCH = 32
@@ -284,6 +303,14 @@ SIM_SLOS = (0.5, 1.0, 1.5)
 # each, on one camera a class.
 MODEL_MAP = {"0.5": "vit_s16", "1.0": "efficientnet_b7", "2.0": "tangram"}
 MODEL_FRAMES = 24
+# Phase 5g: fleet sharding.  Three 2048x1024 cameras served as the serve
+# driver's --cameras 3 --shards 2 serves them (cameras 0 and 2 on shard 0,
+# camera 1 on shard 1: the trace has no camera rates), each shard's
+# executor on its own CUDA stream; then 1,000 simulated cameras through
+# four shards on a table profiled on the card.  SLO 0.5 s, as phase 4's
+# tighter trace, so that each shard fires several invocations.
+SHARD_CAMERAS, SHARD_FRAMES, SHARD_SLO, SHARDS = 3, 24, 0.5, 2
+FLEET_CAMERAS, FLEET_SECONDS, FLEET_SHARDS = 1000, 60.0, 4
 
 
 def log(msg: str) -> None:
@@ -1394,12 +1421,12 @@ def sim_streams(device):
             for _, ps in sorted(by_cam.items())]
 
 
-def simulation_phase(build, device) -> None:
+def simulation_phase(build, device):
     """Phase 5e: the paper's comparison (``benchmarks/fig12_e2e.py``'s
     grid: bandwidth x SLO; Tangram, Clipper, ELF, MArk, each on its own
     ``Platform(table, PlatformConfig())``) in simulation, on a latency
     table measured on the card over canvas batches of the full-width
-    detector."""
+    detector; returns that table."""
     cfg, params, serve_fn = build
     table = profile(serve_fn, params, CANVAS, CANVAS, device,
                     batch_sizes=(1, 2, 4, 8))
@@ -1444,6 +1471,7 @@ def simulation_phase(build, device) -> None:
                     + saving)
     log(f"  simulated {len(SIM_BWS) * len(SIM_SLOS)} cells x 4 arms in "
         f"{time.perf_counter() - t0:.2f}s")
+    return table
 
 
 # --------------------------------------------------------------- phase 5f ----
@@ -1738,6 +1766,311 @@ def models_phase(build, device, by_path: dict) -> dict:
                     f"models_{kind}_{key}"] = row
     return {"builds": builds, "frames": frames, "fused": runs["fused"],
             "by_model_path": per_model}
+
+
+# --------------------------------------------------------------- phase 5g ----
+
+def shard_trace(device):
+    """Phase 5g's trace: ``SHARD_CAMERAS`` 2048x1024 cameras (scenes and
+    camera ids 0-2) through K5, merged as the serve driver's ``--cameras``
+    makes them (its ``build_source``)."""
+    frames = {}
+    args = argparse.Namespace(
+        frames=SHARD_FRAMES, canvas=CANVAS, bandwidth_mbps=40.0,
+        overload="drop", fps=10.0, source="trace", scene=0,
+        cameras=SHARD_CAMERAS, frames_path=None)
+    reset_launches()
+    t0 = time.perf_counter()
+    src = build_source(args, slos=[SHARD_SLO], device=device,
+                       frame_sink=lambda f, rgb, n:
+                       frames.__setitem__(f, (rgb, n)))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    cams = sorted({a.patch.camera_id for a in src.arrivals})
+    log(f"  edge: {SHARD_CAMERAS} cameras x {SHARD_FRAMES} frames of "
+        f"{2 * CANVAS}x{CANVAS} -> {len(src.arrivals)} patches from cameras "
+        f"{cams} in {time.perf_counter() - t0:.2f}s, launches {launches}")
+    if launches["gmm_update"] != SHARD_CAMERAS * SHARD_FRAMES:
+        raise AssertionError(f"phase 5g edge: K5 launched "
+                             f"{launches['gmm_update']} times")
+    if {c % SHARDS for c in cams} != set(range(SHARDS)):
+        raise AssertionError(f"phase 5g: cameras {cams} leave a shard idle")
+    return src.arrivals, frames, launches
+
+
+def new_record() -> dict:
+    return {"invs": [], "outputs": {}, "heads": [], "streams": []}
+
+
+def shard_runtime(build, rec: dict, fuse: bool, device) -> ModelRuntime:
+    """:func:`recording_runtime` that also notes the stream current when
+    the trunk is called (the shard's own, if the executor entered it)."""
+    rt = recording_runtime(build, rec["heads"], fuse)
+
+    def on_stream(fn):
+        def run(p, x):
+            rec["streams"].append(torch.cuda.current_stream(device))
+            return fn(p, x)
+        return run
+
+    rt.serve_fn = on_stream(rt.serve_fn)
+    if fuse:
+        rt.tokens_fn = on_stream(rt.tokens_fn)
+    return rt
+
+
+def shard_executor(rt: ModelRuntime, impl, fuse, device, stream, rec):
+    """A sync executor over ``rt`` (on ``stream``), instrumented:
+    ``rec["invs"]`` gets each invocation as it launches, ``rec["outputs"]``
+    what each completion routed."""
+    fused = {}
+    if fuse:
+        fused = dict(fuse=True, tokens_fn=rt.tokens_fn,
+                     embed_kernel=rt.embed_kernel, embed_bias=rt.embed_bias,
+                     patch=rt.patch)
+    ex = make_executor("device", serve_fn=rt.serve_fn, params=rt.params,
+                       canvas_m=CANVAS, canvas_n=CANVAS, device=device,
+                       impl=impl, stream=stream, **fused)
+    launch, release = ex._launch, ex.on_complete
+
+    def recorded(inv):
+        rec["invs"].append(inv)
+        return launch(inv)
+
+    def on_complete(comp):
+        rec["outputs"][id(comp.invocation)] = comp.outputs
+        release(comp)
+
+    ex._launch, ex.on_complete = recorded, on_complete
+    return ex
+
+
+def shard_result(rec: dict) -> dict:
+    """One shard's run in :func:`serve_run`'s shape, in launch order."""
+    routed, pixels = {}, {}
+    for inv in rec["invs"]:
+        per_frame, per_frame_pixels = rec["outputs"][id(inv)]
+        for fid, dets in per_frame.items():
+            routed.setdefault(fid, []).extend(dets)
+        for fid, px in per_frame_pixels.items():
+            pixels.setdefault(fid, []).extend(px)
+    return {"routed": routed, "pixels": pixels, "invocations": rec["invs"],
+            "bounds": [[(p.frame_id, p.x0, p.y0) for p in inv.patches]
+                       for inv in rec["invs"]],
+            "heads": [tuple(t.float().cpu().numpy() for t in h)
+                      for h in rec["heads"]]}
+
+
+def sharded_serve(build, table, arrivals, frames, device, fuse: bool,
+                  parallel: bool) -> dict:
+    """The trace through the serve driver's ``--shards 2`` objects
+    (``--parallel`` with ``parallel``): one kernel executor a shard on
+    ``worker_device(i)`` and its own stream from ``shard_stream``, one
+    shared frame store, ``sharded_engine`` over fleet invoker pools on
+    the profiled table, the virtual clock."""
+    config = ServeConfig(max_canvases=4, executor="device", fuse=fuse,
+                         shards=SHARDS, parallel=parallel)
+    recs = [new_record() for _ in range(SHARDS)]
+    streams, executors = [], []
+    for s in range(SHARDS):
+        dev = worker_device(s, device)
+        if dev.type != device.type:
+            raise AssertionError(f"shard {s} on {dev}, not on {device}")
+        streams.append(shard_stream(dev))
+        rt = shard_runtime(build, recs[s], fuse, dev)
+        executors.append(shard_executor(rt, None, fuse, dev, streams[s],
+                                        recs[s]))
+    share_frame_store(executors)
+    for fid, (rgb, n) in frames.items():
+        executors[0].add_frame(fid, rgb, n)
+    source = make_source("trace", arrivals=arrivals)
+    engine = sharded_engine(
+        config, executors,
+        lambda fleet: fleet_uniform_pool(CANVAS, CANVAS, table,
+                                         max_canvases=config.max_canvases),
+        source, table)
+    torch.cuda.synchronize()       # the weights, written on another stream
+    reset_launches()
+    t0 = time.perf_counter()
+    engine.serve(source)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    what = (f"shards {'fused' if fuse else 'unfused'} "
+            f"{'parallel' if parallel else 'sequential'}")
+    log(f"  [{what}] " + summary_line(engine, executors, source.stats(),
+                                      config, wall))
+    for line in shard_lines(engine):
+        log(line)
+    # each sync invocation's measured wall, summed over both shards: above
+    # the run's wall only where the shards' invocations overlapped
+    busy = sum(c.t_finish - c.invocation.t_submit for c in engine.completions)
+    log(f"    invocation walls sum to {busy:.3f} s in a {wall:.3f} s run "
+        f"({busy / wall:.2f}x)")
+    n_inv = len(engine.invocations)
+    kernels = FUSED if fuse else UNFUSED
+    if any(launches[k] != (n_inv if k in kernels else 0) for k in launches):
+        raise AssertionError(f"{what}: launches {launches} for {n_inv} "
+                             f"invocations, expected {kernels} once each")
+    if len(engine.outcomes) != len(arrivals) or len(executors[0].frames):
+        raise AssertionError(f"{what}: {len(engine.outcomes)} of "
+                             f"{len(arrivals)} patches, "
+                             f"{len(executors[0].frames)} frames held")
+    for s, (rec, stream) in enumerate(zip(recs, streams)):
+        if not rec["streams"] or any(x != stream for x in rec["streams"]):
+            raise AssertionError(f"{what}: shard {s}'s trunk ran on "
+                                 f"{set(rec['streams'])}, not its stream "
+                                 f"{stream}")
+        log(f"    shard {s}: stream id {stream.stream_id} "
+            f"(0x{stream.cuda_stream:x}) on {stream.device} carried "
+            f"{len(rec['streams'])} invocations, "
+            f"{sum(len(i.patches) for i in rec['invs'])} patches")
+    if streams[0] == streams[1]:
+        raise AssertionError(f"{what}: the shards share a stream")
+    return {"shards": [shard_result(r) for r in recs], "wall": wall,
+            "launches": launches, "engine": engine,
+            "rows": engine.shard_stats()}
+
+
+def shard_replay(kern: dict, build, frames, device, fuse: bool) -> list:
+    """Every invocation of each shard of ``kern`` again, in launch order,
+    through one sync executor on the plain versions (the current
+    stream)."""
+    recs = [new_record() for _ in kern["shards"]]
+    executors = [shard_executor(recording_runtime(build, rec["heads"], fuse),
+                                "torch", fuse, device, None, rec)
+                 for rec in recs]
+    share_frame_store(executors)
+    for fid, (rgb, n) in frames.items():
+        executors[0].add_frame(fid, rgb, n)
+    reset_launches()
+    for ex, shard in zip(executors, kern["shards"]):
+        for inv in shard["invocations"]:
+            ex.on_complete(ex.submit(inv).completion)
+    if len(executors[0].frames) != 0:
+        raise AssertionError(f"plain replay: {len(executors[0].frames)} "
+                             f"frames held")
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"plain replay launched {dict(LAUNCHES)}")
+    return [shard_result(rec) for rec in recs]
+
+
+def heads_diff(a: dict, b: dict) -> float:
+    return max((float(np.abs(x - y).max()) for ha, hb in
+                zip(a["heads"], b["heads"]) for x, y in zip(ha, hb)),
+               default=0.0)
+
+
+def same_shard_runs(seq: dict, par: dict, fuse: bool) -> None:
+    """Sequential against parallel, shard by shard: equal boundaries and
+    evidence, and head outputs bit-equal with equal detections; where the
+    heads are not bit-equal, the largest difference is printed and the
+    fused runs are held to phase 5b's limits."""
+    for s, (a, b) in enumerate(zip(seq["shards"], par["shards"])):
+        what = f"shard {s} {'fused' if fuse else 'unfused'} parallel vs " \
+               f"sequential"
+        same_bounds_and_evidence(a, b, what)
+        if len(a["heads"]) == len(b["heads"]) and heads_diff(a, b) == 0.0:
+            same_result(a, b, what)
+            continue
+        log(f"  {what}: head outputs differ by up to {heads_diff(a, b):.4g}")
+        if not fuse:
+            raise AssertionError(f"{what}: unfused heads differ")
+        compare_fused(a, b, what)
+
+
+def covers_unsharded(run: dict, unsharded: dict, what: str) -> None:
+    """The shards' outcomes together cover exactly the unsharded run's
+    patches."""
+    got = collections.Counter(
+        (o.patch.frame_id, o.patch.x0, o.patch.y0, o.patch.x1, o.patch.y1)
+        for o in run["engine"].outcomes)
+    want = collections.Counter(
+        (p.frame_id, p.x0, p.y0, p.x1, p.y1)
+        for inv in unsharded["invocations"] for p in inv.patches)
+    if got != want:
+        raise AssertionError(f"{what}: the shards served {sum(got.values())} "
+                             f"patches, the unsharded run "
+                             f"{sum(want.values())}, not the same ones")
+
+
+def fleet_simulation(table, card: str) -> None:
+    """``TangramScheduler`` with ``shards=FLEET_SHARDS`` and the cost
+    planner over ``FLEET_CAMERAS`` simulated cameras, sequential and
+    ``parallel=True``, on a table profiled on the card: equal summaries,
+    per-shard rows included.  The host's arrival rate is a reading."""
+    summaries = {}
+    for parallel in (False, True):
+        src = FleetCameraSource(n_cameras=FLEET_CAMERAS,
+                                duration_s=FLEET_SECONDS, seed=0)
+        sched = TangramScheduler(
+            CANVAS, CANVAS, table, Platform(table, PlatformConfig()),
+            config=ServeConfig(shards=FLEET_SHARDS, planner="cost",
+                               parallel=parallel))
+        t0 = time.perf_counter()
+        res = sched.serve_source(src, name="fleet")
+        wall = time.perf_counter() - t0
+        summary = summaries[parallel] = res.summary()
+        log(f"  fleet {'parallel' if parallel else 'sequential'}: "
+            f"{FLEET_CAMERAS} cameras x {FLEET_SECONDS:.0f} s, "
+            f"{res.n_patches} arrivals in {wall:.3f} s of host time "
+            f"({res.n_patches / wall:.1f} arrivals/s), violation rate "
+            f"{summary['violation_rate']}, cost ${summary['cost_usd']}, "
+            f"{summary['invocations']} invocations ({card})")
+        for row in summary["per_shard"]:
+            log(f"    shard {row['shard']}: {row['cameras']} cameras, "
+                f"{row['arrivals']} arrivals, {row['invocations']} "
+                f"invocations, {row['violations']} violations, utilization "
+                f"{row.get('utilization')}")
+        if res.n_patches != src.stats().arrivals or res.n_patches == 0:
+            raise AssertionError(f"fleet: {res.n_patches} of "
+                                 f"{src.stats().arrivals} arrivals served")
+    if summaries[True] != summaries[False]:
+        raise AssertionError("fleet: parallel and sequential summaries "
+                             "differ")
+    log("  fleet: parallel and sequential Results.summary() equal, "
+        "per-shard rows included")
+
+
+def shards_phase(build, table, sim_table, device, by_path: dict,
+                 card: str) -> None:
+    """Phase 5g: the three-camera trace through two shards, unfused and
+    fused, sequential and parallel, each shard on its own stream, against
+    each other, the plain versions and the unsharded run; then the
+    simulated fleet."""
+    arrivals, frames, edge = shard_trace(device)
+    by_path["shards_edge"] = edge
+    unsharded = serve_run("device", None, build, table,
+                          trace_source(arrivals, frames), device)
+    check_launches(unsharded, UNFUSED, "unsharded")
+    by_path["shards_unsharded"] = unsharded["launches"]
+    for fuse in (False, True):
+        kind = "fused" if fuse else "unfused"
+        runs = {}
+        for parallel in (False, True):
+            run = sharded_serve(build, table, arrivals, frames, device, fuse,
+                                parallel)
+            key = "parallel" if parallel else "sequential"
+            by_path[f"shards_{kind}_{key}"] = run["launches"]
+            covers_unsharded(run, unsharded, f"shards {kind} {key}")
+            runs[key] = run
+        seq, par = runs["sequential"], runs["parallel"]
+        for s, (a, b) in enumerate(zip(seq["shards"], par["shards"])):
+            if not a["bounds"]:
+                raise AssertionError(f"shard {s} {kind}: no invocations")
+        same_shard_runs(seq, par, fuse)
+        plain = shard_replay(seq, build, frames, device, fuse)
+        by_path[f"shards_{kind}_plain"] = dict(LAUNCHES)
+        for s, (a, b) in enumerate(zip(seq["shards"], plain)):
+            what = f"shard {s} {kind} kernels vs plain"
+            if fuse:
+                compare_fused(a, b, what)
+            else:
+                same_result(a, b, what)
+        log(f"  shards {kind}: wall {seq['wall']:.3f} s sequential, "
+            f"{par['wall']:.3f} s parallel ({card})")
+        del runs, seq, par, plain
+    fleet_simulation(sim_table, card)
 
 
 # ---------------------------------------------------------------- phase 6 ----
@@ -2921,7 +3254,7 @@ def main() -> None:
         f"static table {static:.4f}, online table {online:.4f}")
     log("phase 5e: Tangram, Clipper, ELF and MArk in simulation on a table "
         "measured on the card")
-    simulation_phase(build, device)
+    sim_table = simulation_phase(build, device)
 
     log(f"phase 4c: a {EDGE_FRAMES}-frame {CAM_W}x{CAM_H} recording through "
         f"make_source('file') and the fused full-width serve")
@@ -2941,6 +3274,12 @@ def main() -> None:
         f"fused), then a two-worker model-placement pool with online "
         f"latency tables")
     models = models_phase(build, device, by_path)
+    log(f"phase 5g: fleet sharding: {SHARD_CAMERAS} 2048x1024 cameras "
+        f"through {SHARDS} shards (camera_id % {SHARDS}), each shard's "
+        f"executor on its own CUDA stream, unfused and fused, sequential "
+        f"and parallel; then {FLEET_CAMERAS} simulated cameras through "
+        f"{FLEET_SHARDS} shards")
+    shards_phase(build, table, sim_table, device, by_path, card)
 
     # "launches": the main path (the sync kernel serves: unfused for K1/K2,
     # fused for K4/K3; the 4K file serve with kernels for K5); each path's

@@ -5,12 +5,10 @@ registry name (``make_classify`` / ``make_clock`` / ``make_executor`` /
 ``make_source`` resolve them), so a config round-trips through JSON with
 ``to_dict`` / ``from_dict`` (the nested ``AIMDConfig`` included).
 
-The fleet's fields (``shards``, ``planner``, ``parallel``) are kept so
-that a JAX config loads here, but nothing in the port runs them yet:
-``TangramScheduler`` refuses each with ``NotImplementedError`` naming
-ROADMAP item 11, as the serve driver does.  Model routing
-(``model`` / ``model_map``: :meth:`ServeConfig.resolve_model`), worker
-pools (``n_workers``, ``placement``) and the online latency table run.
+Model routing (``model`` / ``model_map``:
+:meth:`ServeConfig.resolve_model`), worker pools (``n_workers``,
+``placement``), the online latency table and fleet sharding (``shards``,
+``planner``, ``parallel``) all run.
 """
 from __future__ import annotations
 
@@ -20,14 +18,6 @@ from typing import Callable, Dict, Optional
 from repro_torch.core.adaptive import AIMDConfig
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.registry import lookup
-
-#: ServeConfig fields the port does not run yet -> the ROADMAP item that
-#: ports them (the serve driver's flags and ``TangramScheduler`` name it)
-UNPORTED = {
-    "shards": "ROADMAP queue 1, item 11 (fleet sharding)",
-    "parallel": "ROADMAP queue 1, item 11 (fleet sharding)",
-    "planner": "ROADMAP queue 1, item 11 (fleet sharding)",
-}
 
 #: classifier registry for the ``classify`` field (None: one shared
 #: queue); register project classifiers so configs stay serializable
@@ -73,7 +63,7 @@ class ServeConfig:
     placement: Optional[str] = None  # least | round | affinity | model
                                      # (None: least)
 
-    # --- fleet sharding (ROADMAP item 11) ---------------------------------
+    # --- fleet sharding (core.fleet, core.parallel) -----------------------
     shards: Optional[int] = None
     planner: Optional[str] = None    # cost | equal
     parallel: bool = False
@@ -89,7 +79,7 @@ class ServeConfig:
     online_latency: bool = False     # OnlineLatencyTable feedback loop
 
     # --- ingestion (source layer) ---------------------------------------
-    source: str = "trace"            # trace | synthetic | file
+    source: str = "trace"            # trace | synthetic | file | fleet
     ingestion_window: Optional[int] = None  # backlog bound, in patches
 
     def __post_init__(self):

@@ -22,7 +22,10 @@ Completion``.  :class:`SimExecutor` submits to the serverless
 :class:`AsyncDeviceExecutor` returns once the work is queued on the card
 and reports readiness through a ``torch.cuda.Event`` recorded after the
 launch, probed with ``.query()`` (on the CPU every launch is ready at
-once).  Invocation boundaries depend only on arrivals and the batcher, so
+once).  ``DeviceExecutor(stream=)`` puts an executor's uploads, kernels,
+``done`` event and host copies on a CUDA stream of its own, so the fleet's
+shards (:mod:`.fleet`, :mod:`.parallel`) share one card without sharing a
+queue.  Invocation boundaries depend only on arrivals and the batcher, so
 a trace produces the same patch->invocation groupings on all three.  A
 :class:`~repro_torch.core.workers.WorkerPoolExecutor` puts several
 executors behind the same protocol: handles ready together deliver in
@@ -112,7 +115,7 @@ class Results:
     model_stats: Optional[dict] = None  # per-model platform counters
                                       # (Platform.model_stats())
     shard_stats: Optional[List[dict]] = None  # per-shard fleet rows
-                                      # (fleet sharding: ROADMAP item 11)
+                                      # (ShardedEngine.shard_stats)
 
     @property
     def n_patches(self) -> int:
@@ -389,6 +392,9 @@ class SimExecutor:
     def resolve(self, handle: ExecHandle) -> Completion:
         return handle.completion
 
+    def execute(self, inv: Invocation) -> Completion:  # legacy shim
+        return self.resolve(self.submit(inv))
+
 
 @dataclasses.dataclass
 class ModelRuntime:
@@ -436,6 +442,15 @@ class DeviceExecutor:
     mapping, run the default runtime of the positional arguments.  With
     ``fuse=True`` every runtime must carry the fused fields: an eager
     entry is checked at construction, a lazy one when it is built.
+
+    ``stream`` (a ``torch.cuda.Stream`` of the executor's device; the
+    counterpart of the JAX executor's ``mesh=``): :meth:`_launch`,
+    :meth:`_record_done` and :meth:`_finalize` each run inside
+    ``torch.cuda.stream(stream)``, so the slot and record uploads, every
+    kernel, the trunk, the ``done`` event and the host copies land on it.
+    Each method enters the stream itself, because the current stream is
+    per thread and one thread may drive several executors.  ``None``
+    keeps the thread's current stream.
     """
 
     def __init__(self, serve_fn, params, canvas_m: int, canvas_n: int, *,
@@ -445,7 +460,8 @@ class DeviceExecutor:
                  embed_kernel: Optional[torch.Tensor] = None,
                  embed_bias: Optional[torch.Tensor] = None,
                  patch: Optional[int] = None,
-                 models: Optional[Dict[str, object]] = None):
+                 models: Optional[Dict[str, object]] = None,
+                 stream: Optional[torch.cuda.Stream] = None):
         if impl is not None and impl not in stitch_ops.IMPLS:
             raise ValueError(f"unknown stitch impl {impl!r}; choose from "
                              f"{list(stitch_ops.IMPLS)}")
@@ -460,6 +476,10 @@ class DeviceExecutor:
             if isinstance(entry, ModelRuntime):
                 self._runtimes[name] = self._checked(entry, name)
         self.device = resolve_device(device)
+        if stream is not None and not _on_device(stream, self.device):
+            raise ValueError(f"stream on {stream.device} for an executor on "
+                             f"{self.device}")
+        self.stream = stream
         self.impl = impl
         self.clock = clock
         self.store = FrameStore()
@@ -513,11 +533,19 @@ class DeviceExecutor:
     def frames(self) -> Dict[object, np.ndarray]:
         return self.store.snapshot()
 
+    @property
+    def _refs(self) -> Dict[object, int]:
+        return self.store.refs_snapshot()
+
     # --------------------------------------------------------- execution ----
 
     def _launch(self, inv: Invocation) -> dict:
         """Host-side packing + queueing of the device work; nothing here
         waits for the card (the host-to-device copies aside)."""
+        with torch.cuda.stream(self.stream):
+            return self._queue(inv)
+
+    def _queue(self, inv: Invocation) -> dict:
         t0 = self.clock()
         rt = self._runtime(inv.model)
         plan = inv.batch_plan()
@@ -545,7 +573,7 @@ class DeviceExecutor:
             self.n_invocations += 1
             self.n_fused += 1
             return {"plan": plan, "fused": fused, "slots": host_slots,
-                    "done": self._record_done(), "t0": t0}
+                    "done": self._record_done(fused), "t0": t0}
         canvases = stitch_ops.stitch_canvases(
             slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
         obj, boxes = rt.serve_fn(rt.params, canvases)
@@ -557,19 +585,29 @@ class DeviceExecutor:
             impl=self.impl)
         self.n_invocations += 1
         return {"plan": plan, "obj": obj, "boxes": boxes,
-                "patch_out": patch_out, "done": self._record_done(),
-                "t0": t0}
+                "patch_out": patch_out,
+                "done": self._record_done(obj, boxes, patch_out), "t0": t0}
 
-    def _record_done(self) -> Optional[torch.cuda.Event]:
-        """An event after the queued work on a card; ``None`` on the CPU."""
-        if self.device.type != "cuda":
-            return None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return done
+    def _record_done(self, *outputs):
+        """What :meth:`AsyncDeviceExecutor.ready` probes with ``query()``.
+        On a card: an event recorded after the queued work, on the
+        executor's stream, always.  Off a card: the first output with a
+        ``query()`` of its own (a stand-in accelerator's future,
+        :mod:`.devicestub`, whose outputs of one call finish together), or
+        ``None`` when every output is ready already."""
+        if self.device.type == "cuda":
+            with torch.cuda.stream(self.stream):
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            return done
+        return next((o for o in outputs if hasattr(o, "query")), None)
 
     def _finalize(self, inv: Invocation, payload: dict) -> Completion:
         """Copy the outputs to the host (waits for the card) and route."""
+        with torch.cuda.stream(self.stream):
+            return self._route(inv, payload)
+
+    def _route(self, inv: Invocation, payload: dict) -> Completion:
         plan = payload["plan"]
         if "fused" in payload:
             per_frame = stitch_ops.route_fused(
@@ -607,6 +645,19 @@ class DeviceExecutor:
             handle.payload = None
         return handle.completion
 
+    def execute(self, inv: Invocation) -> Completion:  # legacy shim
+        return self.resolve(self.submit(inv))
+
+
+def _on_device(stream, device: torch.device) -> bool:
+    """True when ``stream`` belongs to ``device`` (an index-less ``cuda``
+    device means the current one)."""
+    if device.type != "cuda" or stream.device.type != "cuda":
+        return False
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return stream.device.index == index
+
 
 class AsyncDeviceExecutor(DeviceExecutor):
     """Overlapped device execution: submit returns once the work is queued
@@ -616,7 +667,8 @@ class AsyncDeviceExecutor(DeviceExecutor):
     ``max_inflight`` bounds the unresolved handles the engine may hold
     (each pins device memory for its canvases and outputs).  Readiness is
     the ``torch.cuda.Event`` recorded after the launch (``.query()``);
-    on the CPU every launch is ready.
+    on the CPU every launch is ready, unless a stand-in accelerator's
+    future is still pending (:meth:`DeviceExecutor._record_done`).
     """
 
     def __init__(self, *args, max_inflight: int = 4, **kwargs):
@@ -652,7 +704,7 @@ def make_executor(name: str, **cfg):
     cls = lookup("executor", _EXECUTORS, name)
     device_only = {"fuse", "tokens_fn", "embed_kernel", "embed_bias",
                    "patch", "serve_fn", "params", "canvas_m", "canvas_n",
-                   "device", "impl", "clock", "models"}
+                   "device", "impl", "clock", "models", "stream"}
     sim_only = {"platform", "model_loads", "model_tables"}
     if cls is SimExecutor:
         drop = {"max_inflight"} | device_only
@@ -782,6 +834,14 @@ class ServingEngine:
         return t
 
     # ------------------------------------------------- ingestion window ----
+
+    def queued_patches(self) -> int:
+        """Patches accepted but not yet fired (pool queues)."""
+        return self._queued
+
+    def inflight_patches(self) -> int:
+        """Patches inside unresolved invocations (scheduled + in flight)."""
+        return self._inflight_count
 
     def backlog(self) -> int:
         """Unfinished patches (queued + in flight), O(1)."""

@@ -4,7 +4,9 @@ Port of ``repro/core/framestore.py``.  ``add`` registers a frame with one
 reference per patch cut from it, ``release`` drops one at completion
 delivery, and the frame is evicted when its last patch has been routed.
 Frame ids hash onto independent ``(lock, frames, refs)`` stripes, so
-threads touching different frames rarely contend.
+threads touching different frames rarely contend; the fleet's shard
+threads share one store, since patches of one frame may route to any
+shard.
 """
 from __future__ import annotations
 
@@ -70,4 +72,12 @@ class FrameStore:
         for lock, frames, _ in self._stripes:
             with lock:
                 out.update(frames)
+        return out
+
+    def refs_snapshot(self) -> Dict:
+        """Point-in-time ``{frame_id: live patch refs}`` copy."""
+        out: Dict = {}
+        for lock, _, refs in self._stripes:
+            with lock:
+                out.update(refs)
         return out

@@ -32,6 +32,8 @@ class Invocation:
     cost_canvases: Optional[float] = None  # billing override (baselines)
     model: Optional[str] = None  # registry model name (None: the
                                 # implicit single model)
+    shard: Optional[int] = None  # fleet shard that fired it (tagged by
+                                # ShardedEngine; None outside a fleet)
 
     @property
     def batch_size(self) -> int:

@@ -23,11 +23,14 @@ model's name to the executor, the placement and the platform's per-model
 warm pools.  ``config.n_workers > 1`` or ``online_latency`` run a
 :class:`~repro_torch.core.workers.WorkerPoolExecutor` over platform
 shards, with an :class:`~repro_torch.core.latency.OnlineLatencyTable`
-(one a model, in a ``LatencyBank``) fed by every completion.  Fleet
-sharding (``shards``, ROADMAP item 11) is not ported: the scheduler
-refuses it naming the item.  The pre-config keyword arguments
-(``max_canvases=``, ``adaptive=``, ...) still work through a deprecation
-shim that warns once and forwards onto the config.
+(one a model, in a ``LatencyBank``) fed by every completion.
+``config.shards`` serves through a
+:class:`~repro_torch.core.fleet.ShardedEngine` (``parallel=True``: a
+:class:`~repro_torch.core.parallel.ParallelShardedEngine`, a thread a
+shard) laid out by ``config.planner``, and fills ``Results.shard_stats``.
+The pre-config keyword arguments (``max_canvases=``, ``adaptive=``, ...)
+still work through a deprecation shim that warns once and forwards onto
+the config.
 """
 from __future__ import annotations
 
@@ -37,17 +40,22 @@ from typing import Callable, Optional, Sequence
 from repro_torch.core.adaptive import (AdaptiveInvokerPool,
                                        adaptive_uniform_pool)
 from repro_torch.core.clock import Clock, make_clock
-from repro_torch.core.config import UNPORTED, ServeConfig, make_classify
+from repro_torch.core.config import ServeConfig, make_classify
 from repro_torch.core.engine import (InvokerPool, PatchOutcome, Results,
                                      ServingEngine, SimExecutor,
                                      uniform_pool)
+from repro_torch.core.fleet import (FleetCostModel, FleetInvokerPool,
+                                    FleetPlan, ShardedEngine,
+                                    fleet_uniform_pool, make_planner)
 from repro_torch.core.invoker import SLOAwareInvoker
 from repro_torch.core.latency import (LatencyBank, LatencyTable,
                                       OnlineLatencyTable)
 from repro_torch.core.models import make_model
+from repro_torch.core.parallel import ParallelShardedEngine
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.registry import unknown_name
-from repro_torch.core.workers import WorkerPoolExecutor, make_placement
+from repro_torch.core.workers import (ReservedClassPlacement,
+                                      WorkerPoolExecutor, make_placement)
 from repro_torch.serverless.platform import (Platform, mean_consolidation,
                                              split_platform)
 from repro_torch.serverless.platform import model_stats as records_model_stats
@@ -70,11 +78,6 @@ def _warn_legacy_once(names):
         f"TangramScheduler keyword arguments {sorted(names)} are "
         f"deprecated; pass config=ServeConfig(...) instead "
         f"(repro_torch.core.config)", DeprecationWarning, stacklevel=3)
-
-
-def _unported(field: str, value) -> NotImplementedError:
-    return NotImplementedError(f"ServeConfig.{field}={value!r} is not "
-                               f"ported yet: {UNPORTED[field]}")
 
 
 class TangramScheduler:
@@ -117,8 +120,6 @@ class TangramScheduler:
                     fields[name] = value
             config = config.replace(**fields)
 
-        if config.shards is not None:
-            raise _unported("shards", config.shards)
         self.config = config
         classify = (classify_override if classify_override is not None
                     else make_classify(config.classify))
@@ -154,25 +155,36 @@ class TangramScheduler:
                                        incremental=config.incremental)
 
             pool_classify = classify or (lambda p: None)
-            if config.adaptive is not None:
-                self.pool = AdaptiveInvokerPool(
-                    make_invoker, pool_classify, config.adaptive,
-                    model_of=config.resolve_model)
-            else:
-                self.pool = InvokerPool(make_invoker, pool_classify,
-                                        model_of=config.resolve_model)
+
+            def make_pool(fleet: bool = False):
+                # adaptive pools keep the stock scan in a fleet too (the
+                # heap pool decides the same, only faster)
+                if config.adaptive is not None:
+                    return AdaptiveInvokerPool(
+                        make_invoker, pool_classify, config.adaptive,
+                        model_of=config.resolve_model)
+                cls = FleetInvokerPool if fleet else InvokerPool
+                return cls(make_invoker, pool_classify,
+                           model_of=config.resolve_model)
         else:
             if config.online_latency:
                 latency = self.estimator = OnlineLatencyTable(latency)
-            if config.adaptive is not None:
-                self.pool = adaptive_uniform_pool(
-                    canvas_m, canvas_n, latency, config.max_canvases,
-                    incremental=config.incremental, classify=classify,
-                    cfg=config.adaptive)
-            else:
-                self.pool = uniform_pool(
-                    canvas_m, canvas_n, latency, config.max_canvases,
-                    incremental=config.incremental, classify=classify)
+
+            def make_pool(fleet: bool = False):
+                if config.adaptive is not None:
+                    return adaptive_uniform_pool(
+                        canvas_m, canvas_n, latency, config.max_canvases,
+                        incremental=config.incremental, classify=classify,
+                        cfg=config.adaptive)
+                fn = fleet_uniform_pool if fleet else uniform_pool
+                return fn(canvas_m, canvas_n, latency, config.max_canvases,
+                          incremental=config.incremental, classify=classify)
+        self._make_pool = make_pool
+        self.pool = make_pool()
+        # the planner's cost model reads one latency table; with models,
+        # the first registry model's (the planner wants a trend)
+        self._planner_table = (next(iter(self._model_tables.values()))
+                               if self._model_tables else latency)
         self.platform = platform
         self.n_workers = config.n_workers
         self.placement = (placement_override
@@ -191,6 +203,21 @@ class TangramScheduler:
         if self.config.clock == "virtual":
             return None
         return make_clock(self.config.clock, speed=self.config.wall_speed)
+
+    def _shard_clocks(self, n: int) -> list:
+        """One clock a shard.  Sequential: ``n`` independent
+        :meth:`_clock` results.  Parallel: "virtual" stays ``None`` (each
+        engine builds a private virtual clock), and a wall clock fans out
+        into thread-private :meth:`~repro_torch.core.clock.WallClock.
+        shard_view` s of one timeline."""
+        if not self.config.parallel:
+            return [self._clock() for _ in range(n)]
+        base = self._clock()
+        if base is None:
+            return [None] * n
+        if hasattr(base, "shard_view"):
+            return [base.shard_view() for _ in range(n)]
+        return [base] + [self._clock() for _ in range(n - 1)]  # legacy
 
     def _sim_executor(self, platform: Platform) -> SimExecutor:
         """A SimExecutor over ``platform``; with models, each model's
@@ -228,10 +255,102 @@ class TangramScheduler:
             TraceSource(streams=streams, bandwidth_bps=bandwidth_bps),
             name=name)
 
+    # ------------------------------------------------------ fleet sharding ----
+
+    def _fleet_plan(self, source) -> FleetPlan:
+        """The layout for ``config.shards`` shards.  A source with
+        ``camera_rates()`` (``FleetCameraSource``) feeds the planner;
+        otherwise routing is ``camera_id % shards`` with the worker budget
+        split evenly."""
+        config = self.config
+        s = config.shards
+        budget = max(config.n_workers, s)
+        rates = (source.camera_rates()
+                 if hasattr(source, "camera_rates") else None)
+        if not rates:
+            per, extra = divmod(budget, s)
+            return FleetPlan(n_shards=s,
+                             workers=tuple(per + (1 if i < extra else 0)
+                                           for i in range(s)))
+        planner = make_planner(
+            config.planner or "cost",
+            cost_model=FleetCostModel(latency=self._planner_table),
+            worker_budget=budget)
+        class_rates = (source.class_rates()
+                       if hasattr(source, "class_rates") else None)
+        return planner.plan(rates, class_rates=class_rates, n_shards=s)
+
+    def _serve_sharded(self, source, name: str) -> Results:
+        """The ``config.shards`` path of :meth:`serve_source`: plan the
+        layout, build one engine a shard over its platform slice (worker
+        sub-pools honour the plan's per-class reservations), serve through
+        a :class:`ShardedEngine` (or its parallel twin), and fold the
+        per-shard rows into ``Results.shard_stats``.  As in the reference,
+        the shards run on simulated executors."""
+        config = self.config
+        plan = self._fleet_plan(source)
+        s_count = plan.n_shards
+        weights = [max(plan.workers_of(s), 1) for s in range(s_count)]
+        shard_platforms = (split_platform(self.platform, s_count,
+                                          weights=weights)
+                           if s_count > 1 else [self.platform])
+        window = (max(1, config.ingestion_window // s_count)
+                  if config.ingestion_window else None)
+        engines, platforms = [], []
+        clocks = self._shard_clocks(s_count)
+        for s in range(s_count):
+            w = plan.workers_of(s)
+            plat = shard_platforms[s]
+            if w > 1:
+                worker_plats = split_platform(plat, w)
+                reserved = (plan.reservations[s]
+                            if plan.reservations else {})
+                placement = (ReservedClassPlacement(reserved) if reserved
+                             else self.placement)
+                executor = WorkerPoolExecutor(
+                    [self._sim_executor(p) for p in worker_plats],
+                    placement=placement, estimator=self.estimator)
+                platforms.extend(worker_plats)
+            else:
+                executor = self._sim_executor(plat)
+                platforms.append(plat)
+            engines.append(ServingEngine(
+                self._make_pool(fleet=True), executor, clock=clocks[s],
+                check_invariants=self.check_invariants,
+                ingestion_window=window))
+        engine_cls = (ParallelShardedEngine if config.parallel
+                      else ShardedEngine)
+        sharded = engine_cls(engines, plan.shard_of, plan=plan)
+        outcomes = sharded.serve(source)
+
+        stats = source.stats()
+        source_stats = stats.to_dict()
+        source_stats["backlog_high_water"] = sharded.backlog_high_water
+        source_stats["ingestion_window"] = config.ingestion_window
+        records = [r for p in platforms for r in p.records]
+        invocations = sharded.invocations
+        return Results(
+            name=name, outcomes=outcomes,
+            canvas_efficiencies=[c.efficiency for inv in invocations
+                                 for c in inv.canvases],
+            batch_sizes=[len(inv.canvases) for inv in invocations],
+            patches_per_batch=[len(inv.patches) for inv in invocations],
+            bytes_sent=stats.bytes_sent,
+            total_cost=self.platform.total_cost,
+            invocations=len(records),
+            exec_seconds=self.platform.meter.busy_seconds,
+            transmission_seconds=stats.transmission_seconds,
+            mean_consolidation=mean_consolidation(records),
+            source_stats=source_stats,
+            model_stats=records_model_stats(records) or None,
+            shard_stats=sharded.shard_stats())
+
     def serve_source(self, source, name: str = "tangram") -> Results:
         """Serve any :mod:`repro_torch.sources` source end to end and
         assemble the ``Results`` record (bandwidth and drop/degrade
         accounting from ``source.stats()``)."""
+        if self.config.shards is not None:
+            return self._serve_sharded(source, name)
         executor, platforms = self._executor()
         engine = ServingEngine(self.pool, executor,
                                clock=self._clock(),

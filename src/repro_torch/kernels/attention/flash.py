@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention.ref import (  # noqa: F401  (re-export)
     NEG_INF, decode_reference, mha_reference)
-from repro_torch.kernels.launches import LAUNCHES
+from repro_torch.kernels.launches import count_launch
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash.cu"
 LIBRARY = "tangram_flash"
@@ -166,7 +166,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(d), _BF16_FLAG[q.dtype], stream)
     if rc != 0:
         raise _launch_failed("tangram_flash_attention", rc)
-    LAUNCHES["flash_attention"] += 1
+    count_launch("flash_attention")
     return out
 
 
@@ -261,5 +261,5 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _BF16_FLAG[q.dtype], stream)
     if rc != 0:
         raise _launch_failed("tangram_flash_decode", rc)
-    LAUNCHES["flash_decode"] += 1
+    count_launch("flash_decode")
     return out

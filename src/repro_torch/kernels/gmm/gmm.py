@@ -23,7 +23,7 @@ from repro_torch.core.gmm import GMMConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.gmm.ref import (  # noqa: F401  (re-export)
     gmm_update_reference)
-from repro_torch.kernels.launches import LAUNCHES
+from repro_torch.kernels.launches import count_launch
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "gmm.cu"
 LIBRARY = "tangram_gmm"
@@ -98,5 +98,5 @@ def gmm_update_cuda(state: dict, frame: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"tangram_gmm_update launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["gmm_update"] += 1
+    count_launch("gmm_update")
     return new, fg

@@ -21,7 +21,7 @@ import pathlib
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.launches import LAUNCHES
+from repro_torch.kernels.launches import count_launch
 from repro_torch.kernels.stitch.ref import (  # noqa: F401  (re-export)
     stitch_embed_reference, unstitch_decode_reference)
 from repro_torch.kernels.stitch.stitch import MAX_RECORDS_PER_CANVAS
@@ -190,7 +190,7 @@ def stitch_embed_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
          records.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
          out.data_ptr(), hmax, wmax, c, b, k, m, n, patch, d,
          _BF16_FLAG[kernel.dtype])
-    LAUNCHES["stitch_embed"] += 1
+    count_launch("stitch_embed")
     return out
 
 
@@ -225,5 +225,5 @@ def unstitch_decode_cuda(raw: torch.Tensor, records: torch.Tensor,
     _run(library().tangram_unstitch_decode, device, raw.data_ptr(),
          records.data_ptr(), out.data_ptr(), b, k, side_m, side_n,
          num_patches, patch, _BF16_FLAG[raw.dtype])
-    LAUNCHES["unstitch_decode"] += 1
+    count_launch("unstitch_decode")
     return out

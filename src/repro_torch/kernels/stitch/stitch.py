@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.launches import (  # noqa: F401  (re-export)
-    LAUNCHES, reset_launches)
+    LAUNCHES, count_launch, reset_launches)
 from repro_torch.kernels.stitch.ref import (  # noqa: F401  (re-export)
     stitch_reference, unstitch_reference)
 
@@ -155,7 +155,7 @@ def stitch_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
                       device=patch_pixels.device)   # every element written
     _launch(library().tangram_stitch, patch_pixels, records, out, hmax,
             wmax, c, b, k, m, n, plan)
-    LAUNCHES["stitch"] += 1
+    count_launch("stitch")
     return out
 
 
@@ -181,5 +181,5 @@ def unstitch_cuda(canvases: torch.Tensor, records: torch.Tensor,
         return out
     _launch(library().tangram_unstitch, canvases, records, out, hmax, wmax,
             c, b, k, m, n)
-    LAUNCHES["unstitch"] += 1
+    count_launch("unstitch")
     return out

@@ -1,7 +1,6 @@
 """Serving driver: the Tangram pipeline on the device, through the port.
 
-Port of ``repro/launch/serve.py`` but for fleet sharding (``--shards``,
-``--parallel``, ``--planner``: ROADMAP item 11).  Edge side per frame:
+Port of ``repro/launch/serve.py``.  Edge side per frame:
 GMM background subtraction -> RoI extraction -> adaptive frame
 partitioning (Alg. 1).  Cloud side: the serving engine drives the
 SLO-aware invoker pool over bandwidth-shaped arrivals and runs every fired
@@ -28,8 +27,14 @@ profiled on its own, so each SLO class fires against its model's table.
 executors (worker ``i`` on ``cuda:(i % device count)``; on one card they
 share it) placed by ``--placement``; ``--online-latency`` folds every
 completion's time back into the tables the invokers fire against.
-``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
-PyTorch versions of the kernels.
+``--shards N`` serves the cameras through N shard engines
+(:class:`~repro_torch.core.fleet.ShardedEngine`; ``--parallel``: a thread
+a shard, :class:`~repro_torch.core.parallel.ParallelShardedEngine`), each
+with its own executor on ``worker_device(i)`` and, on a card, a CUDA
+stream of its own, all sharing one frame store; ``--planner`` places the
+cameras when the source reports their rates, else camera ``c`` goes to
+shard ``c % N``.  ``--device`` defaults to ``cuda``; ``--device cpu`` runs
+the plain PyTorch versions of the kernels.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --frames 40 --slo 1.0
@@ -40,6 +45,8 @@ Usage:
     --model-map 2.0=tangram --workers 2 --placement model --online-latency
   PYTHONPATH=src python -m repro_torch.launch.serve --source file \
     --frames-path clip.npy --frames 16 --canvas 1024 --fuse
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+    --frames 16 --canvas 128 --slo 5.0 --cameras 3 --shards 2 --parallel
 """
 from __future__ import annotations
 
@@ -52,25 +59,25 @@ import torch
 from repro_torch import param
 from repro_torch.config import DetectorConfig
 from repro_torch.core.clock import make_clock
-from repro_torch.core import config as config_lib
 from repro_torch.core.config import ServeConfig, make_classify
 from repro_torch.core.engine import (InvokerPool, ModelRuntime,
                                      ServingEngine, make_executor,
                                      uniform_pool)
+from repro_torch.core.fleet import (FleetCostModel, FleetInvokerPool,
+                                    FleetPlan, ShardedEngine,
+                                    fleet_uniform_pool, make_planner)
 from repro_torch.core.invoker import SLOAwareInvoker
 from repro_torch.core.latency import (LatencyBank, LatencyTable,
                                       OnlineLatencyTable, measure)
 from repro_torch.core.models import make_model, model_names
+from repro_torch.core.parallel import ParallelShardedEngine
 from repro_torch.core.workers import (WorkerPoolExecutor, device_worker_pool,
-                                      make_placement, weight_caches,
-                                      worker_device)
+                                      make_placement, share_frame_store,
+                                      weight_caches, worker_device)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.models import detector as detector_lib
 from repro_torch.models.quantize import quantize_params
 from repro_torch.sources import RateProfile, make_source
-
-#: options of the JAX driver this port does not run yet -> ROADMAP item
-UNPORTED = dict(config_lib.UNPORTED)
 
 
 def build_detector(canvas: int = 256, *, quantize: bool = False,
@@ -159,10 +166,54 @@ def build_source(args, frame_sink, slos, device: torch.device):
     return make_source("trace", arrivals=events)
 
 
-def summary_line(engine: ServingEngine, executor, stats, config: ServeConfig,
+def shard_stream(device: torch.device):
+    """A shard executor's own CUDA stream on a card; ``None`` (the
+    thread's current stream) on the CPU."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def sharded_engine(config: ServeConfig, executors, make_pool, source,
+                   table):
+    """The ``--shards`` engine over one executor a shard: a fleet invoker
+    pool each (``make_pool(fleet=True)``), per-shard clocks (thread-private
+    views of one wall timeline under ``--parallel --clock wall``), and the
+    planner's layout when the source reports camera rates, else
+    ``camera_id % shards``."""
+    n = config.shards
+    window = (max(1, config.ingestion_window // n)
+              if config.ingestion_window else None)
+    if config.parallel and config.clock == "wall":
+        parent = make_clock("wall", speed=config.wall_speed)
+        clocks = [parent.shard_view() for _ in range(n)]
+    else:
+        clocks = [make_clock(config.clock, speed=config.wall_speed)
+                  for _ in range(n)]
+    engines = [ServingEngine(make_pool(fleet=True), executors[s],
+                             clock=clocks[s], ingestion_window=window)
+               for s in range(n)]
+    if hasattr(source, "camera_rates"):
+        planner = make_planner(config.planner or "cost",
+                               cost_model=FleetCostModel(latency=table),
+                               worker_budget=n)
+        plan = planner.plan(source.camera_rates(), n_shards=n)
+    else:
+        plan = FleetPlan(n_shards=n)
+    cls = ParallelShardedEngine if config.parallel else ShardedEngine
+    return cls(engines, plan.shard_of, plan=plan)
+
+
+def summary_line(engine, executor, stats, config: ServeConfig,
                  wall_s: float) -> str:
-    """The driver's one-line run summary."""
-    if config.n_workers > 1:
+    """The driver's one-line run summary; ``executor`` is a list of the
+    shards' executors under ``--shards``."""
+    executors = (list(executor) if isinstance(executor, (list, tuple))
+                 else [executor])
+    first = executors[0]
+    if config.shards:
+        overlap = (f"{config.shards} shard(s), "
+                   f"{config.planner or 'cost'} planner"
+                   + (", parallel" if config.parallel else ""))
+    elif config.n_workers > 1:
         overlap = (f"{config.n_workers} worker(s), {config.placement} "
                    f"placement, in-flight high water "
                    f"{engine.inflight_high_water}/"
@@ -178,20 +229,33 @@ def summary_line(engine: ServingEngine, executor, stats, config: ServeConfig,
         overlap += ", fused"
     if config.quantize:
         overlap += ", int8"
-    device = (executor.workers[0].device
-              if isinstance(executor, WorkerPoolExecutor)
-              else executor.device)
+    device = (first.workers[0].device
+              if isinstance(first, WorkerPoolExecutor) else first.device)
     violated = sum(o.violated for o in engine.outcomes)
+
+    def total(attr: str) -> int:
+        return sum(getattr(e, attr) for e in executors)
+
     return (f"served {stats.patches_emitted} patches in "
-            f"{executor.n_invocations} invocations ({overlap}, "
+            f"{total('n_invocations')} invocations ({overlap}, "
             f"{config.clock} clock, {device}), "
-            f"routed {executor.n_detections} detections + "
-            f"{executor.evidence_bytes / 1e6:.2f} MB patch evidence back to "
+            f"routed {total('n_detections')} detections + "
+            f"{total('evidence_bytes') / 1e6:.2f} MB patch evidence back to "
             f"frames, {violated} SLO violations "
-            f"({len(executor.frames)} frames still held, {wall_s:.1f}s wall)")
+            f"({len(first.frames)} frames still held, {wall_s:.1f}s wall)")
 
 
-def detail_lines(engine: ServingEngine, executor) -> list:
+def shard_lines(engine) -> list:
+    """A sharded engine's per-shard rows (none for one engine)."""
+    if not isinstance(engine, ShardedEngine):
+        return []
+    return [f"  shard {row['shard']}: {row['arrivals']} arrivals, "
+            f"{row['invocations']} invocations, {row['violations']} "
+            f"violations, backlog high water {row['backlog_high_water']}"
+            for row in engine.shard_stats()]
+
+
+def detail_lines(engine, executor) -> list:
     """A pool's per-worker rows and the per-model rows (patches,
     violations, weight-cache hits)."""
     lines = []
@@ -287,18 +351,28 @@ def main(argv=None):
     p.add_argument("--online-latency", action="store_true",
                    help="fold each completion's time back into the latency "
                         "tables the invokers fire against (EWMA)")
-    # JAX driver options this port does not run yet: accepted so the
-    # error names the ROADMAP item instead of an unknown flag
-    p.add_argument("--shards", type=int, default=None)
-    p.add_argument("--parallel", action="store_true")
-    p.add_argument("--planner", choices=("cost", "equal"))
+    p.add_argument("--shards", type=int, default=None,
+                   help="fleet sharding: serve the cameras through this "
+                        "many shard engines, each with its own executor "
+                        "(on a card, its own CUDA stream) and invoker pool")
+    p.add_argument("--planner", choices=("cost", "equal"), default=None,
+                   help="shard layout with --shards when the source "
+                        "reports camera rates: cost-model planner or equal "
+                        "split (default cost); otherwise camera c goes to "
+                        "shard c %% shards")
+    p.add_argument("--parallel", action="store_true",
+                   help="run each shard's event loop on its own thread "
+                        "(requires --shards)")
     args = p.parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: {item}")
     if args.workers < 1:
         p.error("--workers must be >= 1")
+    if args.shards is not None and args.shards < 1:
+        p.error("--shards must be >= 1")
+    if args.shards is not None and args.workers > 1:
+        p.error("--shards and --workers > 1 both carve the device set; "
+                "pick one (per-shard worker pools: use the sim scheduler)")
+    if args.parallel and args.shards is None:
+        p.error("--parallel requires --shards")
     if args.cameras < 1:
         p.error("--cameras must be >= 1")
     if args.source == "file" and not args.frames_path:
@@ -327,7 +401,8 @@ def main(argv=None):
         wall_speed=args.wall_speed, n_workers=args.workers,
         placement=args.placement, online_latency=args.online_latency,
         ingestion_window=args.ingestion_window, model=args.model,
-        model_map=model_map)
+        model_map=model_map, shards=args.shards, planner=args.planner,
+        parallel=args.parallel)
     if config.quantize and config.multi_model:
         # every named model with a registered _int8 variant serves it
         have = set(model_names())
@@ -382,18 +457,32 @@ def main(argv=None):
             config.n_workers, max(s.weight_bytes for s in specs.values()),
             {nm: (s.weight_bytes, s.load_s) for nm, s in specs.items()})
 
-    def executor_on(dev: torch.device):
-        """One worker's executor on ``dev``, every model's runtime with it."""
+    def executor_on(dev: torch.device, stream=None):
+        """One worker's (or shard's) executor on ``dev``, every model's
+        runtime with it."""
         here = on_device({**builds, None: (cfg, params, serve_fn)}, dev)
         dcfg, dparams, dfn = here.pop(None)
         return make_executor(
             config.executor, serve_fn=dfn, params=dparams, canvas_m=m,
             canvas_n=n, device=dev, max_inflight=config.max_inflight,
             models=runtimes(here, m, n, config.fuse) if here else None,
+            stream=stream,
             **(fused_kwargs(dcfg, dparams) if config.fuse else {}))
 
     t_start = time.time()
-    if config.n_workers > 1:
+    shard_executors = None
+    if config.shards:
+        # one executor a shard, each on its worker device and its own
+        # stream; one frame store, since any shard may route a frame
+        devs = [worker_device(i, device) for i in range(config.shards)]
+        shard_executors = [executor_on(d, shard_stream(d)) for d in devs]
+        share_frame_store(shard_executors)
+        # the weights were written on the current stream: let them land
+        # before another stream reads them
+        for d in set(devs):
+            synchronize(d)
+        executor = shard_executors[0]
+    elif config.n_workers > 1:
         executor = device_worker_pool(
             config.n_workers, lambda i: executor_on(worker_device(i, device)),
             placement=make_placement(config.placement),
@@ -408,27 +497,37 @@ def main(argv=None):
     source = build_source(args, frame_sink=executor.add_frame, slos=slos,
                           device=device)
     classify = make_classify(config.classify)
-    if config.multi_model:
-        # per-class invokers, each firing against its model's table
-        def make_invoker(key):
-            nm = config.resolve_model(key) or default_model
-            return SLOAwareInvoker(m, n, model_tables[nm],
-                                   max_canvases=config.max_canvases)
 
-        pool = InvokerPool(make_invoker, classify=classify or (lambda p: None),
-                           model_of=lambda key: (config.resolve_model(key)
-                                                 or default_model))
+    def make_pool(fleet: bool = False):
+        if config.multi_model:
+            # per-class invokers, each firing against its model's table
+            def make_invoker(key):
+                nm = config.resolve_model(key) or default_model
+                return SLOAwareInvoker(m, n, model_tables[nm],
+                                       max_canvases=config.max_canvases)
+
+            cls = FleetInvokerPool if fleet else InvokerPool
+            return cls(make_invoker, classify=classify or (lambda p: None),
+                       model_of=lambda key: (config.resolve_model(key)
+                                             or default_model))
+        fn = fleet_uniform_pool if fleet else uniform_pool
+        return fn(m, n, table, max_canvases=config.max_canvases,
+                  classify=classify)
+
+    if config.shards:
+        engine = sharded_engine(config, shard_executors, make_pool, source,
+                                table)
     else:
-        pool = uniform_pool(m, n, table, max_canvases=config.max_canvases,
-                            classify=classify)
-    engine = ServingEngine(
-        pool, executor, clock=make_clock(config.clock,
-                                         speed=config.wall_speed),
-        ingestion_window=config.ingestion_window)
+        engine = ServingEngine(
+            make_pool(), executor, clock=make_clock(config.clock,
+                                                    speed=config.wall_speed),
+            ingestion_window=config.ingestion_window)
     engine.serve(source)
     stats = source.stats()
-    print(summary_line(engine, executor, stats, config,
+    print(summary_line(engine, shard_executors or executor, stats, config,
                        time.time() - t_start))
+    for line in shard_lines(engine):
+        print(line)
     print(f"source {stats.kind}: {stats.frames_total} frames, "
           f"{stats.frames_dropped} dropped, {stats.frames_degraded} "
           f"degraded, backlog high water {engine.backlog_high_water}"

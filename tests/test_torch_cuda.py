@@ -1061,3 +1061,91 @@ def test_two_worker_model_pool_on_card(cuda, fuse):
                 if ws["invocations"]} == {0, 1}
         outs.append([routed[id(inv)] for inv in engine.invocations])
     _assert_same_routing(outs, fuse)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_two_shards_on_two_streams_match_one_sequential_executor(cuda,
+                                                                 fuse):
+    """Three cameras through ``--shards 2 --parallel``'s objects: two
+    shard executors, each on its own CUDA stream, under a
+    ``ParallelShardedEngine``.  Each shard's trunk runs on its stream, the
+    kernels launch once an invocation, no frame is held, and every
+    invocation replayed through one sequential executor (the current
+    stream) routes the same detections and evidence, bit for bit."""
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.core.fleet import fleet_uniform_pool
+    from repro_torch.core.workers import share_frame_store
+    from repro_torch.launch.serve import shard_stream, sharded_engine
+
+    frames = {}
+    src = make_source("synthetic", n_frames=16, canvas=128, slo=0.3,
+                      n_cameras=3, device=cuda, frame_sink=lambda f, px, n:
+                      frames.__setitem__(f, (px, n)))
+    arrivals = list(src.events(None))
+    cfg, params, serve_fn = build_detector(128, device=cuda)
+    table = LatencyTable({1: (0.02, 0.002), 4: (0.05, 0.004)})
+    fused = fused_kwargs(cfg, params) if fuse else {}
+    torch.cuda.synchronize()
+    streams = [shard_stream(cuda) for _ in range(2)]
+    seen, routed = {}, {}
+
+    def on_stream(fn, s):
+        def run(p, x):
+            seen.setdefault(s, []).append(torch.cuda.current_stream(cuda))
+            return fn(p, x)
+        return run
+
+    executors = []
+    for s, stream in enumerate(streams):
+        kw = dict(fused)
+        if fuse:
+            kw["tokens_fn"] = on_stream(kw["tokens_fn"], s)
+        ex = make_executor("device", serve_fn=on_stream(serve_fn, s),
+                           params=params, canvas_m=128, canvas_n=128,
+                           device=cuda, clock=lambda: 0.0, stream=stream,
+                           **kw)
+        release = ex.on_complete
+
+        def on_complete(comp, release=release):
+            routed[id(comp.invocation)] = comp.outputs
+            release(comp)
+        ex.on_complete = on_complete
+        executors.append(ex)
+    share_frame_store(executors)
+    for fid, (px, n) in frames.items():
+        executors[0].add_frame(fid, px, n)
+    config = ServeConfig(max_canvases=4, shards=2, parallel=True)
+    engine = sharded_engine(
+        config, executors,
+        lambda fleet: fleet_uniform_pool(128, 128, table, max_canvases=4),
+        make_source("trace", arrivals=arrivals), table)
+    before = dict(kernels.LAUNCHES)
+    engine.run(arrivals)
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    invs = engine.invocations
+    paths = (("stitch_embed", "unstitch_decode") if fuse
+             else ("stitch", "unstitch"))
+    assert len(engine.outcomes) == len(arrivals)
+    assert len(executors[0].frames) == 0
+    assert {inv.shard for inv in invs} == {0, 1}
+    assert all(launched[k] == (len(invs) if k in paths else 0)
+               for k in launched), launched
+    for s, stream in enumerate(streams):
+        assert seen[s] and all(x == stream for x in seen[s])
+    assert streams[0] != streams[1]
+
+    seq = make_executor("device", serve_fn=serve_fn, params=params,
+                        canvas_m=128, canvas_n=128, device=cuda,
+                        clock=lambda: 0.0, **fused)
+    for fid, (px, n) in frames.items():
+        seq.add_frame(fid, px, n)
+    for inv in invs:
+        comp = seq.submit(inv).completion
+        (dets_k, px_k), (dets_s, px_s) = routed[id(inv)], comp.outputs
+        assert dets_k == dets_s
+        assert set(px_k) == set(px_s)
+        for fid in px_s:
+            for a, b in zip(px_k[fid], px_s[fid]):
+                np.testing.assert_array_equal(a, b)
+        seq.on_complete(comp)
+    assert len(seq.frames) == 0

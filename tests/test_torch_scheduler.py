@@ -463,15 +463,6 @@ def test_scheduler_on_a_device_executor_equals_jax():
     assert tex.n_invocations == jex.n_invocations > 0
 
 
-def test_unported_config_fields_name_their_item():
-    _, tt = tables()
-    for kw, item in ((dict(shards=2), 11),):
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP queue 1, item {item} "):
-            TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt),
-                             config=ServeConfig(**kw))
-
-
 def test_legacy_keywords_warn_and_forward():
     import repro_torch.core.scheduler as sched_mod
     _, tt = tables()
@@ -486,9 +477,14 @@ def test_legacy_keywords_warn_and_forward():
         TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt), max_canvases=2)
     with pytest.raises(TypeError, match="unexpected"):
         TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt), bogus=1)
-    with pytest.raises(NotImplementedError, match="item 11 "):
-        TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt),
+    # shards with the legacy n_workers build and serve: two shards, a
+    # worker each
+    s = TangramScheduler(CANVAS, CANVAS, tt, tplatform(tt),
                          config=ServeConfig(shards=2), n_workers=2)
+    assert s.config.shards == 2 and s.config.n_workers == 2
+    res = s.run(both_streams(n_cams=2, n_frames=4)[1], 20e6)
+    assert res.n_patches > 0
+    assert [r["workers"] for r in res.shard_stats] == [1, 1]
     # a placement instance, which a config cannot name, is an override
     from repro_torch.core.workers import RoundRobinPlacement
     rr = RoundRobinPlacement()

@@ -309,12 +309,69 @@ def test_serve_cli_async_and_live_source(capsys):
     assert _summary(out)[4] == 0
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--shards", "2"], 11), (["--parallel"], 11), (["--planner", "cost"], 11)])
-def test_unported_options_name_their_roadmap_item(flag, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1, item {item} "):
-        tserve.main(["--device", "cpu", "--frames", "2"] + flag)
+SHARD_ARGS = ["--frames", "16", "--canvas", "128", "--slo", "5.0",
+              "--cameras", "3"]
+
+
+def _shard_rows(out: str):
+    return re.findall(r"  shard (\d+): (\d+) arrivals, (\d+) invocations, "
+                      r"(\d+) violations, backlog high water (\d+)", out)
+
+
+@pytest.fixture
+def pinned_tables(monkeypatch):
+    """One fixed latency table for every profile and a step clock on every
+    executor, in both drivers, so neither the boundaries nor the shard
+    rows (violations, backlog high water) follow this host's timing."""
+    from repro.core.latency import LatencyTable as JTable
+    monkeypatch.setattr(jserve, "measure",
+                        lambda *a, **k: JTable(dict(TABLE)))
+    monkeypatch.setattr(tserve, "profile",
+                        lambda *a, **k: LatencyTable(dict(TABLE)))
+    for mod in (jserve, tserve):
+        make = mod.make_executor
+        monkeypatch.setattr(
+            mod, "make_executor",
+            lambda name, _make=make, **cfg: _make(name, clock=_step_clock(),
+                                                  **cfg))
+
+
+@pytest.mark.parametrize("fuse", [[], ["--fuse"]])
+@pytest.mark.parametrize("flags", [
+    ["--shards", "2"], ["--shards", "2", "--parallel"],
+    ["--shards", "2", "--planner", "equal"]])
+def test_serve_cli_shards_match_jax_driver(flags, fuse, jax_weights,
+                                           pinned_tables, capsys):
+    """``--shards 2`` (sequential, ``--parallel``, ``--planner equal``),
+    unfused and fused: N, M, D, the evidence MB, 0 frames held, the
+    ``N shard(s), <planner> planner[, parallel]`` text and both ``shard
+    i:`` rows equal the JAX driver's on its weights.  The trace source
+    has no camera rates, so cameras 0 and 2 go to shard 0, camera 1 to
+    shard 1, whatever the planner."""
+    args = SHARD_ARGS + flags + fuse
+    jserve.main(args)
+    want = capsys.readouterr().out
+    tserve.main(["--device", "cpu"] + args)
+    got = capsys.readouterr().out
+    _assert_same_summary(_summary(got), _summary(want))
+    mode = re.search(r"\((\d shard\(s\), \w+ planner(, parallel)?)", want)[1]
+    assert f"({mode}," in got
+    assert ("parallel" in mode) == ("--parallel" in flags)
+    rows = _shard_rows(got)
+    assert rows == _shard_rows(want) and len(rows) == 2
+    assert sum(int(r[1]) for r in rows) == _summary(got)[0] > 0
+    assert sum(int(r[2]) for r in rows) == _summary(got)[1]
+    assert (", fused" in got) == bool(fuse)
+
+
+def test_serve_cli_shards_validate_like_jax_driver(capsys):
+    for bad in (["--shards", "0"], ["--parallel"],
+                ["--shards", "2", "--workers", "2"]):
+        for main in (jserve.main, tserve.main):
+            with pytest.raises(SystemExit):
+                main(["--frames", "2"] + bad)
+        err = capsys.readouterr().err
+        assert err.count("error:") == 2
 
 
 def test_serve_cli_cuda_without_card_raises():
@@ -362,23 +419,12 @@ def _step_clock(step=0.05):
 
 
 @pytest.fixture
-def pinned_drivers(monkeypatch):
+def pinned_drivers(monkeypatch, pinned_tables):
     """Both drivers on the JAX registry builds' weights, one fixed latency
     table for every profile, and step clocks on every executor, so
     invocation boundaries (online tables included) cannot depend on this
     host's timing."""
-    from repro.core.latency import LatencyTable as JTable
     monkeypatch.setattr(tserve, "make_model", _JaxBuilt)
-    monkeypatch.setattr(jserve, "measure",
-                        lambda *a, **k: JTable(dict(TABLE)))
-    monkeypatch.setattr(tserve, "profile",
-                        lambda *a, **k: LatencyTable(dict(TABLE)))
-    for mod in (jserve, tserve):
-        make = mod.make_executor
-        monkeypatch.setattr(
-            mod, "make_executor",
-            lambda name, _make=make, **cfg: _make(name, clock=_step_clock(),
-                                                  **cfg))
 
 
 @pytest.mark.parametrize("extra", [
