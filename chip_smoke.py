@@ -149,8 +149,25 @@ Phases (any failure raises, so the exit code is non-zero):
    through K7 over the dequantized cache (its logits correlating with a
    bf16 cache's above 0.995); print the resident bytes, the prefill and
    step times and the peak device memory;
-9. print one JSON line of kernels (K1-K7, and the K4/K3 rows of phase 5f's
-   models, named ``kernel[model]``) and, last,
+8c. the vision and diffusion zoo at full width, seeded random bf16
+   weights drawn on the card: ViT-B/16 and DeiT-B at serve_b128 (B=128,
+   224^2), DeiT-B at cls_384 (B=64, its position grid resized 14 -> 24,
+   578 tokens), ViT-S/16 at B=1 and B=128, each through K6
+   (``impl="flash"``) and through its plain version (``impl="torch"``):
+   logits within ZOO_ROW_TOL of each row's RMS, top-1 equal wherever the
+   plain top-2 margin exceeds that limit, K6 once a layer in the kernel
+   run and nothing in the plain one; DiT-S/2 and DiT-XL/2 at gen_fast
+   (B=16, 512^2, 1,024 latent tokens, 4 DDIM steps) the same way: the
+   first step's eps within DIT_EPS_TOL of its RMS, final latents
+   correlating above DIT_LATENT_CORR; DiT-XL/2 at gen_1024 (B=4, 4,096
+   tokens, heads of 72 on K6's mma.sync kernel): one forward both ways,
+   then 50 DDIM steps through K6 alone, timed a step; EfficientNet-B7 at
+   600^2, B=8: serve time and peak memory, K1-K7 launched 0 times; then
+   K6 timed at ViT-B/16's and DiT-XL/2's layer shapes against its plain
+   version, SDPA and its bound;
+9. print one JSON line of kernels (K1-K7, the K4/K3 rows of phase 5f's
+   models, named ``kernel[model]``, and phase 8c's ``K6[vit-b16]`` and
+   ``K6[dit-xl2]``) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -215,6 +232,8 @@ from repro_torch.launch.serve import (  # noqa: E402
     build_source, detail_lines, fused_fields, fused_kwargs, profile,
     shard_lines, shard_stream, sharded_engine, summary_line)
 from repro_torch.models import detector as detector_lib  # noqa: E402
+from repro_torch.models import dit  # noqa: E402
+from repro_torch.models import efficientnet as effnet  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
@@ -311,6 +330,29 @@ MODEL_FRAMES = 24
 # tighter trace, so that each shard fires several invocations.
 SHARD_CAMERAS, SHARD_FRAMES, SHARD_SLO, SHARDS = 3, 24, 0.5, 2
 FLEET_CAMERAS, FLEET_SECONDS, FLEET_SHARDS = 1000, 60.0, 4
+# Phase 8c: the vision and diffusion zoo at full width, seeded random
+# weights drawn on the card, bf16, through K6 (impl="flash") and through
+# its plain version (impl="torch").  The JAX package's shape cells
+# (repro/config.py VISION_SHAPES, DIFFUSION_SHAPES): (arch, batch,
+# resolution) and (arch, batch, resolution, sampler steps).
+ZOO_SEED = 21
+ZOO_VISION = (("vit-b16", 128, 224), ("deit-b", 128, 224),    # serve_b128
+              ("deit-b", 64, 384),                            # cls_384
+              ("vit-s16", 1, 224), ("vit-s16", 128, 224))     # serve_b1/128
+ZOO_EFFNET = ("efficientnet-b7", 8, 600)                      # native 600^2
+ZOO_DIT = (("dit-s2", 16, 512, 4), ("dit-xl2", 16, 512, 4))   # gen_fast
+ZOO_DIT_1024 = ("dit-xl2", 4, 1024, 50)                       # gen_1024
+#: K6 timed at one layer of ViT-B/16's serve_b128 and of DiT-XL/2's
+#: gen_1024: (B, S, H, D)
+ZOO_K6 = {"vit-b16": (128, 197, 12, 64), "dit-xl2": (4, 4096, 16, 72)}
+# Classifier logits, kernels vs plain, row-scaled as phase 7 holds K6
+# (ATTN_ROW_TOL), and top-1 equal wherever the plain top-2 margin exceeds
+# that row's limit.  DiT: the first step's eps, max |got - want| over the
+# RMS of the plain eps, and the sampler's final latents correlating above
+# DIT_LATENT_CORR.
+ZOO_ROW_TOL = ATTN_ROW_TOL["k6", torch.bfloat16]
+DIT_EPS_TOL = ZOO_ROW_TOL
+DIT_LATENT_CORR = 0.999
 
 
 def log(msg: str) -> None:
@@ -3140,6 +3182,357 @@ def lm_split(lm: dict, k6_ms: float) -> None:
         f" GB")
 
 
+# --------------------------------------------------------------- phase 8c ----
+
+def zoo_images(gen, batch: int, res: int, device) -> torch.Tensor:
+    return torch.randn((batch, res, res, 3), generator=gen, device=device)
+
+
+def logits_agree(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """Kernels vs plain logits (B, classes): every row within ZOO_ROW_TOL
+    of its own RMS, and the same top-1 wherever the plain top-2 margin
+    exceeds the row's limit."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise AssertionError(f"{what}: non-finite logits or shapes "
+                             f"{tuple(got.shape)} / {tuple(want.shape)}")
+    scaled = row_scaled_err(got, want)
+    rms = want.pow(2).mean(-1).sqrt()
+    top = torch.topk(want, 2, dim=-1)
+    margin = top.values[:, 0] - top.values[:, 1]
+    decided = margin > ZOO_ROW_TOL * rms
+    same = got.argmax(-1) == top.indices[:, 0]
+    out = {"max_abs_err": max_abs_err(got, want), "row_scaled": scaled,
+           "decided": int(decided.sum()), "rows": got.shape[0],
+           "top1_equal": int(same.sum())}
+    if scaled > ZOO_ROW_TOL or not bool(same[decided].all()):
+        raise AssertionError(f"{what}: kernels vs plain {out} (row tol "
+                             f"{ZOO_ROW_TOL})")
+    return out
+
+
+def zoo_launches(by_path: dict, key: str, want_k6: int) -> None:
+    """The run just made launched K6 ``want_k6`` times and nothing else."""
+    got = dict(LAUNCHES)
+    by_path[key] = got
+    others = {k: v for k, v in got.items() if k != "flash_attention" and v}
+    if got["flash_attention"] != want_k6 or others:
+        raise AssertionError(f"{key}: launches {got}, expected K6 "
+                             f"{want_k6} times and nothing else")
+
+
+def zoo_busy(fn, wall_ms: float, what: str):
+    """The device's busy time over one warm call (``torch.profiler``)
+    against its CUDA-event time: the idle share the host leaves."""
+    before = dict(LAUNCHES)
+    with torch.inference_mode():
+        busy = device_busy(fn)
+    LAUNCHES.update(before)
+    if busy is None:
+        log(f"  {what}: the profiler recorded no device activity; idle "
+            f"share not measured")
+        return None
+    log(f"  {what}, torch.profiler: {busy[1]} device activities, "
+        f"{busy[0]:.3f} ms busy of {wall_ms:.3f} ms (CUDA events): device "
+        f"idle share {1 - busy[0] / wall_ms:.1%}")
+    return busy
+
+
+def vision_zoo(device, by_path: dict) -> dict:
+    """ViT-B/16, DeiT-B (224^2, and 384^2 with the position grid resized
+    14 -> 24) and ViT-S/16 classifiers, kernels vs plain."""
+    out = {}
+    for arch, batch, res in ZOO_VISION:
+        cfg = configs.get(arch)
+        gen = torch.Generator(device=device).manual_seed(ZOO_SEED)
+        params = vit.init_params(cfg, gen, device)
+        x = zoo_images(gen, batch, res, device)
+        tokens = (res // cfg.patch) ** 2 + 1 + cfg.distill_token
+        key = f"zoo_{arch}_b{batch}_{res}"
+        runs = {}
+        for run, impl in (("kernels", "flash"), ("plain", "torch")):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits, heads = vit.forward(cfg, params, x, impl=impl,
+                                            img_res=res)
+            torch.cuda.synchronize()
+            runs[run] = (logits, heads, time.perf_counter() - t0)
+            zoo_launches(by_path, f"{key}_{run}",
+                         cfg.n_layers if run == "kernels" else 0)
+        agree = logits_agree(runs["kernels"][0], runs["plain"][0],
+                             f"{arch} B={batch} {res}^2")
+        if cfg.distill_token:
+            for i, head in enumerate(("cls", "distillation")):
+                logits_agree(runs["kernels"][1][i], runs["plain"][1][i],
+                             f"{arch} {head} head")
+        ms = {run: time_ms(lambda impl=impl: vit.serve(cfg, params, x,
+                                                       impl=impl),
+                           iters=3, warmup=1, windows=1)
+              for run, impl in (("kernels", "flash"), ("plain", "torch"))}
+        out[key] = {"ms": ms, **agree}
+        if (arch, batch, res) == ZOO_VISION[0]:
+            out[key]["busy"] = zoo_busy(
+                lambda: vit.serve(cfg, params, x, impl="flash"),
+                ms["kernels"], f"{arch} B={batch} serve with K6")
+        log(f"  {arch} B={batch} {res}^2 ({tokens} tokens, {cfg.n_layers} "
+            f"layers, {cfg.n_heads} heads x {cfg.d_model // cfg.n_heads}, "
+            f"{cfg.n_params / 1e6:.1f}M params): serve {ms['kernels']:.2f} "
+            f"ms with K6, {ms['plain']:.2f} ms plain (CUDA events); logits "
+            f"kernels vs plain max abs {agree['max_abs_err']:.4f}, "
+            f"row-scaled {agree['row_scaled']:.4f} (tol {ZOO_ROW_TOL}); "
+            f"top-1 equal {agree['top1_equal']} / {agree['rows']} rows, "
+            f"required on the {agree['decided']} whose plain margin "
+            f"exceeds the row limit; K6 {cfg.n_layers} launches")
+        del params, x, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def effnet_zoo(device, by_path: dict) -> dict:
+    """EfficientNet-B7 at its native 600^2: cuDNN convolutions and no hand
+    kernel (the JAX package runs them in XLA); its serve time and peak
+    memory, and K1-K7 launched 0 times."""
+    arch, batch, res = ZOO_EFFNET
+    cfg = configs.get(arch)
+    gen = torch.Generator(device=device).manual_seed(ZOO_SEED)
+    params = effnet.init_params(cfg, gen, device)
+    x = zoo_images(gen, batch, res, device)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = effnet.serve(cfg, params, x)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    zoo_launches(by_path, f"zoo_{arch}_b{batch}_{res}", 0)
+    if (logits.shape != (batch, cfg.n_classes)
+            or not torch.isfinite(logits.float()).all()
+            or not float(logits.float().std()) > 0):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
+                             f"finite and varied")
+    ms = time_ms(lambda: effnet.serve(cfg, params, x), iters=3, warmup=1,
+                 windows=1)
+    log(f"  {arch} B={batch} {res}^2 ({len(effnet.block_args(cfg))} MBConv "
+        f"blocks, {cfg.n_params / 1e6:.2f}M params, {cfg.param_dtype}): "
+        f"serve {ms:.2f} ms (CUDA events; first call {first * 1e3:.1f} ms "
+        f"wall), peak device memory {peak / 1e9:.2f} GB; K1-K7 0 launches")
+    del params, x, logits
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gb": peak / 1e9}
+
+
+def dit_params(cfg, gen, device) -> dict:
+    """Seeded random DiT weights drawn on the card.  adaLN-zero starts the
+    modulation and output projections at zero, which would make every
+    layer's attention reach nothing; they are drawn N(0, 0.02) instead."""
+    params = dit.init_params(cfg, gen, device)
+    for sub in [lp["ada"] for lp in params["layers"]] + [
+            params["final_ada"], params["final_proj"]]:
+        sub["kernel"].normal_(0.0, 0.02, generator=gen)
+    return params
+
+
+def dit_eps_agree(cfg, params, z, labels, what: str, by_path: dict,
+                  key: str) -> dict:
+    """One forward at t = 999 through K6 and through its plain version."""
+    t = torch.full((z.shape[0],), dit.T_MAX - 1, device=z.device)
+    eps = {}
+    for run, impl in (("kernels", "flash"), ("plain", "torch")):
+        reset_launches()
+        with torch.inference_mode():
+            eps[run] = dit.forward(cfg, params, z, t, labels,
+                                   impl=impl).float()
+        torch.cuda.synchronize()
+        zoo_launches(by_path, f"{key}_eps_{run}",
+                     cfg.n_layers if run == "kernels" else 0)
+    got, want = eps["kernels"], eps["plain"]
+    rms = float(want.pow(2).mean().sqrt())
+    err = max_abs_err(got, want)
+    if (not torch.isfinite(got).all() or not rms > 0
+            or err > DIT_EPS_TOL * rms):
+        raise AssertionError(f"{what}: eps kernels vs plain max abs {err} "
+                             f"over rms {rms}")
+    before = dict(LAUNCHES)
+    with torch.inference_mode():
+        fwd_ms = {run: time_ms(lambda impl=impl: dit.forward(
+            cfg, params, z, t, labels, impl=impl), iters=2, warmup=1,
+            windows=1) for run, impl in (("kernels", "flash"),
+                                         ("plain", "torch"))}
+    LAUNCHES.update(before)      # timing launches not counted
+    return {"eps_max_abs_err": err, "eps_scaled": err / rms, "eps_rms": rms,
+            "forward_ms": fwd_ms}
+
+
+def dit_zoo(device, by_path: dict) -> dict:
+    """DiT-S/2 and DiT-XL/2 at gen_fast through the kernels and plain (the
+    first step's eps, the 4-step sampler's latents); DiT-XL/2 at gen_1024:
+    one forward both ways, then the 50-step sampler through K6 alone."""
+    out = {}
+    for arch, batch, res, steps in ZOO_DIT + (ZOO_DIT_1024,):
+        cfg = configs.get(arch)
+        gen = torch.Generator(device=device).manual_seed(ZOO_SEED)
+        params = dit_params(cfg, gen, device)
+        side = res // cfg.vae_factor
+        z = torch.randn((batch, side, side, cfg.latent_channels),
+                        generator=gen, device=device)
+        labels = torch.randint(0, cfg.n_classes, (batch,), generator=gen,
+                               device=device)
+        key = f"zoo_{arch}_b{batch}_{res}"
+        what = f"{arch} B={batch} {res}^2 ({cfg.n_tokens(res)} tokens)"
+        rec = dit_eps_agree(cfg, params, z, labels, what, by_path, key)
+        fast = (arch, batch, res, steps) != ZOO_DIT_1024
+        final, wall = {}, {}
+        for run, impl in (("kernels", "flash"), ("plain", "torch")):
+            if run == "plain" and not fast:
+                break
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final[run] = dit.ddim_sample(cfg, params, z, labels,
+                                         n_steps=steps, impl=impl)
+            torch.cuda.synchronize()
+            wall[run] = time.perf_counter() - t0
+            zoo_launches(by_path, f"{key}_sample_{run}",
+                         steps * cfg.n_layers if run == "kernels" else 0)
+        if not torch.isfinite(final["kernels"]).all():
+            raise AssertionError(f"{what}: non-finite latents")
+        rec.update(steps=steps, step_ms={r: w * 1e3 / steps
+                                         for r, w in wall.items()},
+                   launches=steps * cfg.n_layers)
+        if not fast:
+            t = torch.full((batch,), dit.T_MAX - 1, device=device)
+            rec["busy"] = zoo_busy(
+                lambda: dit.forward(cfg, params, z, t, labels, impl="flash"),
+                rec["forward_ms"]["kernels"], f"{what} forward with K6")
+        line = (f"  {what}, {cfg.n_layers} layers, {cfg.n_heads} heads x "
+                f"{cfg.d_model // cfg.n_heads}, {cfg.n_params / 1e6:.1f}M "
+                f"params: first-step eps kernels vs plain max abs "
+                f"{rec['eps_max_abs_err']:.4f} = {rec['eps_scaled']:.4f} x "
+                f"its rms (tol {DIT_EPS_TOL}); a warm forward "
+                f"{rec['forward_ms']['kernels']:.1f} ms with K6, "
+                f"{rec['forward_ms']['plain']:.1f} ms plain (CUDA events); "
+                f"{steps}-step DDIM {rec['step_ms']['kernels']:.1f} ms a "
+                f"step with K6 (host clock over the whole first run)")
+        if fast:
+            corr = correlation(final["kernels"], final["plain"])
+            rec["latent_corr"] = corr
+            line += (f", {rec['step_ms']['plain']:.1f} ms plain; final "
+                     f"latents correlate {corr:.6f} (bound > "
+                     f"{DIT_LATENT_CORR})")
+            if not corr > DIT_LATENT_CORR:
+                raise AssertionError(f"{what}: latents correlate {corr}")
+        log(line + f"; K6 {steps} x {cfg.n_layers} launches")
+        out[key] = rec
+        del params, z, final
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_k6_rows(device, by_path: dict, forward_ms: dict) -> list:
+    """K6 at ViT-B/16's serve_b128 layer (B=128, 197 tokens, 12 heads of
+    64: the wgmma kernel) and DiT-XL/2's gen_1024 layer (B=4, 4,096
+    tokens, 16 heads of 72: the mma.sync kernel), non-causal, against the
+    plain version, SDPA (``is_causal=False``; the port never calls it) and
+    the bound: 4*B*S^2*H*D operations at the bf16 peak, or q, k, v and the
+    output once each at the HBM rate, whichever is longer."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(ZOO_SEED)
+    before = dict(LAUNCHES)
+    rows = []
+    arch, batch, res = ZOO_VISION[0]
+    paths = {arch: f"zoo_{arch}_b{batch}_{res}_kernels"}
+    arch, batch, res, _ = ZOO_DIT_1024
+    paths[arch] = f"zoo_{arch}_b{batch}_{res}_sample_kernels"
+    for model, (b, s, h, d) in ZOO_K6.items():
+        path = paths[model]
+        q, k, v = attn_inputs(rng, [(b, s, h, d)] * 3, torch.bfloat16,
+                              device)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got = attn_ops.flash_attention(q, k, v, causal=False, impl="cuda")
+        want = attn_ops.flash_attention(q, k, v, causal=False, impl="torch")
+        torch.cuda.synchronize()
+        ok, err, scaled = attn_close(got, want, "k6", torch.bfloat16)
+        if not ok:
+            raise AssertionError(f"K6[{model}] differs from its plain "
+                                 f"version: {err}, row-scaled {scaled}")
+        kern = timed(lambda: attn_ops.flash_attention(q, k, v, causal=False,
+                                                      impl="cuda"))
+        plain_ms = time_ms(lambda: attn_ops.flash_attention(
+            q, k, v, causal=False, impl="torch"), iters=3, warmup=1)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+            lib = timed(lambda: sdpa(qt, kt, vt, is_causal=False))
+            gap = max_abs_err(got, sdpa(qt, kt, vt,
+                                        is_causal=False).transpose(1, 2))
+        ops = 4 * b * s * s * h * d
+        nbytes = 4 * q.numel() * q.element_size()
+        t = (ops / H100.peak_flops, nbytes / H100.hbm_bw)
+        rows.append({
+            "name": f"K6[{model}]", "kernel": "flash_attention",
+            "model": model, "route": "cuda",
+            "source": "src/repro_torch/kernels/attention/csrc/flash.cu",
+            "replaces": "src/repro/kernels/attention/flash.py:95",
+            "k6_kernel": flash_kernels.k6_kernel(q.dtype, d),
+            "launches": by_path[path]["flash_attention"],
+            "launches_counted": f"phase 8c: {path}",
+            "launches_by_path": {p: c["flash_attention"]
+                                 for p, c in by_path.items()
+                                 if p.startswith(f"zoo_{model}")},
+            "max_abs_err": err, "max_row_scaled_err": scaled,
+            "shape": [b, s, h, d], "causal": False,
+            "ms": kern["ms_call"], "plain_ms": plain_ms,
+            "bound_ms": max(t) * 1e3,
+            "bound_by": "operations" if t[0] >= t[1] else "bytes",
+            "library_ms": lib["ms_call"],
+            "library_ms_device": lib["ms_device"],
+            "library_call": "F.scaled_dot_product_attention(is_causal="
+                            "False) on (B, H, S, D) copies",
+            "max_abs_diff_vs_library": gap, **device_keys(kern)})
+        layers_n = configs.get(model).n_layers
+        fwd = forward_ms[model]
+        log(f"  K6[{model}]: {layers_n} x {kern['ms_device']:.4f} ms = "
+            f"{layers_n * kern['ms_device']:.2f} ms of a {fwd:.2f} ms "
+            f"forward ({layers_n * kern['ms_device'] / fwd:.1%}; plain "
+            f"{layers_n * plain_ms:.2f} ms)")
+        log(f"  K6[{model}] B={b} S={s} H={h} D={d} non-causal "
+            f"({rows[-1]['k6_kernel']}): {fmt_times(kern)} (plain "
+            f"{plain_ms:.4f} ms, SDPA {fmt_times(lib)}, bound "
+            f"{rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']} for "
+            f"{ops / 1e9:.1f} GFLOP / {nbytes / 1e6:.1f} MB, "
+            f"{rows[-1]['bound_ms'] / kern['ms_device']:.1%} of the bound's "
+            f"speed on the device; max abs err {err:.3g}, row-scaled "
+            f"{scaled:.4f}; vs SDPA {gap:.3g})")
+        del q, k, v, qt, kt, vt, got, want
+    LAUNCHES.update(before)      # timing launches not counted
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_phase(device, by_path: dict) -> list:
+    """Phase 8c: the vision and diffusion zoo at full width; returns the
+    K6[vit-b16] and K6[dit-xl2] kernel rows."""
+    torch.cuda.reset_peak_memory_stats()
+    vision = vision_zoo(device, by_path)
+    dits = dit_zoo(device, by_path)
+    effnet_zoo(device, by_path)
+    arch, batch, res = ZOO_VISION[0]
+    forward_ms = {arch: vision[f"zoo_{arch}_b{batch}_{res}"]["ms"]
+                  ["kernels"]}
+    arch, batch, res, _ = ZOO_DIT_1024
+    forward_ms[arch] = dits[f"zoo_{arch}_b{batch}_{res}"]["forward_ms"][
+        "kernels"]
+    rows = zoo_k6_rows(device, by_path, forward_ms)
+    log(f"  peak device memory over phase 8c "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return rows
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -3341,6 +3734,12 @@ def main() -> None:
         f"prefill B={LM_BATCH} S={LM_INT8_SEQ}, {LM_INT8_STEPS} decode steps")
     lm_int8_phase(lm, device, by_path)
     del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 8c: the vision and diffusion zoo at full width (ViT-B/16, "
+        "DeiT-B, ViT-S/16, EfficientNet-B7, DiT-S/2, DiT-XL/2), kernels "
+        "and plain")
+    rows += zoo_phase(device, by_path)
     for row in rows:
         if "launches_by_path" not in row:      # phase 5f's rows have theirs
             row["launches_by_path"] = {path: counts[row["name"]]

@@ -1,8 +1,12 @@
-"""Config dataclasses for the decoder-only LM, the detector, its ViT
-trunk, EfficientNet, and the card.
+"""Config dataclasses for the decoder-only LM, the ViT / DeiT
+classifiers (and the detector's ViT trunk), DiT, EfficientNet, the
+detector, the card and the paper's Tangram defaults.
 
-Port of the parts of ``repro/config.py`` the ported paths need.
-``dtype_of`` maps the configs' dtype names to torch dtypes.
+Port of the parts of ``repro/config.py`` the ported paths need.  The JAX
+fields for training (``remat``, ``remat_policy``, ``scan_layers``) are
+left out everywhere: training is ROADMAP item 13's third part, and the
+port's layers are a Python loop over a list.  ``dtype_of`` maps the
+configs' dtype names to torch dtypes.
 """
 from __future__ import annotations
 
@@ -73,7 +77,13 @@ class TransformerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
-    """ViT encoder (the detector's trunk)."""
+    """ViT / DeiT encoder classifier, and the detector's trunk.
+
+    DeiT adds a distillation token and a second head (``distill_token``);
+    ``patch_embed`` is ``"reshape"`` (patchify, then a dense) or
+    ``"conv"`` (a strided conv stem, the same product on a
+    (patch, patch, C, d) kernel).  ``fused_qkv`` keeps one ``wqkv``
+    projection."""
 
     name: str
     img_res: int
@@ -82,13 +92,82 @@ class ViTConfig:
     d_model: int
     n_heads: int
     d_ff: int
+    n_classes: int = 1000
+    distill_token: bool = False
     in_channels: int = 3
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    fused_qkv: bool = False
     # int8-resident encoder weights (per-output-channel scales); the
     # patch embed, position embedding and norms stay full precision
     quant_weights: bool = False
+    patch_embed: str = "reshape"
+    family: str = "vision"
+
+    @property
+    def n_tokens(self) -> int:
+        side = self.img_res // self.patch
+        return side * side + 1 + (1 if self.distill_token else 0)
+
+    @property
+    def n_params(self) -> int:
+        d = self.d_model
+        per_layer = 4 * d * d + 2 * d * self.d_ff + 4 * d
+        patch_embed = self.in_channels * self.patch * self.patch * d + d
+        head = d * self.n_classes
+        return (self.n_layers * per_layer + patch_embed + head
+                + self.n_tokens * d)
+
+    @property
+    def n_active_params(self) -> int:
+        return self.n_params
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """Diffusion transformer (DiT) with adaLN-zero conditioning.
+
+    Operates on a VAE latent grid: latent side = img_res // 8, 4 channels,
+    as in the DiT paper.  ``patch`` patchifies the latent grid.
+    """
+
+    name: str
+    img_res: int
+    patch: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    latent_channels: int = 4
+    vae_factor: int = 8
+    n_classes: int = 1000
+    timestep_dim: int = 256
+    norm_eps: float = 1e-6
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    family: str = "diffusion"
+
+    @property
+    def d_ff(self) -> int:
+        return 4 * self.d_model
+
+    def n_tokens(self, img_res: Optional[int] = None) -> int:
+        res = img_res or self.img_res
+        side = res // self.vae_factor // self.patch
+        return side * side
+
+    @property
+    def n_params(self) -> int:
+        d = self.d_model
+        # attention + MLP + adaLN
+        per_layer = 4 * d * d + 2 * d * self.d_ff + 6 * d * d + 4 * d
+        io = self.latent_channels * self.patch**2 * d * 2
+        cond = self.timestep_dim * d + d * d + self.n_classes * d
+        return self.n_layers * per_layer + io + cond
+
+    @property
+    def n_active_params(self) -> int:
+        return self.n_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,18 +202,19 @@ class DetectorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EfficientNetConfig:
-    """EfficientNet with compound scaling (B0 base scaled by width/depth):
-    the fields ``models/efficientnet.param_specs`` reads.  The classifier's
-    forward pass is ROADMAP item 13; the registry reads the parameter
-    count (``efficientnet_b7``'s weight economics)."""
+    """EfficientNet with compound scaling (B0 base scaled by width/depth).
+    ``dropout`` is the JAX config's field; like the reference's forward
+    pass, the port's applies none."""
 
     name: str
     img_res: int
     width_mult: float
     depth_mult: float
     n_classes: int = 1000
+    dropout: float = 0.5
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    family: str = "vision"
 
     # B0 stage template: (expand, channels, repeats, stride, kernel)
     STAGES: Tuple[Tuple[int, int, int, int, int], ...] = (
@@ -159,6 +239,16 @@ class EfficientNetConfig:
     def scaled_repeats(self, r: int) -> int:
         return int(math.ceil(self.depth_mult * r))
 
+    @property
+    def n_params(self) -> int:
+        """Exact, from the parameter spec tree."""
+        from repro_torch.models import efficientnet
+        return efficientnet.count_params(self)
+
+    @property
+    def n_active_params(self) -> int:
+        return self.n_params
+
 
 @dataclasses.dataclass(frozen=True)
 class HardwareConfig:
@@ -170,6 +260,25 @@ class HardwareConfig:
     hbm_bw: float = 3.35e12          # HBM3 bytes/s per card
     nvlink_bw: float = 450e9         # NVLink bytes/s each way per card
     hbm_bytes: int = 80 * 1024**3    # device memory per card
+
+
+@dataclasses.dataclass(frozen=True)
+class TangramConfig:
+    """Paper-facing knobs (Sections III-IV defaults)."""
+
+    canvas_m: int = 1024             # canvas height M
+    canvas_n: int = 1024             # canvas width N
+    zone_x: int = 4                  # partition grid X
+    zone_y: int = 4                  # partition grid Y
+    slo_s: float = 1.0               # default SLO
+    slack_sigmas: float = 3.0        # T_slack = mu + 3 sigma
+    max_canvases_per_batch: int = 8  # from function memory (Eq. 5)
+    # Alibaba FC function spec from Section V-A
+    n_vcpu: int = 2
+    mem_gb: float = 4.0
+    gpu_mem_gb: float = 6.0
+    model_mem_gb: float = 1.5        # tau: model residency in accelerator mem
+    canvas_mem_gb: float = 0.5       # w: activation memory per canvas
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

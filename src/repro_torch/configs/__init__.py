@@ -3,8 +3,6 @@
 Port of ``repro/configs/__init__.py`` for the ids the port runs.  Each
 module defines ``ARCH``; the other ids of the JAX registry raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
-``vit-s16`` and ``efficientnet-b7`` give their ``ARCH`` (the registry's
-detectors read them); their classifiers are ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -25,17 +23,14 @@ ARCH_IDS = (
     "tangram-detector",
 )
 
-PORTED = ("minitron-4b", "tangram-detector", "vit-s16", "efficientnet-b7")
+PORTED = ("minitron-4b", "tangram-detector", "vit-s16", "efficientnet-b7",
+          "vit-b16", "deit-b", "dit-s2", "dit-xl2")
 
 #: where each unported id is ported
 UNPORTED = {
     "deepseek-moe-16b": "ROADMAP item 13 (models/moe.py)",
     "llama4-scout-17b-a16e": "ROADMAP item 13 (models/moe.py)",
-    "mistral-large-123b": "ROADMAP items 11 and 14 (sharded over cards)",
-    "dit-s2": "ROADMAP item 13 (models/dit.py)",
-    "dit-xl2": "ROADMAP item 13 (models/dit.py)",
-    "deit-b": "ROADMAP item 13 (models/vit.py classifier)",
-    "vit-b16": "ROADMAP item 13 (models/vit.py classifier)",
+    "mistral-large-123b": "ROADMAP item 14 (weights sharded over cards)",
 }
 
 

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import DetectorConfig, TransformerConfig
+from repro_torch.config import (DetectorConfig, DiTConfig,
+                                EfficientNetConfig, TransformerConfig,
+                                ViTConfig)
 
 
 def reduce_arch(model):
@@ -19,6 +21,19 @@ def reduce_arch(model):
             n_kv_heads=2 if model.n_kv_heads < model.n_heads else 4,
             d_ff=256, vocab=512, head_dim=32,
             param_dtype="float32", compute_dtype="float32")
+    if isinstance(model, ViTConfig):
+        return dataclasses.replace(
+            model, img_res=64, patch=16, n_layers=2, d_model=64, n_heads=4,
+            d_ff=128, n_classes=16, param_dtype="float32",
+            compute_dtype="float32")
+    if isinstance(model, DiTConfig):
+        return dataclasses.replace(
+            model, img_res=64, patch=2, n_layers=2, d_model=64, n_heads=4,
+            n_classes=16, param_dtype="float32", compute_dtype="float32")
+    if isinstance(model, EfficientNetConfig):
+        return dataclasses.replace(
+            model, img_res=64, width_mult=0.35, depth_mult=0.35,
+            n_classes=16, param_dtype="float32", compute_dtype="float32")
     if isinstance(model, DetectorConfig):
         return dataclasses.replace(
             model, canvas=128, patch=32, n_layers=2, d_model=64, n_heads=4,

@@ -1,8 +1,8 @@
 """vit-s16 [arXiv:2010.11929; paper] — ViT-S/16.
 
-Port of ``repro/configs/vit_s16.py``: ``ARCH`` only.  The registry's
-``vit_s16`` detector runs on this trunk; the classifier's forward pass is
-ROADMAP item 13, and the sharding cells (``SHAPES``) item 14.
+Port of ``repro/configs/vit_s16.py``: ``ARCH`` only.  The classifier
+runs through ``models/vit.py`` and the registry's ``vit_s16`` detector on
+this trunk; the sharding cells (``SHAPES``) are ROADMAP item 14.
 """
 from repro_torch.config import ViTConfig
 

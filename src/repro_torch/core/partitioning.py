@@ -1,17 +1,22 @@
-"""Algorithm 1: Adaptive Frame Partitioning (host side).
+"""Algorithm 1: Adaptive Frame Partitioning.
 
 Port of ``repro/core/partitioning.py``: divide the frame into X x Y zones,
 affiliate each RoI with the zone of maximum overlap, shrink each non-empty
 zone to the minimum enclosing rectangle of its RoIs, and cut the zones out
 as patches.  Patch sizes are rounded up to multiples of ``align``, clamped
-to the frame.
+to the frame.  Two implementations with the same semantics:
+
+* ``partition``      -- on tensors (any device), static X*Y patch slots
+  and a validity mask;
+* ``partition_host`` -- plain numpy, Patch objects for the scheduler.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +56,60 @@ def align_up(lo, hi, limit: int, align: int = 16):
     hi = np.minimum(lo + size, limit)
     lo = np.maximum(hi - size, 0)
     return lo, hi
+
+
+def _overlap_1d(a0, a1, b0, b1):
+    return (torch.minimum(a1, b1) - torch.maximum(a0, b0)).clamp_min(0)
+
+
+def partition(boxes: torch.Tensor, valid: torch.Tensor, frame_w: int,
+              frame_h: int, zone_x: int, zone_y: int, align: int = 16
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """boxes: (K, 4) int32 xyxy RoIs; valid: (K,) bool.  Returns (patches
+    (X*Y, 4) int32 xyxy, zeros where a zone holds no RoI; patch_valid
+    (X*Y,) bool), on the boxes' device.  A box that overlaps several zones
+    equally goes to the first (``argmax``); one that overlaps none is
+    dropped."""
+    dev = boxes.device
+    n_zones = zone_x * zone_y
+    zw, zh = frame_w // zone_x, frame_h // zone_y
+    zi = torch.arange(n_zones, dtype=torch.int32, device=dev)
+    zx0 = (zi % zone_x) * zw
+    zy0 = (zi // zone_x) * zh
+    zx1, zy1 = zx0 + zw, zy0 + zh
+
+    b = boxes.to(torch.int32)
+    bx0, by0, bx1, by1 = (b[:, i] for i in range(4))
+    ox = _overlap_1d(bx0[:, None], bx1[:, None], zx0[None, :], zx1[None, :])
+    oy = _overlap_1d(by0[:, None], by1[:, None], zy0[None, :], zy1[None, :])
+    overlap = ox.to(torch.int64) * oy                    # (K, Z)
+    zone_of = overlap.argmax(dim=1)                      # (K,)
+    use = valid.to(torch.bool) & (overlap.amax(dim=1) > 0)
+    member = (torch.nn.functional.one_hot(zone_of, n_zones).to(torch.bool)
+              & use[:, None])                            # (K, Z)
+    big = 1 << 30
+
+    def pick(col, fill, reduce):
+        if col.shape[0] == 0:       # amin / amax take no empty axis
+            return torch.full((n_zones,), fill, dtype=torch.int32,
+                              device=dev)
+        return reduce(torch.where(member, col[:, None], fill), dim=0)
+
+    px0 = pick(bx0, big, torch.amin)
+    py0 = pick(by0, big, torch.amin)
+    px1 = pick(bx1, -big, torch.amax)
+    py1 = pick(by1, -big, torch.amax)
+    patch_valid = member.sum(dim=0) > 0
+
+    def aligned(lo, hi, limit):
+        size = -(-(hi - lo) // align) * align
+        hi = torch.clamp(lo + size, max=limit)
+        return torch.clamp(hi - size, min=0), hi
+
+    px0, px1 = aligned(px0, px1, frame_w)
+    py0, py1 = aligned(py0, py1, frame_h)
+    patches = torch.stack([px0, py0, px1, py1], dim=-1) * patch_valid[:, None]
+    return patches.to(torch.int32), patch_valid
 
 
 def partition_host(boxes: np.ndarray, frame_w: int, frame_h: int,

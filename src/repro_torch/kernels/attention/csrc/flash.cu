@@ -50,19 +50,36 @@
 // and stored from registers.  Tiles are 128-byte swizzled (64-byte at
 // D = 32), in D / 64 column blocks of 64.  Shared memory at D = 128: Q
 // 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB of the 227 KB, one block
-// an SM.  D in {32, 64, 128}.  Each step waits for its own products, so a
-// consumer's tensor work and its softmax (64 exp2 a thread a tile on the
-// special-function unit) alternate, and only the other consumer fills the
-// gaps.  Later work: explicit ping-pong of the two consumers on named
-// barriers and, with it, overlapping a tile's softmax with its own
-// products (issuing the previous tile's P.V behind this tile's Q.K^T
-// alone ran slower on the card); the causal diagonal tile is computed
-// whole and masked, and the first consumer computes tiles its rows never
-// see; the output is stored from registers (4-byte stores), not through
-// TMA.  float32 inputs take an FMA
-// kernel on the CUDA cores (TF32 would miss the 1e-4 tolerance): one block
-// per (64 query rows, head, batch), 4 warps of 16 rows, the score and
-// output tiles in shared memory, off the main path.
+// an SM.  D in {32, 64, 128} on this path.  Each step waits for its own
+// products, so a consumer's tensor work and its softmax (64 exp2 a thread
+// a tile on the special-function unit) alternate, and only the other
+// consumer fills the gaps.  Later work: explicit ping-pong of the two
+// consumers on named barriers and, with it, overlapping a tile's softmax
+// with its own products (issuing the previous tile's P.V behind this
+// tile's Q.K^T alone ran slower on the card); the causal diagonal tile
+// is computed whole and masked, and the first consumer computes tiles its
+// rows never see; the output is stored from registers (4-byte stores),
+// not through TMA.  float32 inputs take an FMA kernel on the CUDA cores
+// (TF32 would miss the 1e-4 tolerance): one block per (64 query rows,
+// head, batch), 4 warps of 16 rows, the score and output tiles in shared
+// memory, off the main path.
+//
+// K6 at the other head dims.  The Pallas kernel's blocks span the full
+// head dim (flash.py:129-131), so it takes any D: DiT-XL/2 has 16 heads of
+// 72, the reduced configs heads of 16.  bf16 at a D outside {32, 64, 128}
+// runs a separate kernel on mma.sync m16n8k16 (bf16 in, float32 out), the
+// tile layout K7 already uses: one block of 4 warps per (64 query rows,
+// head, batch); 64-position K/V tiles in two cp.async stages; Q, K and V
+// rows padded to Dp = D rounded up to 16 in shared memory, the columns
+// past D zero-filled by the copies themselves (no bytes read), so they add
+// nothing to a score and the output stores only D columns; each row a
+// further 16 bytes long, an odd multiple of 16, so ldmatrix reads eight
+// rows at one column without bank conflicts.  Masks, base-2 online softmax
+// and the bf16 rounding of p are the wgmma kernel's.  Bound at DiT-XL/2's
+// gen_1024 (B = 4, S = 4096, H = 16, D = 72, non-causal): operations,
+// 4*B*S^2*H*D = 309 GFLOP, 0.31 ms at 989 TFLOP/s; mma.sync reaches only
+// part of the wgmma rate (a later PR's work, as is padding Dp into the
+// wgmma kernel instead).  float32 at any D runs the FMA kernel at Dp.
 //
 // K7 bound on an H100: bytes.  A step reads the cache up to pos once,
 // 2*B*(pos+1)*Kv*D*sizeof(T): 33.6 MB at B = 2, pos = 4095 (0.010 ms at
@@ -100,8 +117,10 @@
 // path).
 //
 // Contract (checked by the wrappers in flash.py): contiguous tensors on one
-// device, 16-byte aligned, D in {32, 64, 128}; K6: causal or segment ids
-// need Sq == Skv; K7: 0 <= pos < Smax.
+// device, 16-byte aligned; K6: D a multiple of 8 up to 128 (bf16 at 32,
+// 64, 128 on wgmma, other bf16 D on mma.sync, float32 on the FMA kernel),
+// causal or segment ids need Sq == Skv; K7: D in {32, 64, 128},
+// 0 <= pos < Smax.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -474,14 +493,18 @@ struct K6Layout {
 };
 
 // Rows [first, first + 64) of a sequence whose row r starts at
-// src + r * stride, into a tile with row stride ld; zero past `limit`.
+// src + r * stride, into a tile of D columns with row stride ld: the d
+// columns of a row, zeros past them and past `limit`.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld,
                                           const float* src, int64_t stride,
                                           int first, int limit, int d) {
-  for (int e = threadIdx.x; e < kBQ * d; e += kThreads) {
-    const int r = e / d;
-    const int c = e - r * d;
-    dst[r * ld + c] = first + r < limit ? src[(first + r) * stride + c] : 0.0f;
+  for (int e = threadIdx.x; e < kBQ * D; e += kThreads) {
+    const int r = e / D;
+    const int c = e - r * D;
+    dst[r * ld + c] = first + r < limit && c < d
+                          ? src[(first + r) * stride + c]
+                          : 0.0f;
   }
 }
 
@@ -532,6 +555,8 @@ __device__ __forceinline__ void tile_pv(const float* p, const float* vs,
   }
 }
 
+// D: the head dim d rounded up to 16; the columns past d are zeros, which
+// add nothing to the scores, and are not stored.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma_kernel(const float* __restrict__ q,
@@ -539,7 +564,7 @@ flash_attention_fma_kernel(const float* __restrict__ q,
                            const float* __restrict__ v,
                            const int* __restrict__ seg,
                            float* __restrict__ out, int sq, int skv, int h,
-                           int kvh, int causal, float sm_scale) {
+                           int kvh, int d, int causal, float sm_scale) {
   using L = K6Layout<D>;
   extern __shared__ __align__(128) unsigned char k6_smem[];
   float* qs = reinterpret_cast<float*>(k6_smem + L::q_off);
@@ -562,14 +587,14 @@ flash_attention_fma_kernel(const float* __restrict__ q,
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kv_head = head / (h / kvh);
-  const int64_t q_stride = (int64_t)h * D;
-  const int64_t kv_stride = (int64_t)kvh * D;
-  const float* qb = q + ((int64_t)b * sq * h + head) * D;
-  const float* kb = k + ((int64_t)b * skv * kvh + kv_head) * D;
-  const float* vb = v + ((int64_t)b * skv * kvh + kv_head) * D;
+  const int64_t q_stride = (int64_t)h * d;
+  const int64_t kv_stride = (int64_t)kvh * d;
+  const float* qb = q + ((int64_t)b * sq * h + head) * d;
+  const float* kb = k + ((int64_t)b * skv * kvh + kv_head) * d;
+  const float* vb = v + ((int64_t)b * skv * kvh + kv_head) * d;
   const int use_seg = seg != nullptr;
 
-  load_tile(qs, L::ldt, qb, q_stride, q0, sq, D);
+  load_tile<D>(qs, L::ldt, qb, q_stride, q0, sq, d);
   for (int i = tid; i < kBQ; i += kThreads) {
     m_row[i] = kNegInf;
     l_row[i] = 0.0f;
@@ -581,8 +606,8 @@ flash_attention_fma_kernel(const float* __restrict__ q,
   // causal: KV tiles past the diagonal are skipped (flash.py:81-85)
   const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
   for (int j0 = 0; j0 < kv_end; j0 += kBKV) {
-    load_tile(ks, L::ldt, kb, kv_stride, j0, skv, D);
-    load_tile(vs, L::ldt, vb, kv_stride, j0, skv, D);
+    load_tile<D>(ks, L::ldt, kb, kv_stride, j0, skv, d);
+    load_tile<D>(vs, L::ldt, vb, kv_stride, j0, skv, d);
     for (int i = tid; i < kBKV; i += kThreads) {
       kseg[i] = (use_seg && j0 + i < skv) ? seg[(int64_t)b * skv + j0 + i]
                                           : 0;
@@ -643,15 +668,15 @@ flash_attention_fma_kernel(const float* __restrict__ q,
     if (qi >= sq) break;
     const float l = l_row[r];
     const float safe = l == 0.0f ? 1.0f : l;
-    float* dst = out + (((int64_t)b * sq + qi) * h + head) * D;
-    for (int c = lane; c < D; c += 32) dst[c] = o[r * L::ldo + c] / safe;
+    float* dst = out + (((int64_t)b * sq + qi) * h + head) * d;
+    for (int c = lane; c < d; c += 32) dst[c] = o[r * L::ldo + c] / safe;
   }
 }
 
 template <int D>
 int launch_flash_attention_fma(const void* q, const void* k, const void* v,
                                const int* seg, void* out, int b, int sq,
-                               int skv, int h, int kvh, int causal,
+                               int skv, int h, int kvh, int d, int causal,
                                float sm_scale, cudaStream_t stream) {
   using L = K6Layout<D>;
   auto kernel = flash_attention_fma_kernel<D>;
@@ -662,65 +687,11 @@ int launch_flash_attention_fma(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), seg, static_cast<float*>(out), sq, skv,
-      h, kvh, causal, sm_scale);
+      h, kvh, d, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_flash_attention(int bf16, const void* q, const void* k,
-                           const void* v, const int* seg, void* out, int b,
-                           int sq, int skv, int h, int kvh, int causal,
-                           float sm_scale, cudaStream_t stream) {
-  if (bf16) {
-    return launch_flash_attention_wgmma<D>(q, k, v, seg, out, b, sq, skv, h,
-                                           kvh, causal, sm_scale, stream);
-  }
-  return launch_flash_attention_fma<D>(q, k, v, seg, out, b, sq, skv, h, kvh,
-                                       causal, sm_scale, stream);
-}
-
-// ------------------------------------------------------------------ K7 ----
-
-constexpr int kDecWarps = 4;    // warps a block, each with its own ring
-constexpr int kDecTile = 16;    // positions a warp's ring stage holds
-constexpr int kDecStages = 3;   // stages of a warp's ring
-constexpr int kDecHeads = 16;   // query heads a block (the mma's 16 rows)
-
-// Shared memory of one K7 block.  Warp w owns bytes [w, w + 1) * warp_bytes
-// of the ring: kDecStages stages of a K tile then a V tile, kDecTile rows of
-// D elements each, every row's 16-byte chunks swizzled (decode_chunk_at) so
-// that eight rows read at one column hit eight different bank groups.  When
-// its tiles are done a warp writes its (m, l, acc) state over its own ring;
-// the block's merged state (the slot the cluster's rank 0 reads) follows
-// the ring.  float32 blocks also keep q and a score tile per warp.
-template <typename T, int D>
-struct DecLayout {
-  static constexpr int row_bytes = D * (int)sizeof(T);
-  static constexpr int chunks = row_bytes / 16;   // 16-byte chunks a row
-  static constexpr int tile_bytes = kDecTile * row_bytes;
-  static constexpr int stage_bytes = 2 * tile_bytes;   // K then V
-  static constexpr int warp_bytes = kDecStages * stage_bytes;
-  // a state: acc (kDecHeads, D) f32, then m and l (kDecHeads) f32
-  static constexpr int state_bytes = (kDecHeads * D + 2 * kDecHeads) * 4;
-  static constexpr int slot_off = kDecWarps * warp_bytes;
-  static constexpr int q_off = slot_off + state_bytes;
-  static constexpr int s_off = q_off + kDecHeads * D * 4;
-  static constexpr bool f32 = std::is_same<T, float>::value;
-  static constexpr int bytes =
-      f32 ? s_off + kDecWarps * kDecHeads * kDecTile * 4 : q_off;
-  static_assert(state_bytes <= warp_bytes, "a warp's state fits its ring");
-};
-
-// The physical 16-byte chunk of chunk c in row r: XOR-swizzled within each
-// 128-byte line (rows of 64 bytes pair up in a line).
-template <int C>
-__device__ __forceinline__ int decode_chunk_at(int r, int c) {
-  if constexpr (C >= 8) {
-    return c ^ (r & 7);
-  } else {
-    return c ^ ((r >> 1) & (C - 1));
-  }
-}
+// -------------------------------- cp.async, ldmatrix, mma.sync (K6, K7) ----
 
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             int src_bytes) {
@@ -765,6 +736,342 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------- K6, bf16 mma.sync, any D ----
+
+constexpr int kMmaThreads = 128;   // 4 warps of 16 query rows
+constexpr int kMmaBQ = 64;         // query rows a block
+constexpr int kMmaBKV = 64;        // positions a KV tile
+
+// Shared memory of one bf16 mma.sync K6 block: Q, two K stages, two V
+// stages, each 64 rows of D bf16 (the head dim d rounded up to 16, zeros
+// past d) and a 16-byte pad.  A row is then an odd multiple of 16 bytes,
+// so the eight rows one ldmatrix reads at one column land on eight
+// different 16-byte bank groups, with no swizzle to compute.
+template <int D>
+struct MmaLayout {
+  static constexpr int row_bytes = D * 2 + 16;
+  static constexpr int tile_bytes = kMmaBQ * row_bytes;
+  static constexpr int k_off = tile_bytes;
+  static constexpr int v_off = k_off + 2 * tile_bytes;
+  static constexpr int bytes = v_off + 2 * tile_bytes;
+  static_assert(kMmaBQ == kMmaBKV, "Q, K and V tiles share one layout");
+};
+
+// Rows [first, first + 64) of a bf16 sequence whose row r starts at
+// src + r * stride, d columns a row, into a tile: 16-byte cp.async copies,
+// zero-filled (no bytes read) past d and past `limit`.  The caller
+// commits the group.
+template <int D>
+__device__ __forceinline__ void mma_load_tile(unsigned char* dst,
+                                              const __nv_bfloat16* src,
+                                              int64_t stride, int first,
+                                              int limit, int d) {
+  using L = MmaLayout<D>;
+  constexpr int chunks = D / 8;
+  const int real = d / 8;
+  for (int e = threadIdx.x; e < kMmaBQ * chunks; e += kMmaThreads) {
+    const int r = e / chunks;
+    const int c = e - r * chunks;
+    const bool ok = first + r < limit && c < real;
+    const __nv_bfloat16* from =
+        src + (ok ? (first + r) * stride + c * 8 : first * stride);
+    cp_async_16(dst + r * L::row_bytes + c * 16, from, ok ? 16 : 0);
+  }
+}
+
+// K6 in bf16 for head dims the wgmma kernel does not take (DiT-XL/2's 72,
+// the reduced configs' 16, any multiple of 8 up to 128).  One block of 4
+// warps per (64 query rows, query head, batch), the heaviest causal tiles
+// first; the block streams 64-position K/V tiles through two cp.async
+// stages while each warp runs its 16 rows on the tensor cores (mma.sync
+// m16n8k16, bf16 in, float32 out): S = Q.K^T over D / 16 k-steps, the
+// masks and the online softmax on the score fragments in registers (the
+// same masking and base-2 arithmetic as the wgmma kernel), p rounded to
+// bf16 as the A fragments of P.V.  The columns past d are zeros in Q and
+// K, so they add nothing to a score, and are never stored.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const int* __restrict__ seg,
+                           __nv_bfloat16* __restrict__ out, int sq, int skv,
+                           int h, int kvh, int d, int causal,
+                           float scale_log2) {
+  using L = MmaLayout<D>;
+  extern __shared__ __align__(128) unsigned char k6m_smem[];
+  unsigned char* qs = k6m_smem;
+  unsigned char* ks = k6m_smem + L::k_off;
+  unsigned char* vs = k6m_smem + L::v_off;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  // the heaviest causal query tiles (the last) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kv_head = head / (h / kvh);
+  const int64_t q_stride = (int64_t)h * d;
+  const int64_t kv_stride = (int64_t)kvh * d;
+  const __nv_bfloat16* qb = q + ((int64_t)b * sq * h + head) * d;
+  const __nv_bfloat16* kb = k + ((int64_t)b * skv * kvh + kv_head) * d;
+  const __nv_bfloat16* vb = v + ((int64_t)b * skv * kvh + kv_head) * d;
+  // causal: KV tiles past the diagonal are skipped (flash.py:81-85)
+  const int kv_end = causal ? min(skv, q0 + kMmaBQ) : skv;
+  const int n_tiles = (kv_end + kMmaBKV - 1) / kMmaBKV;
+
+  // this thread's two rows of the warp's 16
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const int row_b = row_a + 8;
+  const int use_seg = seg != nullptr;
+  const int* segb = use_seg ? seg + (int64_t)b * skv : nullptr;
+  const int qseg_a = use_seg && row_a < sq ? segb[row_a] : 0;
+  const int qseg_b = use_seg && row_b < sq ? segb[row_b] : 0;
+  // ldmatrix rows this lane addresses: matrix lane / 8, its row lane % 8
+  const int mat = lane / 8, mrow = lane % 8;
+
+  // Q with the first K/V tile: one commit group
+  mma_load_tile<D>(qs, qb, q_stride, q0, sq, d);
+  mma_load_tile<D>(ks, kb, kv_stride, 0, skv, d);
+  mma_load_tile<D>(vs, vb, kv_stride, 0, skv, d);
+  cp_async_commit();
+
+  uint32_t qa[D / 16][4];
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int j0 = t * kMmaBKV;
+    if (t + 1 < n_tiles) {
+      mma_load_tile<D>(ks + (st ^ 1) * L::tile_bytes, kb, kv_stride,
+                       j0 + kMmaBKV, skv, d);
+      mma_load_tile<D>(vs + (st ^ 1) * L::tile_bytes, vb, kv_stride,
+                       j0 + kMmaBKV, skv, d);
+    }
+    cp_async_commit();   // empty on the last tile: the wait counts groups
+    cp_async_wait<1>();  // tile t (and Q) have landed, this thread's
+    __syncthreads();     // ... and every thread's
+    if (t == 0) {
+      // Q as the A fragments: matrices (rows 0-7 | 8-15) x (k lo | hi)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ldmatrix_x4(qa[kk], qs + (warp * 16 + (mat % 2) * 8 + mrow) *
+                                     L::row_bytes +
+                                 (2 * kk + mat / 2) * 16);
+      }
+    }
+    const unsigned char* kt = ks + st * L::tile_bytes;
+    const unsigned char* vt = vs + st * L::tile_bytes;
+
+    // S = Q . K^T: per 16 positions, matrices (positions 0-7 | 8-15) x
+    // (dims lo | hi)
+    float s[kMmaBKV / 8][4];
+#pragma unroll
+    for (int n = 0; n < kMmaBKV / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    }
+#pragma unroll
+    for (int np = 0; np < kMmaBKV / 16; ++np) {
+      const int kr = np * 16 + (mat / 2) * 8 + mrow;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kt + kr * L::row_bytes + (2 * kk + mat % 2) * 16);
+        mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
+      }
+    }
+
+    // masks, scale to base 2, row max over the quad: element e of n-tile n
+    // is row (e < 2 ? a : b), column j0 + 8 n + 2 quad + (e & 1)
+    const bool edge = j0 + kMmaBKV > skv;
+    const bool diag = causal && j0 + kMmaBKV - 1 > q0 + warp * 16;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kMmaBKV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge || diag || use_seg) {
+          const int col = j0 + n * 8 + 2 * quad + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          if (col >= skv) {
+            x = -INFINITY;   // not a score: p = 0, out of the max
+          } else if ((causal && col > row) ||
+                     (use_seg && segb[col] != (e < 2 ? qseg_a : qseg_b))) {
+            x = kNegInf;
+          }
+        }
+        s[n][e] = x;
+        if (e < 2) {
+          mx_a = fmaxf(mx_a, x);
+        } else {
+          mx_b = fmaxf(mx_b, x);
+        }
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = fast_exp2(m_a - mn_a);
+    const float alpha_b = fast_exp2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kMmaBKV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[n][e] - (e < 2 ? mn_a : mn_b));
+        s[n][e] = p;
+        if (e < 2) {
+          sum_a += p;
+        } else {
+          sum_b += p;
+        }
+      }
+    }
+    // each thread keeps its share of l; the quad sums it at the end
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+    }
+
+    // O += P . V: p rounded to bf16, the score fragments of positions
+    // 16 kk .. 16 kk + 15 the A fragment of k-step kk; V transposed,
+    // matrices (positions 0-7 | 8-15) x (dims n | n + 8)
+#pragma unroll
+    for (int kk = 0; kk < kMmaBKV / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int vr = kk * 16 + (mat % 2) * 8 + mrow;
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vt + vr * L::row_bytes + (n + mat / 2) * 16);
+        mma_bf16(o[n], pa, bf[0], bf[1]);
+        mma_bf16(o[n + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();   // the stage is free for the copy issued next
+  }
+  cp_async_wait<0>();
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float safe_a = l_a == 0.0f ? 1.0f : l_a;
+  const float safe_b = l_b == 0.0f ? 1.0f : l_b;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * quad;
+    if (col >= d) continue;
+    if (row_a < sq) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + (((int64_t)b * sq + row_a) * h + head) * d + col) =
+          __floats2bfloat162_rn(o[n][0] / safe_a, o[n][1] / safe_a);
+    }
+    if (row_b < sq) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + (((int64_t)b * sq + row_b) * h + head) * d + col) =
+          __floats2bfloat162_rn(o[n][2] / safe_b, o[n][3] / safe_b);
+    }
+  }
+}
+
+template <int D>
+int launch_flash_attention_mma(const void* q, const void* k, const void* v,
+                               const int* seg, void* out, int b, int sq,
+                               int skv, int h, int kvh, int d, int causal,
+                               float sm_scale, cudaStream_t stream) {
+  using L = MmaLayout<D>;
+  auto kernel = flash_attention_mma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, h, b);
+  kernel<<<grid, kMmaThreads, L::bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), seg,
+      static_cast<__nv_bfloat16*>(out), sq, skv, h, kvh, d, causal,
+      sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// K6 at a head dim d padded to D: the mma.sync kernel (bf16) or the FMA
+// kernel (float32).
+template <int D>
+int launch_flash_attention_padded(int bf16, const void* q, const void* k,
+                                  const void* v, const int* seg, void* out,
+                                  int b, int sq, int skv, int h, int kvh,
+                                  int d, int causal, float sm_scale,
+                                  cudaStream_t stream) {
+  if (bf16) {
+    return launch_flash_attention_mma<D>(q, k, v, seg, out, b, sq, skv, h,
+                                         kvh, d, causal, sm_scale, stream);
+  }
+  return launch_flash_attention_fma<D>(q, k, v, seg, out, b, sq, skv, h, kvh,
+                                       d, causal, sm_scale, stream);
+}
+
+// ------------------------------------------------------------------ K7 ----
+
+constexpr int kDecWarps = 4;    // warps a block, each with its own ring
+constexpr int kDecTile = 16;    // positions a warp's ring stage holds
+constexpr int kDecStages = 3;   // stages of a warp's ring
+constexpr int kDecHeads = 16;   // query heads a block (the mma's 16 rows)
+
+// Shared memory of one K7 block.  Warp w owns bytes [w, w + 1) * warp_bytes
+// of the ring: kDecStages stages of a K tile then a V tile, kDecTile rows of
+// D elements each, every row's 16-byte chunks swizzled (decode_chunk_at) so
+// that eight rows read at one column hit eight different bank groups.  When
+// its tiles are done a warp writes its (m, l, acc) state over its own ring;
+// the block's merged state (the slot the cluster's rank 0 reads) follows
+// the ring.  float32 blocks also keep q and a score tile per warp.
+template <typename T, int D>
+struct DecLayout {
+  static constexpr int row_bytes = D * (int)sizeof(T);
+  static constexpr int chunks = row_bytes / 16;   // 16-byte chunks a row
+  static constexpr int tile_bytes = kDecTile * row_bytes;
+  static constexpr int stage_bytes = 2 * tile_bytes;   // K then V
+  static constexpr int warp_bytes = kDecStages * stage_bytes;
+  // a state: acc (kDecHeads, D) f32, then m and l (kDecHeads) f32
+  static constexpr int state_bytes = (kDecHeads * D + 2 * kDecHeads) * 4;
+  static constexpr int slot_off = kDecWarps * warp_bytes;
+  static constexpr int q_off = slot_off + state_bytes;
+  static constexpr int s_off = q_off + kDecHeads * D * 4;
+  static constexpr bool f32 = std::is_same<T, float>::value;
+  static constexpr int bytes =
+      f32 ? s_off + kDecWarps * kDecHeads * kDecTile * 4 : q_off;
+  static_assert(state_bytes <= warp_bytes, "a warp's state fits its ring");
+};
+
+// The physical 16-byte chunk of chunk c in row r: XOR-swizzled within each
+// 128-byte line (rows of 64 bytes pair up in a line).
+template <int C>
+__device__ __forceinline__ int decode_chunk_at(int r, int c) {
+  if constexpr (C >= 8) {
+    return c ^ (r & 7);
+  } else {
+    return c ^ ((r >> 1) & (C - 1));
+  }
 }
 
 // Everything one K7 block reads: where its KV head's rows start, which
@@ -1246,7 +1553,9 @@ int dispatch_flash_decode(int d, const void* q, const void* k, const void* v,
 // and return a CUDA error code (0 on success).  `bf16`: 1 bfloat16, 0
 // float32 (q, k, v and out share the type).
 
-// K6.  seg: (B, S) int32 segment ids or null.
+// K6.  seg: (B, S) int32 segment ids or null.  d: a multiple of 8 up to
+// 128; bf16 at 32, 64 and 128 takes the wgmma kernel, bf16 at any other d
+// the mma.sync kernel, float32 the FMA kernel (both at d rounded up to 16).
 extern "C" int tangram_flash_attention(const void* q, const void* k,
                                        const void* v, const int* seg,
                                        void* out, int b, int sq, int skv,
@@ -1254,18 +1563,58 @@ extern "C" int tangram_flash_attention(const void* q, const void* k,
                                        float sm_scale, int bf16,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch_flash_attention<32>(bf16, q, k, v, seg, out, b, sq, skv,
-                                        h, kvh, causal, sm_scale, s);
-    case 64:
-      return launch_flash_attention<64>(bf16, q, k, v, seg, out, b, sq, skv,
-                                        h, kvh, causal, sm_scale, s);
-    case 128:
-      return launch_flash_attention<128>(bf16, q, k, v, seg, out, b, sq, skv,
-                                         h, kvh, causal, sm_scale, s);
+  if (d <= 0 || d > 128 || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    switch (d) {
+      case 32:
+        return launch_flash_attention_wgmma<32>(q, k, v, seg, out, b, sq,
+                                                skv, h, kvh, causal, sm_scale,
+                                                s);
+      case 64:
+        return launch_flash_attention_wgmma<64>(q, k, v, seg, out, b, sq,
+                                                skv, h, kvh, causal, sm_scale,
+                                                s);
+      case 128:
+        return launch_flash_attention_wgmma<128>(q, k, v, seg, out, b, sq,
+                                                 skv, h, kvh, causal,
+                                                 sm_scale, s);
+      default:
+        break;
+    }
+  }
+  switch ((d + 15) / 16) {
+    case 1:
+      return launch_flash_attention_padded<16>(bf16, q, k, v, seg, out, b, sq,
+                                               skv, h, kvh, d, causal,
+                                               sm_scale, s);
+    case 2:
+      return launch_flash_attention_padded<32>(bf16, q, k, v, seg, out, b, sq,
+                                               skv, h, kvh, d, causal,
+                                               sm_scale, s);
+    case 3:
+      return launch_flash_attention_padded<48>(bf16, q, k, v, seg, out, b, sq,
+                                               skv, h, kvh, d, causal,
+                                               sm_scale, s);
+    case 4:
+      return launch_flash_attention_padded<64>(bf16, q, k, v, seg, out, b, sq,
+                                               skv, h, kvh, d, causal,
+                                               sm_scale, s);
+    case 5:
+      return launch_flash_attention_padded<80>(bf16, q, k, v, seg, out, b, sq,
+                                               skv, h, kvh, d, causal,
+                                               sm_scale, s);
+    case 6:
+      return launch_flash_attention_padded<96>(bf16, q, k, v, seg, out, b, sq,
+                                               skv, h, kvh, d, causal,
+                                               sm_scale, s);
+    case 7:
+      return launch_flash_attention_padded<112>(bf16, q, k, v, seg, out, b,
+                                                sq, skv, h, kvh, d, causal,
+                                                sm_scale, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch_flash_attention_padded<128>(bf16, q, k, v, seg, out, b,
+                                                sq, skv, h, kvh, d, causal,
+                                                sm_scale, s);
   }
 }
 

@@ -7,6 +7,11 @@ checks every argument, allocates the outputs, launches on PyTorch's
 current stream, and counts launches under ``"flash_attention"`` and
 ``"flash_decode"`` in :data:`repro_torch.kernels.launches.LAUNCHES`.
 
+K6 takes any head dim that is a multiple of 8 up to 128: bf16 at 32, 64
+and 128 runs the wgmma kernel (:func:`wgmma_plan`), bf16 at the others
+(DiT-XL/2's 72) a mma.sync kernel (:func:`mma_plan`), float32 an FMA
+kernel; :func:`k6_kernel` names the one a launch takes.
+
 K7 is one launch a call and needs no scratch: each block streams its
 warps' 16-position K/V tiles through per-warp ``cp.async`` rings, runs
 scores and P.V on the tensor cores (``mma.sync``), and the chunks of one
@@ -40,14 +45,23 @@ from repro_torch.kernels.launches import count_launch
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash.cu"
 LIBRARY = "tangram_flash"
 
-#: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head dims K6 takes: any multiple of 8 up to 128, as the Pallas kernel
+#: (whose blocks span the full head dim) takes any; bf16 at
+#: ``WGMMA_HEAD_DIMS`` runs the wgmma kernel, bf16 at the others the
+#: mma.sync kernel, float32 the FMA kernel
+HEAD_DIMS = tuple(range(8, 129, 8))
+WGMMA_HEAD_DIMS = (32, 64, 128)
+#: head dims K7 is instantiated for
+DECODE_HEAD_DIMS = (32, 64, 128)
 #: q / k / v dtypes the kernels take -> the C interface's bf16 flag
 _BF16_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 #: the bf16 K6 kernel's tiles (kWgBQ, kWgBKV, kWgStages in the source):
 #: query rows a block, positions a KV tile, K/V ring stages
 WG_ROWS, WG_TILE, WG_STAGES = 128, 128, 2
+#: the bf16 mma.sync K6 kernel's tiles (kMmaBQ, kMmaBKV): query rows a
+#: block, positions a KV tile (two stages)
+MMA_ROWS, MMA_TILE = 64, 64
 #: K7's block (kDecWarps, kDecTile, kDecStages, kDecHeads in the source):
 #: warps a block, positions a warp's ring stage, stages a warp's ring,
 #: query heads a block; a block's pass over the chunk takes
@@ -86,8 +100,32 @@ def wgmma_plan(b: int, sq: int, h: int, d: int):
     return (-(-sq // WG_ROWS), h, b), smem
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the mma.sync and FMA K6 kernels lay out: d rounded up
+    to 16 (one k-step of mma.sync), zeros past d."""
+    return -(-d // 16) * 16
+
+
+def mma_plan(b: int, sq: int, h: int, d: int):
+    """Grid and dynamic shared-memory bytes of the bf16 mma.sync K6 launch,
+    as the source's ``MmaLayout`` lays a block out: Q, two K and two V
+    stages, each ``MMA_ROWS`` rows of the padded head dim in bf16 plus 16
+    bytes.  Block x takes query rows from ``(grid[0] - 1 - x) *
+    MMA_ROWS``, the heaviest causal tile first."""
+    row = padded_head_dim(d) * 2 + 16
+    return (-(-sq // MMA_ROWS), h, b), 5 * MMA_ROWS * row
+
+
+def k6_kernel(dtype: torch.dtype, d: int) -> str:
+    """Which K6 kernel a launch at this dtype and head dim runs: "wgmma",
+    "mma" (bf16 at the other head dims) or "fma" (float32)."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
+
+
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor) -> None:
+               v: torch.Tensor, head_dims: Tuple[int, ...]) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must lie on one CUDA device, got "
                          f"q on {q.device}")
@@ -114,8 +152,8 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
     if kvh == 0 or h % kvh:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{kvh} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"{name}: head dim {d} not in {head_dims}")
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"{name}: batch {b} or {h} heads exceed "
                          f"{_MAX_GRID_YZ}")
@@ -130,9 +168,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          segment_ids: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """K6: q (B, Sq, H, D), k / v (B, Skv, Kv, D) -> context (B, Sq, H, D)
-    in q's dtype; any S (the kernel masks its own ragged edge)."""
+    in q's dtype; any S (the kernel masks its own ragged edge), D any
+    multiple of 8 up to 128 (:data:`HEAD_DIMS`)."""
     name = "flash_attention"
-    _check_qkv(name, q, k, v)
+    _check_qkv(name, q, k, v, HEAD_DIMS)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if (causal or segment_ids is not None) and sq != skv:
@@ -149,8 +188,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.device}, got {segment_ids.dtype} "
                              f"{tuple(segment_ids.shape)} on "
                              f"{segment_ids.device}")
-    if q.dtype == torch.bfloat16:
-        _, smem = wgmma_plan(b, sq, h, d)
+    kernel = k6_kernel(q.dtype, d)
+    if kernel != "fma":
+        _, smem = (wgmma_plan if kernel == "wgmma" else mma_plan)(b, sq, h,
+                                                                  d)
         if smem > _SMEM_LIMIT:
             raise ValueError(f"{name}: head dim {d} needs {smem} bytes of "
                              f"shared memory, more than {_SMEM_LIMIT}")
@@ -235,7 +276,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is a host int (the grid is sized to it, and no device value is read
     back)."""
     name = "flash_decode"
-    _check_qkv(name, q, k, v)
+    _check_qkv(name, q, k, v, DECODE_HEAD_DIMS)
     b, one, h, d = q.shape
     smax, kvh = k.shape[1], k.shape[2]
     if one != 1:

@@ -15,8 +15,9 @@ The causal ``attention`` and ``decode_attention`` always go through
 launches the hand-written kernels (K6 in prefill, K7 in decode) and a CPU
 tensor runs their plain versions; ``impl="torch"`` asks for the plain
 versions on any device.  ``encoder_attention`` keeps the plain path by
-default (``impl="xla"``), because the JAX detector pins it; ``impl="flash"``
-takes K6, non-causal.
+default (``impl="xla"``), as the JAX package does (its detector pins it);
+``impl="flash"`` takes K6, non-causal, and ``impl="torch"`` K6's plain
+version.
 """
 from __future__ import annotations
 
@@ -135,20 +136,26 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
 def encoder_attention(params: dict, x: torch.Tensor, *,
                       compute_dtype: torch.dtype,
                       impl: str = "xla") -> torch.Tensor:
-    """Bidirectional MHA (no RoPE) for the ViT encoder.  x: (B, S, d) ->
-    (B, S, d); the head count is the weights' H.  ``impl="xla"`` (the
-    default, and what the detector runs) is the plain path: scores taken
-    in float32, a float32 softmax, the context in the compute dtype;
-    ``impl="flash"`` runs K6 non-causal (its plain version on the CPU)."""
-    wq = params["wq"]
-    n_heads = (wq["q"] if isinstance(wq, dict) else wq).shape[1]
+    """Bidirectional MHA (no RoPE) for the ViT and DiT encoders.  x: (B,
+    S, d) -> (B, S, d); the head count is the weights' H (a fused
+    ``wqkv`` holds 3 H).  ``impl="xla"`` (the default, and what the
+    detector runs) is the plain path: scores taken in float32, a float32
+    softmax, the context in the compute dtype;
+    ``impl="flash"`` runs K6 non-causal (its plain version on the CPU);
+    ``impl="torch"`` runs K6's plain version on any device, what a kernel
+    run is held against."""
+    w = params["wqkv"] if "wqkv" in params else params["wq"]
+    n_heads = (w["q"] if isinstance(w, dict) else w).shape[1]
+    if "wqkv" in params:
+        n_heads //= 3
     q, k, v = _qkv(params, x, n_heads, compute_dtype)
-    if impl == "flash":
-        return _out(params, flash_ops.flash_attention(q, k, v, causal=False),
-                    compute_dtype)
+    if impl in ("flash", "torch"):
+        ctx = flash_ops.flash_attention(
+            q, k, v, causal=False, impl=None if impl == "flash" else "torch")
+        return _out(params, ctx, compute_dtype)
     if impl != "xla":
         raise ValueError(f"unknown encoder attention impl {impl!r}; choose "
-                         f"from ['xla', 'flash']")
+                         f"from ['xla', 'flash', 'torch']")
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
     probs = torch.softmax(scores, dim=-1)

@@ -31,15 +31,17 @@ import torch
 from repro_torch.config import DetectorConfig, ViTConfig, dtype_of
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, vit
-from repro_torch.param import convert_tree, map_tree, spec
+from repro_torch.param import convert_like, map_tree, spec
 from repro_torch.param import init_params as init_tree
 
 
 def trunk_cfg(cfg: DetectorConfig) -> ViTConfig:
+    """The trunk's ViT config, the JAX package's ``_trunk_cfg`` (a
+    one-class head, which the detector replaces with its own)."""
     return ViTConfig(
         name=f"{cfg.name}-trunk", img_res=cfg.canvas, patch=cfg.patch,
         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
-        d_ff=cfg.d_ff, param_dtype=cfg.param_dtype,
+        d_ff=cfg.d_ff, n_classes=1, param_dtype=cfg.param_dtype,
         compute_dtype=cfg.compute_dtype, quant_weights=cfg.quant_weights)
 
 
@@ -114,7 +116,7 @@ def convert_params(tree: dict, cfg: DetectorConfig,
                      for i in range(cfg.n_layers)]
     trunk["layers"] = per_layer
     out = {"trunk": trunk, "det_head": tree["det_head"]}
-    return convert_tree(out, dtype_of(cfg.param_dtype), device)
+    return convert_like(out, param_specs(cfg), device)
 
 
 def embed_params(cfg: DetectorConfig, params: dict

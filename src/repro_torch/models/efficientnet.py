@@ -1,20 +1,34 @@
-"""EfficientNet (MBConv + SE) with compound scaling: its parameter specs.
+"""EfficientNet (MBConv + SE) with compound scaling -- b7: w2.0 d3.1 r600.
 
-Port of ``block_args``, ``param_specs`` and ``count_params`` from
-``repro/models/efficientnet.py``, on :mod:`repro_torch.param`'s
-``ParamSpec`` trees (NHWC / HWIO layouts, as the reference's).  The
-registry's ``efficientnet_b7`` detector reads :func:`count_params` for its
-weight economics; the classifier's forward pass (convolutions, sync
-batch norm, squeeze-excite) is ROADMAP item 13.
+Port of ``repro/models/efficientnet.py`` on :mod:`repro_torch.param`'s
+``ParamSpec`` trees.  Activations and weights keep the reference's NHWC /
+HWIO layouts at every function here; :func:`_conv` hands
+``F.conv2d`` permuted views (NHWC is NCHW in channels-last memory, so the
+activations are not transposed) and pads for XLA's ``"SAME"`` itself.  The convolutions are
+cuDNN calls on a card, as the reference leaves them to XLA outside any
+Pallas kernel: no hand kernel runs on this path.  A float32 config on a
+card convolves in TF32 unless ``torch.backends.cudnn.allow_tf32`` is
+False (PyTorch's default is True); bf16 configs are unaffected.
+
+Batch norm takes the batch's statistics with ``train=True`` and the
+running ones kept as parameters otherwise (the serve path).  The registry's
+``efficientnet_b7`` detector reads :func:`count_params` for its weight
+economics.  ``cls_loss`` is the forward loss only; gradients come with
+training (ROADMAP item 13).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import EfficientNetConfig, dtype_of
+from repro_torch.device import DeviceLike
+from repro_torch.models.layers import sigmoid, silu
+from repro_torch.param import convert_like
 from repro_torch.param import count_params as _count
+from repro_torch.param import init_params as init_tree
 from repro_torch.param import spec
 
 
@@ -85,3 +99,122 @@ def param_specs(cfg: EfficientNetConfig):
 
 def count_params(cfg: EfficientNetConfig) -> int:
     return _count(param_specs(cfg))
+
+
+def init_params(cfg: EfficientNetConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> dict:
+    """Random parameters with the JAX package's init rules, drawn from
+    ``generator`` on ``device``."""
+    return init_tree(param_specs(cfg), generator, device)
+
+
+def convert_params(tree: dict, cfg: EfficientNetConfig,
+                   device: DeviceLike = None) -> dict:
+    """The JAX package's parameters (nested dicts of arrays) -> the port's
+    tree on ``device``, each leaf in its spec's dtype (the batch-norm
+    statistics float32, the rest ``cfg.param_dtype``)."""
+    return convert_like(tree, param_specs(cfg), device)
+
+
+# ------------------------------------------------------------------ ops -----
+
+def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial axis: the output has
+    ceil(size / stride) positions; the total padding that needs goes one
+    more to the high side when it is odd."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv(p: dict, x: torch.Tensor, stride: int, cdt: torch.dtype,
+          groups: int = 1) -> torch.Tensor:
+    """NHWC x, HWIO kernel -> NHWC, ``"SAME"`` padding, in ``cdt``."""
+    kernel = p["kernel"].to(cdt)
+    k = kernel.shape[0]
+    (top, bottom) = same_padding(x.shape[1], k, stride)
+    (left, right) = same_padding(x.shape[2], k, stride)
+    xc = x.to(cdt).permute(0, 3, 1, 2)
+    if (top, left) == (bottom, right):
+        pad = (top, left)
+    else:
+        xc = F.pad(xc, (left, right, top, bottom))
+        pad = (0, 0)
+    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride, padding=pad,
+                 groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def _bn(p: dict, x: torch.Tensor, train: bool, cdt: torch.dtype,
+        eps: float = 1e-3) -> torch.Tensor:
+    """Batch norm over (B, H, W) in float32: the batch's statistics when
+    ``train``, else the kept ``mean`` / ``var``; rounded once to ``cdt``."""
+    x32 = x.to(torch.float32)
+    if train:
+        mean = x32.mean(dim=(0, 1, 2))
+        var = x32.var(dim=(0, 1, 2), unbiased=False)
+    else:
+        mean, var = p["mean"].to(torch.float32), p["var"].to(torch.float32)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(cdt)
+
+
+def _mbconv(p: dict, b: dict, x: torch.Tensor, train: bool,
+            cdt: torch.dtype) -> torch.Tensor:
+    """Expand (1x1) -> depthwise kxk at the block's stride -> squeeze-
+    excite -> project (1x1), with the identity skip when shapes allow."""
+    mid = b["in_c"] * b["expand"]
+    inp = x
+    if b["expand"] != 1:
+        x = silu(_bn(p["expand_bn"], _conv(p["expand_conv"], x, 1, cdt),
+                     train, cdt))
+    x = silu(_bn(p["dw_bn"],
+                 _conv(p["dw_conv"], x, b["stride"], cdt, groups=mid),
+                 train, cdt))
+    # squeeze-excite
+    se = x.mean(dim=(1, 2), keepdim=True)
+    se = silu(_conv(p["se_reduce"], se, 1, cdt))
+    se = sigmoid(_conv(p["se_expand"], se, 1, cdt))
+    x = x * se
+    x = _bn(p["project_bn"], _conv(p["project_conv"], x, 1, cdt), train,
+            cdt)
+    if b["stride"] == 1 and b["in_c"] == b["out_c"]:
+        x = x + inp
+    return x
+
+
+def forward(cfg: EfficientNetConfig, params: dict, images: torch.Tensor,
+            *, train: bool = False) -> torch.Tensor:
+    """images: (B, H, W, 3) -> logits (B, n_classes) in the compute
+    dtype."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = images.to(cdt)
+    x = silu(_bn(params["stem_bn"], _conv(params["stem_conv"], x, 2, cdt),
+                 train, cdt))
+    for i, b in enumerate(block_args(cfg)):
+        x = _mbconv(params["blocks"][f"block_{i}"], b, x, train, cdt)
+    x = silu(_bn(params["head_bn"], _conv(params["head_conv"], x, 1, cdt),
+                 train, cdt))
+    x = x.mean(dim=(1, 2))                        # global average pool
+    return (x @ params["classifier"]["kernel"].to(cdt)
+            + params["classifier"]["bias"].to(cdt))
+
+
+@torch.inference_mode()
+def cls_loss(cfg: EfficientNetConfig, params: dict, batch: dict
+             ) -> torch.Tensor:
+    """batch: {images (B, H, W, 3), labels (B,)} -> the float32 mean
+    cross-entropy of the training-mode forward pass, labels clamped into
+    range.  Forward only."""
+    lg = forward(cfg, params, batch["images"], train=True).to(torch.float32)
+    labels = batch["labels"].to(torch.int64).clamp(0, cfg.n_classes - 1)
+    gold = lg.gather(1, labels[:, None])[:, 0]
+    return (torch.logsumexp(lg, -1) - gold).mean()
+
+
+@torch.inference_mode()
+def serve(cfg: EfficientNetConfig, params: dict, images: torch.Tensor
+          ) -> torch.Tensor:
+    """The serving forward pass: batch norm on the kept statistics."""
+    return forward(cfg, params, images, train=False)

@@ -1,8 +1,9 @@
 """Shared primitive layers: dense, norms, embeddings, MLPs.
 
-Port of the parts of ``repro/models/layers.py`` the detector and the
-decoder-only LM run.  Functions take plain dicts of tensors laid out as in
-the JAX package (dense kernels are (d_in, d_out)); an int8-resident dense
+Port of the parts of ``repro/models/layers.py`` the detector, the ViT /
+DiT models and the decoder-only LM run.  Functions take plain dicts of
+tensors laid out as in the JAX package (dense kernels are (d_in,
+d_out)); an int8-resident dense
 holds ``kernel_q`` (int8) and ``kernel_scale`` (float32, one per output
 channel) instead of ``kernel``, dequantized in the compute dtype.  Norm
 statistics accumulate in float32 whatever the compute dtype.  ``*_specs``
@@ -20,14 +21,17 @@ from repro_torch.param import spec
 # ----------------------------------------------------------------- specs ----
 
 def dense_specs(d_in: int, d_out: int, *, dtype: torch.dtype,
-                bias: bool = False, quant: bool = False) -> dict:
+                bias: bool = False, quant: bool = False,
+                zero_init: bool = False) -> dict:
     if quant:
         # int8 weight + per-output-channel float32 scale (serving residency)
         p = {"kernel_q": spec((d_in, d_out), dtype=torch.int8, init="zeros"),
              "kernel_scale": spec((d_out,), dtype=torch.float32,
                                   init="ones")}
     else:
-        p = {"kernel": spec((d_in, d_out), dtype=dtype, fan_in_axes=(0,))}
+        p = {"kernel": spec((d_in, d_out), dtype=dtype,
+                            init="zeros" if zero_init else "normal",
+                            fan_in_axes=(0,))}
     if bias:
         p["bias"] = spec((d_out,), dtype=dtype, init="zeros")
     return p
@@ -83,15 +87,31 @@ def quantize_dense(kernel: torch.Tensor) -> dict:
     return {"kernel_q": q, "kernel_scale": scale}
 
 
-def layernorm(params: dict, x: torch.Tensor, eps: float,
-              compute_dtype: torch.dtype) -> torch.Tensor:
+def _normalized(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) over the last axis, in float32."""
     x32 = x.to(torch.float32)
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (x32 - mean) * torch.rsqrt(var + eps)
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float,
+              compute_dtype: torch.dtype) -> torch.Tensor:
+    y = _normalized(x, eps)
     if "scale" in params:
         y = (y * params["scale"].to(torch.float32)
              + params["bias"].to(torch.float32))
+    return y.to(compute_dtype)
+
+
+def modulated_layernorm(x: torch.Tensor, shift: torch.Tensor,
+                        scale: torch.Tensor, eps: float,
+                        compute_dtype: torch.dtype) -> torch.Tensor:
+    """adaLN (DiT): a parameter-free layernorm of x (B, S, d) modulated by
+    the conditioning's (B, d) ``shift`` and ``scale``, all in float32 and
+    rounded once to the compute dtype."""
+    y = (_normalized(x, eps) * (1.0 + scale.to(torch.float32)[:, None, :])
+         + shift.to(torch.float32)[:, None, :])
     return y.to(compute_dtype)
 
 
@@ -119,10 +139,17 @@ def embed_logits(params: dict, x: torch.Tensor,
     return x.to(compute_dtype) @ table.T
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``'s arithmetic op by op, 1 / (1 + exp(-x)), so
+    bf16 rounds where the JAX package rounds (``torch.sigmoid`` rounds
+    once, and differs in the last bf16 bit on about a third of inputs)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``'s arithmetic op by op, x * (1 / (1 + exp(-x))), so
     bf16 rounds where the JAX package rounds (``F.silu`` rounds once)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def swiglu(params: dict, x: torch.Tensor, compute_dtype: torch.dtype

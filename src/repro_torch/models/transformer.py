@@ -41,7 +41,7 @@ from repro_torch.config import TransformerConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
-from repro_torch.param import convert_tree, map_tree
+from repro_torch.param import convert_like, map_tree
 from repro_torch.param import init_params as _init_tree
 
 
@@ -102,7 +102,7 @@ def convert_params(tree: dict, cfg: TransformerConfig,
         out["layers"] = {f"layer_{i}": map_tree(
             lambda a, i=i: np.asarray(a)[i], stacked)
             for i in range(cfg.n_layers)}
-    return convert_tree(out, dtype_of(cfg.param_dtype), device)
+    return convert_like(out, param_specs(cfg), device)
 
 
 # --------------------------------------------------------------- forward ----

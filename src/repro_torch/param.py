@@ -55,27 +55,33 @@ def from_numpy(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-#: leaves of an int8-quantised weight and the dtype each keeps
-QUANT_LEAVES = {"q": torch.int8, "scale": torch.float32,
-                "kernel_q": torch.int8, "kernel_scale": torch.float32}
-
-
-def convert_tree(tree, dtype: torch.dtype, device: torch.device):
+def convert_like(tree, specs, device: DeviceLike = None):
     """A tree of numpy arrays (e.g. the JAX package's parameters through
-    ``np.asarray``) as tensors on ``device``.  Leaves are cast to
-    ``dtype``, but for int8-quantised weights (``{q, scale}`` or
-    ``{kernel_q, kernel_scale[, bias]}``), whose values stay int8 and
-    whose scales stay float32."""
-    def walk(node):
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        if not isinstance(node, dict):
-            return from_numpy(node, dtype, device)
-        quant = "q" in node or "kernel_q" in node
-        return {k: (from_numpy(v, QUANT_LEAVES[k], device)
-                    if quant and k in QUANT_LEAVES else walk(v))
-                for k, v in node.items()}
-    return walk(tree)
+    ``np.asarray``, its stacked layers already cut into per-layer
+    subtrees) as tensors on ``device``, each leaf cast to the dtype of its
+    spec in ``specs`` (a :func:`spec` tree of the same structure): the
+    parameter dtype, or int8 values and float32 scales for an int8
+    weight; bf16 arrays keep their bits."""
+    device = resolve_device(device)
+
+    def walk(node, s):
+        if isinstance(s, ParamSpec):
+            t = from_numpy(node, s.dtype, device)
+            if tuple(t.shape) != s.shape:
+                raise ValueError(f"leaf of shape {tuple(t.shape)} where the "
+                                 f"spec has {s.shape}")
+            return t
+        if isinstance(s, list):
+            if len(node) != len(s):
+                raise ValueError(f"{len(node)} subtrees where the specs "
+                                 f"have {len(s)}")
+            return [walk(n, x) for n, x in zip(node, s)]
+        if set(node) != set(s):
+            raise KeyError(f"keys {sorted(node)} where the specs have "
+                           f"{sorted(s)}")
+        return {k: walk(node[k], s[k]) for k in s}
+
+    return walk(tree, specs)
 
 
 def leaves(tree):

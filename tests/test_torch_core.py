@@ -189,3 +189,74 @@ def test_reduced_build_serves_on_cpu():
     again = tmodels.make_model("tangram").build(canvas=128, device="cpu")[1]
     assert torch.equal(again["det_head"]["kernel"],
                        params["det_head"]["kernel"])
+
+
+def test_tangram_config_defaults_equal_jax():
+    """The paper's Section III-IV knobs (``config.TangramConfig``)."""
+    from repro.config import TangramConfig as JTangramConfig
+    from repro_torch.config import TangramConfig
+    j, t = JTangramConfig(), TangramConfig()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.canvas_m, t.canvas_n, t.zone_x, t.zone_y, t.slo_s,
+            t.slack_sigmas, t.max_canvases_per_batch) == (1024, 1024, 4, 4,
+                                                          1.0, 3.0, 8)
+
+
+def _random_boxes(rng, n):
+    """The boxes of ``tests/test_partitioning.py::test_jax_matches_host``:
+    up to 11 RoIs of 5-49 pixels a side in a 400x300 frame."""
+    x0 = rng.integers(0, 350, n)
+    y0 = rng.integers(0, 250, n)
+    return np.stack([x0, y0, x0 + rng.integers(5, 50, n),
+                     y0 + rng.integers(5, 50, n)], -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_partition_equals_jax_and_host(seed):
+    """Alg. 1 on tensors: patches and validity equal the JAX ``partition``
+    (all RoIs valid, then a random fifth dropped) and its valid patches
+    ``partition_host``'s, on 4x4 zones with align 8."""
+    import jax.numpy as jnp
+    from repro.core.partitioning import partition as jpartition
+    from repro_torch.core.partitioning import partition, partition_host
+    rng = np.random.default_rng(seed)
+    for _ in range(10):
+        n = int(rng.integers(1, 12))
+        boxes = _random_boxes(rng, n)
+        for valid in (np.ones(n, bool), rng.random(n) < 0.8):
+            jp, jv = jpartition(jnp.asarray(boxes), jnp.asarray(valid), 400,
+                                300, 4, 4, align=8)
+            tp, tv = partition(torch.from_numpy(boxes),
+                               torch.from_numpy(valid), 400, 300, 4, 4,
+                               align=8)
+            assert tp.dtype == torch.int32 and tv.dtype == torch.bool
+            np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+            np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        host = partition_host(boxes, 400, 300, 4, 4, align=8)
+        tp, tv = partition(torch.from_numpy(boxes), torch.ones(n, dtype=bool),
+                           400, 300, 4, 4, align=8)
+        assert sorted(map(tuple, tp[tv].tolist())) == sorted(
+            (p.x0, p.y0, p.x1, p.y1) for p in host)
+
+
+def test_partition_of_no_boxes_is_empty():
+    from repro_torch.core.partitioning import partition
+    tp, tv = partition(torch.zeros((0, 4), dtype=torch.int32),
+                       torch.zeros(0, dtype=torch.bool), 400, 300, 2, 2)
+    assert tp.shape == (4, 4) and not tp.any() and not tv.any()
+
+
+def test_unported_arch_ids_name_their_item():
+    """The MoE ids wait on item 13; ``mistral-large-123b`` (246 GB in
+    bf16) on item 14 alone, its weights sharded over cards."""
+    from repro_torch import configs
+    for arch in ("deepseek-moe-16b", "llama4-scout-17b-a16e"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            configs.get(arch)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP item 14 \(weights sharded over "
+                             r"cards\)") as err:
+        configs.get("mistral-large-123b")
+    assert "11" not in str(err.value)
+    for arch in ("vit-b16", "deit-b", "dit-s2", "dit-xl2"):
+        assert configs.get(arch).name == arch

@@ -554,8 +554,8 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ((q.half(), kv.half(), kv.half()), {}, "dtype"),
         ((q, kv.float(), kv), {}, "is torch.float32"),
         ((q, kv3, kv3), {}, "multiple"),
-        ((q[..., :48].contiguous(), kv[..., :48].contiguous(),
-          kv[..., :48].contiguous()), {}, "head dim"),
+        ((q[..., :44].contiguous(), kv[..., :44].contiguous(),
+          kv[..., :44].contiguous()), {}, "head dim"),
         ((q.transpose(1, 2), kv, kv), {}, "contiguous"),
         ((q, kv[:, :32].contiguous(), kv[:, :32].contiguous()),
          {"causal": True}, "Sq == Skv"),
@@ -573,6 +573,11 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
             attn_ops.flash_decode(q1, kv, kv, pos)
     with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):
         attn_ops.flash_decode(q[:, :2].contiguous(), kv, kv, 3)
+    # K7 keeps its three head dims where K6 takes every multiple of 8
+    with pytest.raises(ValueError, match="head dim"):
+        attn_ops.flash_decode(q1[..., :48].contiguous(),
+                              kv[..., :48].contiguous(),
+                              kv[..., :48].contiguous(), 3)
     assert kernels.LAUNCHES == before     # nothing launched, no fallback
 
 
@@ -776,6 +781,91 @@ def test_flash_attention_wgmma_edges_against_plain(cuda, s, d):
                                     impl="torch")
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+K6_OTHER_SEQS = [1, 63, 64, 65, 197, 1024, 1025]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 72, 80, 96])
+@pytest.mark.parametrize("s", K6_OTHER_SEQS)
+def test_flash_attention_other_head_dims_against_plain(cuda, s, d, dtype):
+    """K6 at head dims outside the wgmma set (the reduced configs' 16,
+    DiT-XL/2's 72, and 80 / 96), bf16 on the mma.sync kernel within 2e-2
+    and float32 on the FMA kernel within 1e-4 of ``mha_reference``:
+    S from 1 to 1025 around the 64-row tiles, causal, non-causal and with
+    packed segment ids (the mode and G turn with S)."""
+    i = K6_OTHER_SEQS.index(s)
+    mode = ("plain", "causal", "segments")[(i + d // 8) % 3]
+    g = (1, 3)[i % 2]
+    rng = np.random.default_rng(40 + i)
+    q, k, v = _qkv(rng, [(2, s, 2 * g, d), (2, s, 2, d), (2, s, 2, d)],
+                   dtype, cuda)
+    seg = (torch.from_numpy(_block_segments(rng, 2, s)).to(cuda)
+           if mode == "segments" else None)
+    causal = mode != "plain"
+    before = kernels.LAUNCHES["flash_attention"]
+    got = attn_ops.flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attn_ops.flash_attention(q, k, v, causal=causal, segment_ids=seg,
+                                    impl="torch")
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_attention_dit_xl2_shape_against_plain(cuda):
+    """K6 at one DiT-XL/2 layer of gen_fast (B=16, 1,024 latent tokens, 16
+    heads of 72, non-causal), bf16 within 2e-2."""
+    rng = np.random.default_rng(47)
+    q, k, v = _qkv(rng, [(16, 1024, 16, 72)] * 3, torch.bfloat16, cuda)
+    got = attn_ops.flash_attention(q, k, v, causal=False)
+    want = attn_ops.flash_attention(q, k, v, causal=False, impl="torch")
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["vit-b16", "deit-b", "dit-xl2"])
+def test_zoo_on_card_runs_k6_once_a_layer(cuda, arch):
+    """The reduced classifiers and DiT on the card in bf16 (heads of 16):
+    ``impl="flash"`` launches K6 once a layer and agrees with K6's plain
+    version within 2e-2; ``impl="torch"`` and the default launch none."""
+    from repro_torch.models import dit, vit
+    cfg = dataclasses.replace(reduce_arch(get(arch)),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rng = np.random.default_rng(48)
+    if arch.startswith("dit"):
+        params = dit.init_params(cfg, gen, cuda)
+        for lp in params["layers"]:     # adaLN-zero would zero the output
+            lp["ada"]["kernel"].normal_(0.0, 0.02, generator=gen)
+        params["final_proj"]["kernel"].normal_(0.0, 0.02, generator=gen)
+        z = torch.from_numpy(rng.normal(size=(2, 8, 8, 4)).astype(
+            np.float32)).to(cuda)
+        t = torch.tensor([999, 10], device=cuda)
+        labels = torch.tensor([1, 2], device=cuda)
+
+        def run(impl):
+            return dit.forward(cfg, params, z, t, labels, impl=impl)
+    else:
+        params = vit.init_params(cfg, gen, cuda)
+        x = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(
+            np.float32)).to(cuda)
+
+        def run(impl):
+            return vit.forward(cfg, params, x, impl=impl)[0]
+    before = kernels.LAUNCHES["flash_attention"]
+    got = run("flash")
+    assert kernels.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    want = run("torch")
+    run("xla")
+    assert kernels.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert float(want.float().abs().max()) > 0
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
 

@@ -40,6 +40,11 @@ ATTN_CASES = [
     # ragged: one Pallas block of the whole length
     (2, 197, 12, 12, 64, False, "float32", 197, 197, False),
     (1, 197, 6, 2, 32, True, "bfloat16", 197, 197, False),
+    # head dims outside K6's wgmma set: DiT-XL/2's 72, the reduced
+    # configs' 16
+    (2, 64, 4, 4, 72, False, "float32", 64, 64, False),
+    (2, 128, 4, 4, 72, False, "bfloat16", 64, 64, False),
+    (2, 64, 4, 4, 16, False, "float32", 32, 32, False),
 ]
 
 
@@ -134,11 +139,12 @@ def test_decode_chunk_spreads_the_cache_over_the_card(n_valid, pairs, sms,
 
 
 @pytest.mark.parametrize("jimpl", ["xla", "flash_interpret"])
-@pytest.mark.parametrize("impl", ["xla", "flash"])
+@pytest.mark.parametrize("impl", ["xla", "flash", "torch"])
 def test_encoder_attention_flash_option_matches_jax(impl, jimpl):
-    """The ViT encoder's attention: the port's plain path and its K6
-    option (its plain version on the CPU) against the JAX package's XLA
-    path and its Pallas kernel in interpret mode, float32."""
+    """The ViT encoder's attention: the port's plain path, its K6 option
+    (its plain version on the CPU) and K6's plain version asked by name
+    against the JAX package's XLA path and its Pallas kernel in interpret
+    mode, float32."""
     rng = np.random.default_rng(4)
     d, h, dh = 64, 4, 16
     w = {k: rng.normal(size=s).astype(np.float32) / np.sqrt(d)

@@ -104,7 +104,7 @@ def test_arch_configs_equal_jax():
     for f in ("img_res", "patch", "n_layers", "d_model", "n_heads", "d_ff"):
         assert getattr(vit_s16.ARCH, f) == getattr(jvit_s16.ARCH, f)
     with pytest.raises(NotImplementedError, match="item 13"):
-        configs.get("vit-b16")
+        configs.get("deepseek-moe-16b")
 
 
 @pytest.mark.parametrize("name", ["vit_s16", "efficientnet_b7",
