@@ -120,9 +120,11 @@ Phases (any failure raises, so the exit code is non-zero):
    minitron-4b's per-layer shape (B=2, S=4096, 24 query heads over 8 KV
    heads, D=128), with segment ids of requests packed into 4096-token rows
    by ``core.sequence_packing``, non-causal at the ViT-B/16 encoder's 197
-   tokens, causal at a ragged 4095, and in float32; K7 on a 4096-position
-   cache at pos 0, 63, 64, 511, 512 and 4095 (one chunk a pair to eight),
-   at G 1, 8 and 24 with D 32, 64 and 128, at B=64 (one chunk), in float32,
+   tokens, causal at a ragged 4095, in float32, and at deepseek-moe-16b's
+   16 heads over 16 (G = 1); K7 on a 4096-position cache at pos 0, 63,
+   64, 511, 512 and 4095 (one chunk a pair to eight), at G 1, 8 and 24
+   with D 32, 64 and 128, at G = 1 and D 128 (deepseek-moe-16b's cache,
+   pos 79 and 4095), at B=64 (one chunk), in float32,
    on a one-card decode_32k slice (B=8, 32768 positions), and called back
    to back at positions whose plans differ; then plant four faults through
    the kernels themselves (K6 and K7 skipping one KV tile, K7 one chunk of
@@ -165,9 +167,27 @@ Phases (any failure raises, so the exit code is non-zero):
    600^2, B=8: serve time and peak memory, K1-K7 launched 0 times; then
    K6 timed at ViT-B/16's and DiT-XL/2's layer shapes against its plain
    version, SDPA and its bound;
+8d. the MoE LM at full width: ``deepseek-moe-16b`` (16.88 B parameters,
+   bf16, random weights drawn on the card from a seed; 64 routed experts
+   top-6 and 2 shared, GShard dispatch in groups of 512 at capacity
+   factor 1.25) prefills B=2 x 4096 tokens and decodes 64 teacher-forced
+   then 16 greedy steps from an empty 4096-position cache, through the
+   kernels (K6 28 launches a prefill, K7 28 a step) and plain (none); the
+   share of routing decisions equal in the two prefills, per layer, and
+   the correlation and median and 99th percentile of |dlogit| (prefill
+   last position and positions 0-63, decode 0-63) within their limits;
+   decode against prefill (B=2 x 512) with a capacity factor that drops
+   nothing; int8 weights quantized on the card (prefill B=2 x 2048
+   through K6, logits correlating with bf16's above 0.99); K6 and K7
+   timed at its shapes (G = 1, D 128); the prefill's split (K6, router
+   and top-k rounds, the dispatch, expert and combine einsums, the shared
+   expert, the attention projections), a decode step against its byte
+   bound (every expert read every step), device idle shares and peak
+   memory;
 9. print one JSON line of kernels (K1-K7, the K4/K3 rows of phase 5f's
-   models, named ``kernel[model]``, and phase 8c's ``K6[vit-b16]`` and
-   ``K6[dit-xl2]``) and, last,
+   models, named ``kernel[model]``, phase 8c's ``K6[vit-b16]`` and
+   ``K6[dit-xl2]`` and phase 8d's ``K6[deepseek-moe-16b]`` and
+   ``K7[deepseek-moe-16b]``) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -177,6 +197,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -197,7 +218,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import configs, param  # noqa: E402
-from repro_torch.config import HardwareConfig  # noqa: E402
+from repro_torch.config import HardwareConfig, dtype_of  # noqa: E402
 from repro_torch.core import baselines  # noqa: E402
 from repro_torch.core import gmm as gmm_core  # noqa: E402
 from repro_torch.core import partitioning  # noqa: E402
@@ -234,7 +255,9 @@ from repro_torch.launch.serve import (  # noqa: E402
 from repro_torch.models import detector as detector_lib  # noqa: E402
 from repro_torch.models import dit  # noqa: E402
 from repro_torch.models import efficientnet as effnet  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
@@ -353,6 +376,48 @@ ZOO_K6 = {"vit-b16": (128, 197, 12, 64), "dit-xl2": (4, 4096, 16, 72)}
 ZOO_ROW_TOL = ATTN_ROW_TOL["k6", torch.bfloat16]
 DIT_EPS_TOL = ZOO_ROW_TOL
 DIT_LATENT_CORR = 0.999
+
+# Phase 8d: deepseek-moe-16b (arXiv:2401.06066: 28 layers, d 2048, 16
+# query heads over 16 KV heads x 128, 64 routed experts top-6 and 2
+# shared, experts of 1408, vocab 102400, bf16) at full width through the LM
+# path, GShard dispatch at the published capacity factor 1.25 in groups of
+# 512 tokens.
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SEED = 22
+MOE_FORCED, MOE_GREEDY = 64, 16  # teacher-forced, then greedy decode steps
+MOE_NODROP_SEQ = 512             # the no-drop decode-vs-prefill prompt
+MOE_INT8_SEQ = 2048
+# Kernels vs plain: K6 and K7 round other than their plain versions, which
+# moves a router's near-ties, and one moved choice moves a token's output
+# by a whole expert's share and, past capacity, which token of its group
+# drops; with random weights the differences compound over 28 layers
+# (routing decisions equal 0.967 at layer 0, 0.299 at layer 27; as sets
+# 0.995 and 0.754).  So each layer is also fed one input through both
+# (no compounding), and the logits are held by statistics over every
+# logit, not by a max.  Measured on an H100 80GB HBM3 at 700 W (PERF.md
+# §6): each layer on one input, least routing agreement 0.9669 and
+# largest output difference 0.0433 of its RMS (layer 0; later layers
+# above 0.989 and below 0.02); compounded, least agreement as sets 0.7539;
+# logits (corr, median |dlogit|, p99): kernels vs plain at worst 0.8838 /
+# 0.3008 / 1.3574 (prefill last position; positions 0-63 0.9741 / 0.1289
+# / 0.6895, decode 0.9946 / 0.0605 / 0.3164), no-drop decode vs prefill
+# 0.9977 / 0.0381 / 0.2188, int8 vs bf16 prefill 0.9011 / 0.3003 /
+# 1.1426.  Each limit is three times its reading (for a share or a
+# correlation: three times its distance from 1).
+MOE_ROUTE_AGREE = 0.90           # a layer on one input: decisions equal
+MOE_LAYER_TOL = 0.13             # a layer on one input: output diff / RMS
+MOE_ROUTE_SETS = 0.26            # compounded: least share as sets
+MOE_LIMITS = {                   # (corr >=, median <=, p99 <=)
+    "kernels vs plain": (0.65, 0.90, 4.1),
+    "no-drop": (0.993, 0.115, 0.66),
+    "int8": (0.70, 0.90, 3.43)}
+# int8 weights: the bound of the JAX package's int8 LM test (logits
+# correlation > 0.99, tests/test_quantize.py), held where routing cannot
+# compound: each layer fed one input through the int8 and the bf16
+# weights, its outputs correlating above it.  End to end the int8
+# model's logits correlate 0.9011 with bf16's (above), where the JAX
+# package's own MoE int8 test holds only the loss (within 8%).
+MOE_INT8_CORR = 0.99
 
 
 def log(msg: str) -> None:
@@ -2509,8 +2574,9 @@ def packed_segment_ids(rng, rows: int, seq: int) -> np.ndarray:
 def attention_cases():
     """(name, kind, shapes and options) of phase 7; K6 on minitron-4b's
     per-layer shape, packed rows, the ViT-B/16 encoder's 197 tokens, a
-    ragged causal length and float32; K7 on the decode cache and a
-    one-card decode_32k slice."""
+    ragged causal length, float32 and deepseek-moe-16b's layer (G = 1); K7
+    on the decode cache, deepseek-moe-16b's (G = 1, D 128) and a one-card
+    decode_32k slice."""
     h, kvh, d = 24, 8, 128
     cases = [("K6 causal", "k6", dict(b=2, s=LM_SEQ, h=h, kvh=kvh, d=d,
                                       causal=True)),
@@ -2521,7 +2587,10 @@ def attention_cases():
              ("K6 causal ragged", "k6", dict(b=1, s=LM_SEQ - 1, h=h, kvh=kvh,
                                              d=d, causal=True)),
              ("K6 float32", "k6", dict(b=2, s=300, h=6, kvh=2, d=64,
-                                       causal=True, dtype=torch.float32))]
+                                       causal=True, dtype=torch.float32)),
+             # deepseek-moe-16b's prefill layer: 16 heads over 16, G = 1
+             ("K6 G=1 D=128", "k6", dict(b=2, s=LM_SEQ, h=16, kvh=16, d=d,
+                                         causal=True))]
     # K7 at the chunk and block-pass edges of minitron's cache (1 chunk a
     # pair up to pos 63, 8 from pos 511), G 1 / 3 / 8 / 24 and D 32 / 64 /
     # 128, float32, more pairs than SMs (one chunk), the 32k slice
@@ -2531,6 +2600,11 @@ def attention_cases():
     cases += [
         ("K7 G=1 D=32", "k7", dict(b=2, smax=2048, h=8, kvh=8, d=32,
                                    pos=1999)),
+        # deepseek-moe-16b's decode cache: 16 heads over 16, G = 1
+        ("K7 G=1 D=128 pos 79", "k7", dict(b=2, smax=LM_SEQ, h=16, kvh=16,
+                                           d=d, pos=79)),
+        ("K7 G=1 D=128", "k7", dict(b=2, smax=LM_SEQ, h=16, kvh=16, d=d,
+                                    pos=LM_SEQ - 1)),
         ("K7 G=8 D=64", "k7", dict(b=3, smax=2048, h=64, kvh=8, d=64,
                                    pos=1500)),
         ("K7 G=24 D=128", "k7", dict(b=1, smax=LM_SEQ, h=48, kvh=2, d=d,
@@ -2703,6 +2777,72 @@ def planted_faults(device) -> None:
                                  f"{what}")
 
 
+def attn_bound(ops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the larger of the operations at the
+    bf16 peak and the bytes at the HBM rate."""
+    t = (ops / H100.peak_flops, nbytes / H100.hbm_bw)
+    return max(t) * 1e3, "operations" if t[0] >= t[1] else "bytes"
+
+
+def k6_timing(rng, device, b, s, h, kvh, d, plain: bool):
+    """K6 causal at (B, S, H / Kv, D): (its times, the plain version's ms
+    or None, SDPA's times or None, K6 vs SDPA max abs diff, bound ms,
+    bound_by)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = attn_inputs(rng, [(b, s, h, d), (b, s, kvh, d),
+                                (b, s, kvh, d)], torch.bfloat16, device)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    iters = 20 if s <= LM_SEQ else 3
+    kern = timed(lambda: attn_ops.flash_attention(q, k, v, causal=True,
+                                                  impl="cuda"),
+                 iters=iters)
+    lib = gap = None
+    # SDPA's math backend would build the whole score matrix (103 GB at
+    # S=32768): past LM_SEQ only a fused backend may take the call
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                SDPBackend.EFFICIENT_ATTENTION]
+    if s <= LM_SEQ:
+        backends.append(SDPBackend.MATH)
+    try:
+        with sdpa_kernel(backends):
+            lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                     enable_gqa=True), iters=iters)
+            gap = max_abs_err(
+                attn_ops.flash_attention(q, k, v, causal=True),
+                sdpa(qt, kt, vt, is_causal=True,
+                     enable_gqa=True).transpose(1, 2))
+    except RuntimeError as err:           # the yardstick only, not the port
+        if s <= LM_SEQ:
+            raise
+        log(f"  SDPA at B={b} S={s}: no fused backend took the call "
+            f"({str(err).splitlines()[0]}); not timed")
+    plain_ms = (time_ms(lambda: attn_ops.flash_attention(
+        q, k, v, causal=True, impl="torch"), iters=3, warmup=1)
+        if plain else None)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    return (kern, plain_ms, lib, gap) + attn_bound(2 * b * s * s * h * d,
+                                                   nbytes)
+
+
+def k7_timing(rng, device, b, smax, pos, h, kvh, d):
+    """K7 at (B, Smax, pos, H / Kv, D): (its times, the plain version's
+    ms, SDPA's times over the cache up to pos, bound ms, bound_by)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
+                                (b, smax, kvh, d)], torch.bfloat16, device)
+    kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
+    qt = q.transpose(1, 2).contiguous()
+    kern = timed(lambda: attn_ops.flash_decode(q, k, v, pos, impl="cuda"))
+    plain_ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
+                                                     impl="torch"),
+                       iters=10)
+    lib = timed(lambda: sdpa(qt, kt, vt, enable_gqa=True))
+    nbytes = 2 * b * (pos + 1) * kvh * d * 2
+    return (kern, plain_ms, lib) + attn_bound(4 * b * (pos + 1) * h * d,
+                                              nbytes)
+
+
 def attention_rows(device, launches: dict, worst: dict) -> list:
     """K6/K7 rows: device and call times (``timed``) against the plain
     version, SDPA (``enable_gqa``, the yardstick; the port never calls it)
@@ -2710,73 +2850,17 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
     or its bytes; K7: the cache read up to pos, 2*B*(pos+1)*Kv*D*2 bytes,
     at the HBM rate, at B=2 pos 287 (the decode run's last step), B=2 pos
     4095 and the 8 x 32768 slice."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(8)
     h, kvh, d = 24, 8, 128
     before = dict(LAUNCHES)
 
-    def bound(ops, nbytes):
-        t = (ops / H100.peak_flops, nbytes / H100.hbm_bw)
-        return max(t) * 1e3, "operations" if t[0] >= t[1] else "bytes"
-
-    def k6_timing(b, s, plain: bool):
-        q, k, v = attn_inputs(rng, [(b, s, h, d), (b, s, kvh, d),
-                                    (b, s, kvh, d)], torch.bfloat16, device)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        iters = 20 if s <= LM_SEQ else 3
-        kern = timed(lambda: attn_ops.flash_attention(q, k, v, causal=True,
-                                                      impl="cuda"),
-                     iters=iters)
-        lib = gap = None
-        # SDPA's math backend would build the whole score matrix (103 GB
-        # at S=32768): past LM_SEQ only a fused backend may take the call
-        backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION]
-        if s <= LM_SEQ:
-            backends.append(SDPBackend.MATH)
-        try:
-            with sdpa_kernel(backends):
-                lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True), iters=iters)
-                gap = max_abs_err(
-                    attn_ops.flash_attention(q, k, v, causal=True),
-                    sdpa(qt, kt, vt, is_causal=True,
-                         enable_gqa=True).transpose(1, 2))
-        except RuntimeError as err:       # the yardstick only, not the port
-            if s <= LM_SEQ:
-                raise
-            log(f"  SDPA at B={b} S={s}: no fused backend took the call "
-                f"({str(err).splitlines()[0]}); not timed")
-        plain_ms = (time_ms(lambda: attn_ops.flash_attention(
-            q, k, v, causal=True, impl="torch"), iters=3, warmup=1)
-            if plain else None)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        return (kern, plain_ms, lib, gap) + bound(2 * b * s * s * h * d,
-                                                  nbytes)
-
-    def k7_timing(b, smax, pos):
-        q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
-                                    (b, smax, kvh, d)], torch.bfloat16,
-                              device)
-        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
-                  for x in (k, v))
-        qt = q.transpose(1, 2).contiguous()
-        kern = timed(lambda: attn_ops.flash_decode(q, k, v, pos,
-                                                   impl="cuda"))
-        plain_ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
-                                                         impl="torch"),
-                           iters=10)
-        lib = timed(lambda: sdpa(qt, kt, vt, enable_gqa=True))
-        nbytes = 2 * b * (pos + 1) * kvh * d * 2
-        return (kern, plain_ms, lib) + bound(4 * b * (pos + 1) * h * d,
-                                             nbytes)
-
-    k6 = k6_timing(LM_BATCH, LM_SEQ, plain=True)
-    k6_32k = k6_timing(1, 8 * LM_SEQ, plain=False)
-    k7 = k7_timing(LM_BATCH, LM_SEQ, LM_SEQ - 1)
-    k7_short = k7_timing(LM_BATCH, LM_SEQ, LM_FORCED + LM_GREEDY - 1)
-    k7_32k = k7_timing(8, 8 * LM_SEQ, 8 * LM_SEQ - 1)
+    k6 = k6_timing(rng, device, LM_BATCH, LM_SEQ, h, kvh, d, plain=True)
+    k6_32k = k6_timing(rng, device, 1, 8 * LM_SEQ, h, kvh, d, plain=False)
+    k7 = k7_timing(rng, device, LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d)
+    k7_short = k7_timing(rng, device, LM_BATCH, LM_SEQ,
+                         LM_FORCED + LM_GREEDY - 1, h, kvh, d)
+    k7_32k = k7_timing(rng, device, 8, 8 * LM_SEQ, 8 * LM_SEQ - 1, h, kvh,
+                       d)
     LAUNCHES.update(before)      # timing launches not counted
     torch.cuda.empty_cache()
     source = "src/repro_torch/kernels/attention/csrc/flash.cu"
@@ -2851,37 +2935,40 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
 
 # --------------------------------------------------------------- phase 8 ----
 
-def lm_decode(cfg, params, tokens, impl) -> dict:
-    """Teacher-forced decode over the prompts' first LM_FORCED tokens, then
-    LM_GREEDY greedy steps, from an empty LM_SEQ cache; launches counted
-    from 0 just before, read just after."""
-    cache = transformer.init_cache(cfg, LM_BATCH, LM_SEQ, tokens.device)
+def lm_decode(cfg, params, tokens, impl, forced_steps: int = LM_FORCED,
+              greedy_steps: int = LM_GREEDY, smax: int = LM_SEQ,
+              time_step: bool = True) -> dict:
+    """Teacher-forced decode over the prompts' first ``forced_steps``
+    tokens, then ``greedy_steps`` greedy steps, from an empty ``smax``
+    cache; launches counted from 0 just before, read just after; then one
+    more step timed (CUDA events) unless ``time_step`` is false."""
+    cache = transformer.init_cache(cfg, tokens.shape[0], smax, tokens.device)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     forced = []
-    for pos in range(LM_FORCED):
+    for pos in range(forced_steps):
         logits, cache = transformer.decode_step(
             cfg, params, tokens[:, pos:pos + 1], cache, pos, impl=impl)
         forced.append(logits[:, 0])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     chosen, top2 = [], []
-    for step in range(LM_GREEDY + 1):
+    for step in range(greedy_steps + 1):
         top = torch.topk(logits[:, 0].float(), 2, dim=-1)
         chosen.append(top.indices[:, 0])
         top2.append(top.values[:, 0] - top.values[:, 1])
-        if step == LM_GREEDY:
+        if step == greedy_steps:
             break
         logits, cache = transformer.decode_step(
-            cfg, params, chosen[-1][:, None], cache, LM_FORCED + step,
+            cfg, params, chosen[-1][:, None], cache, forced_steps + step,
             impl=impl)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(LAUNCHES)
     step_ms = time_ms(lambda: transformer.decode_step(
-        cfg, params, chosen[-1][:, None], cache, LM_FORCED + LM_GREEDY,
-        impl=impl), iters=10)
+        cfg, params, chosen[-1][:, None], cache, forced_steps + greedy_steps,
+        impl=impl), iters=10) if time_step else None
     LAUNCHES.update(launches)
     return {"forced": torch.stack(forced, 1), "ids": torch.stack(chosen, 1),
             "margin": torch.stack(top2, 1), "launches": launches,
@@ -3533,6 +3620,530 @@ def zoo_phase(device, by_path: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------- phase 8d ----
+
+@contextlib.contextmanager
+def recorded_routes(routes: list):
+    """While inside, append every MoE block's routing decisions to
+    ``routes``, one (G, S, k) tensor a layer: each token's top-k expert
+    ids in the order the k argmax rounds take them (ties aside)."""
+    inner = moe._top_k_dispatch
+
+    def record(gates, cfg, cap):
+        routes.append(torch.topk(gates, cfg.top_k, dim=-1).indices)
+        return inner(gates, cfg, cap)
+    moe._top_k_dispatch = record
+    try:
+        yield routes
+    finally:
+        moe._top_k_dispatch = inner
+
+
+def logit_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The correlation of two logit tensors and the median, 99th
+    percentile and max of |got - want| over every logit."""
+    d = (got.float() - want.float()).abs().flatten()
+
+    def quantile(f: float) -> float:
+        return float(d.kthvalue(max(1, math.ceil(f * d.numel()))).values)
+    return {"corr": correlation(got, want), "median": quantile(0.5),
+            "p99": quantile(0.99), "max": float(d.max())}
+
+
+def fmt_stats(st: dict) -> str:
+    return (f"corr {st['corr']:.6f}, |dlogit| median {st['median']:.4f}, "
+            f"p99 {st['p99']:.4f}, max {st['max']:.4f}")
+
+
+def hold_stats(st: dict, what: str, kind: str, fails: list) -> None:
+    """Print a comparison's statistics; add it to ``fails`` if they are
+    outside ``MOE_LIMITS[kind]`` (the phase raises once everything is
+    printed)."""
+    corr, median, p99 = MOE_LIMITS[kind]
+    log(f"  {what}: {fmt_stats(st)} (limits: corr >= {corr}, median <= "
+        f"{median}, p99 <= {p99})")
+    if not (st["corr"] >= corr and st["median"] <= median
+            and st["p99"] <= p99):
+        fails.append(f"{what}: {st}")
+
+
+def moe_launches(by_path: dict, prefix: str, kernel: str, want: int):
+    """The kernel run launched ``kernel`` exactly ``want`` times and
+    nothing else; the plain run nothing."""
+    kern = by_path[f"{prefix}_kernels"]
+    check_launches({"launches": kern}, (kernel,), f"{prefix} kernels")
+    check_launches({"launches": by_path[f"{prefix}_plain"]}, (),
+                   f"{prefix} plain")
+    if kern[kernel] != want:
+        raise AssertionError(f"{prefix}: {kernel} launched {kern[kernel]} "
+                             f"times, expected {want}")
+
+
+def moe_prefill(cfg, params, tokens, by_path: dict) -> dict:
+    """Prefill through the kernels and plain, each run's routing decisions
+    recorded; launches counted from 0 just before each, read just
+    after."""
+    runs = {}
+    for key, impl in (("kernels", None), ("plain", "torch")):
+        routes = []
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_routes(routes):
+            last, h = transformer.prefill(cfg, params, tokens, impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[f"moe_prefill_{key}"] = dict(LAUNCHES)
+        early = transformer.logits(cfg, params, h[:, :MOE_FORCED]).float()
+        runs[key] = {"last": last.float(), "early": early, "wall": wall,
+                     "routes": routes}
+        del h
+        log(f"  prefill {key}: {wall * 1e3:.1f} ms wall (first call, "
+            f"routes recorded), launches {by_path[f'moe_prefill_{key}']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    moe_launches(by_path, "moe_prefill", "flash_attention", cfg.n_layers)
+    return runs
+
+
+def route_agreement(kern: torch.Tensor, plain: torch.Tensor):
+    """(ordered, as sets): the share of routing decisions (token, choice)
+    equal in two runs' (G, S, k) expert ids, choice by choice; and the
+    share of each token's chosen experts the other run chose too."""
+    ordered = float((kern == plain).float().mean())
+    sets = float((kern[..., :, None] == plain[..., None, :]).any(-1)
+                 .float().mean())
+    return ordered, sets
+
+
+def layer_agreement(runs: dict, n_layers: int) -> list:
+    """Per layer, the two prefills' routing agreement (ordered, as sets);
+    the differences of every earlier layer compound into it."""
+    kern, plain = runs["kernels"]["routes"], runs["plain"]["routes"]
+    if len(kern) != n_layers or len(plain) != n_layers:
+        raise AssertionError(f"routes of {len(kern)} / {len(plain)} layers "
+                             f"recorded, expected {n_layers}")
+    agree = [route_agreement(a, b) for a, b in zip(kern, plain)]
+    log(f"  routing decisions equal, kernels vs plain prefill, per layer "
+        f"(ordered by round / as sets), differences compounding: "
+        f"{[(round(a, 4), round(b, 4)) for a, b in agree]}")
+    return agree
+
+
+def moe_layerwise(run: tuple, ref: tuple, tokens) -> list:
+    """Each layer fed one input (``run``'s hidden state) through ``run``
+    and through ``ref`` (each a (cfg, params, impl)), so no earlier
+    difference reaches it: per layer the routing agreement (ordered, as
+    sets), the output's difference over its RMS and the outputs'
+    correlation.  Launches are not counted."""
+    cfg = run[0]
+    cdt = dtype_of(cfg.compute_dtype)
+    before = dict(LAUNCHES)
+    x = layers.embed_lookup(run[1]["embed"], tokens, cdt)
+    out = []
+    for i in range(cfg.n_layers):
+        res = []
+        for c, p, impl in (run, ref):
+            routes = []
+            with recorded_routes(routes):
+                y, _ = transformer._layer(c, p["layers"][f"layer_{i}"], x,
+                                          None, impl)
+            res.append((y, routes[0]))
+        (y, r), (y_ref, r_ref) = res
+        d = (y.float() - y_ref.float()).pow(2).mean().sqrt()
+        rel = float(d / y_ref.float().pow(2).mean().sqrt())
+        out.append(route_agreement(r, r_ref) + (rel, correlation(y, y_ref)))
+        x = y
+        del res, y_ref
+    LAUNCHES.update(before)
+    return out
+
+
+def fmt_layers(rows: list) -> str:
+    return str([tuple(round(v, 4) for v in row) for row in rows])
+
+
+def moe_nodrop(cfg, params, tokens, by_path: dict, fails: list) -> dict:
+    """Decode against prefill where nothing drops: capacity_factor =
+    n_experts / top_k makes every group's capacity its size, so the
+    groups' differences (a prefill group of 512 tokens, a decode group of
+    the batch) route every token alike.  Kernels only: K6 in the prefill
+    of B=2 x MOE_NODROP_SEQ, K7 in MOE_FORCED teacher-forced steps."""
+    m = cfg.moe
+    ncfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    for gs in (m.group_size, tokens.shape[0]):
+        if moe.capacity(gs, ncfg.moe) < gs:
+            raise AssertionError(f"no-drop capacity short at group {gs}")
+    ntok = tokens[:, :MOE_NODROP_SEQ].contiguous()
+    reset_launches()
+    h, _ = transformer.forward(ncfg, params, ntok)
+    want = transformer.logits(ncfg, params, h[:, :MOE_FORCED]).float()
+    torch.cuda.synchronize()
+    by_path["moe_nodrop_prefill_kernels"] = dict(LAUNCHES)
+    del h
+    dec = lm_decode(ncfg, params, ntok, None, MOE_FORCED, 0,
+                    smax=MOE_NODROP_SEQ, time_step=False)
+    by_path["moe_nodrop_decode_kernels"] = dec["launches"]
+    if (by_path["moe_nodrop_prefill_kernels"]["flash_attention"]
+            != cfg.n_layers or dec["launches"]["flash_decode"]
+            != MOE_FORCED * cfg.n_layers):
+        raise AssertionError("no-drop runs: K6 / K7 not once a layer")
+    st = logit_stats(dec["forced"], want)
+    hold_stats(st, f"no-drop (capacity factor {ncfg.moe.capacity_factor:.4g}"
+                   f") decode positions 0-{MOE_FORCED - 1} vs prefill of "
+                   f"B={tokens.shape[0]} x {MOE_NODROP_SEQ}", "no-drop",
+               fails)
+    return st
+
+
+def moe_int8(cfg, params, tokens, by_path: dict, fails: list) -> dict:
+    """int8 expert, shared, attention and lm_head kernels quantized on the
+    card by the port's quantizer (expert scales over the middle axis);
+    prefill B=2 x MOE_INT8_SEQ through K6 against the bf16 model, end to
+    end (MOE_LIMITS["int8"]) and each layer on one input (outputs
+    correlating above MOE_INT8_CORR)."""
+    qcfg = dataclasses.replace(cfg, quant_weights=True)
+    itok = tokens[:, :MOE_INT8_SEQ].contiguous()
+    t0 = time.perf_counter()
+    qparams = quantize_params(transformer.param_specs(qcfg), params)
+    torch.cuda.synchronize()
+    resident = weight_bytes(qparams)
+    log(f"  quantized on the card in {time.perf_counter() - t0:.2f}s: "
+        f"{resident / 1e9:.2f} GB resident (int8 kernels, float32 router "
+        f"and scales, bf16 embedding and norms) vs "
+        f"{weight_bytes(params) / 1e9:.2f} GB bf16")
+    reset_launches()
+    qlast, h = transformer.prefill(qcfg, qparams, itok)
+    torch.cuda.synchronize()
+    by_path["moe_int8_prefill_kernels"] = dict(LAUNCHES)
+    del h
+    check_launches({"launches": by_path["moe_int8_prefill_kernels"]},
+                   ("flash_attention",), "int8 MoE prefill")
+    if by_path["moe_int8_prefill_kernels"]["flash_attention"] != \
+            cfg.n_layers:
+        raise AssertionError("int8 MoE prefill: K6 not once a layer")
+    before = dict(LAUNCHES)
+    flast, h = transformer.prefill(cfg, params, itok)
+    del h
+    st = logit_stats(qlast, flast)
+    hold_stats(st, f"int8 prefill B={LM_BATCH} S={MOE_INT8_SEQ}, last "
+                   f"logits vs the bf16 model's", "int8", fails)
+    if not torch.isfinite(qlast).all():
+        fails.append("non-finite int8 logits")
+    per_layer = moe_layerwise((qcfg, qparams, None), (cfg, params, None),
+                              itok)
+    least = min(row[3] for row in per_layer)
+    log(f"  int8 vs bf16, each layer on one input (ordered, as sets, output "
+        f"difference / RMS, correlation): {fmt_layers(per_layer)}; least "
+        f"correlation {least:.5f} (bound > {MOE_INT8_CORR})")
+    if not least > MOE_INT8_CORR:
+        fails.append(f"int8 layer outputs correlate {least}")
+    ms = {key: time_ms(lambda c=c, p=p: transformer.prefill(c, p, itok),
+                       iters=2, warmup=1, windows=1)
+          for key, c, p in (("int8", qcfg, qparams), ("bf16", cfg, params))}
+    LAUNCHES.update(before)
+    log(f"  prefill B={LM_BATCH} S={MOE_INT8_SEQ}: {ms['int8']:.2f} ms int8, "
+        f"{ms['bf16']:.2f} ms bf16 (CUDA events)")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"resident_gb": resident / 1e9, **st, "ms": ms,
+            "layers": per_layer}
+
+
+def moe_attention_rows(device, by_path: dict) -> list:
+    """K6 and K7 at deepseek-moe-16b's shapes (16 query heads over 16 KV
+    heads, G = 1, D 128): K6 causal at B=2 S=4096, K7 at B=2 pos 4095 of
+    a 4096 cache; each against its plain version (ATTN_TOL and the row
+    limit), SDPA and its bound (``attention_rows``' rules)."""
+    cfg = configs.get(MOE_ARCH)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(MOE_SEED)
+    before = dict(LAUNCHES)
+    dt = torch.bfloat16
+    q, k, v = attn_inputs(rng, [(LM_BATCH, LM_SEQ, h, d),
+                                (LM_BATCH, LM_SEQ, kvh, d),
+                                (LM_BATCH, LM_SEQ, kvh, d)], dt, device)
+    ok6, err6, sc6 = attn_close(
+        attn_ops.flash_attention(q, k, v, causal=True, impl="cuda"),
+        attn_ops.flash_attention(q, k, v, causal=True, impl="torch"),
+        "k6", dt)
+    q1 = q[:, -1:].contiguous()
+    ok7, err7, sc7 = attn_close(
+        attn_ops.flash_decode(q1, k, v, LM_SEQ - 1, impl="cuda"),
+        attn_ops.flash_decode(q1, k, v, LM_SEQ - 1, impl="torch"), "k7", dt)
+    if not (ok6 and ok7):
+        raise AssertionError(f"K6 / K7 at {MOE_ARCH}'s shapes differ from "
+                             f"their plain versions: {err6}, {sc6}; {err7}, "
+                             f"{sc7}")
+    del q, k, v, q1
+    k6 = k6_timing(rng, device, LM_BATCH, LM_SEQ, h, kvh, d, plain=True)
+    k7 = k7_timing(rng, device, LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d)
+    LAUNCHES.update(before)      # timing launches not counted
+    torch.cuda.empty_cache()
+    source = "src/repro_torch/kernels/attention/csrc/flash.cu"
+    rows = [
+        {"name": f"K6[{MOE_ARCH}]", "kernel": "flash_attention",
+         "model": MOE_ARCH, "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/attention/flash.py:95",
+         "k6_kernel": flash_kernels.k6_kernel(dt, d),
+         "launches": by_path["moe_prefill_kernels"]["flash_attention"],
+         "launches_counted": f"phase 8d: the kernel prefill of {MOE_ARCH}, "
+                             f"one launch a layer",
+         "launches_by_path": {p: c["flash_attention"]
+                              for p, c in by_path.items()
+                              if p.startswith("moe_")},
+         "max_abs_err": err6, "max_row_scaled_err": sc6,
+         "shape": [LM_BATCH, LM_SEQ, h, kvh, d], "causal": True,
+         "ms": k6[0]["ms_call"], "plain_ms": k6[1], "bound_ms": k6[4],
+         "bound_by": k6[5], "library_ms": k6[2]["ms_call"],
+         "library_ms_device": k6[2]["ms_device"],
+         "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) on (B, H, S, D) copies",
+         "max_abs_diff_vs_library": k6[3], **device_keys(k6[0])},
+        {"name": f"K7[{MOE_ARCH}]", "kernel": "flash_decode",
+         "model": MOE_ARCH, "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/attention/flash.py:193",
+         "launches": by_path["moe_decode_kernels"]["flash_decode"],
+         "launches_counted": f"phase 8d: the kernel decode of {MOE_ARCH}, "
+                             f"{MOE_FORCED + MOE_GREEDY} steps of one "
+                             f"launch a layer",
+         "launches_by_path": {p: c["flash_decode"]
+                              for p, c in by_path.items()
+                              if p.startswith("moe_")},
+         "max_abs_err": err7, "max_row_scaled_err": sc7,
+         "shape": [LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d],
+         "ms": k7[0]["ms_call"], "plain_ms": k7[1], "bound_ms": k7[3],
+         "bound_by": k7[4], "library_ms": k7[2]["ms_call"],
+         "library_ms_device": k7[2]["ms_device"],
+         "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
+                         "over the cache up to pos, (B, Kv, pos+1, D) "
+                         "copies", **device_keys(k7[0])}]
+    for row, what in ((rows[0], f"flash_attention B={LM_BATCH} "
+                                f"S={LM_SEQ} H={h}/{kvh} D={d} causal"),
+                      (rows[1], f"flash_decode B={LM_BATCH} "
+                                f"pos={LM_SEQ - 1} H={h}/{kvh} D={d}")):
+        t = {k: row[k] for k in ("ms_call", "ms_device",
+                                 "ms_device_profiler")}
+        log(f"  {row['name']}, {what}: {fmt_times(t)} (plain "
+            f"{row['plain_ms']:.4f} ms, SDPA device "
+            f"{row['library_ms_device']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms_device']:.1%} of the bound's speed "
+            f"on the device; max abs err {row['max_abs_err']:.3g}, "
+            f"row-scaled {row['max_row_scaled_err']:.4f})")
+    return rows
+
+
+def moe_split(cfg, params, tokens, k6_ms: float, dec: dict) -> None:
+    """The prefill's device time by part (CUDA events): embed, then per
+    layer (on layer 0's inputs, times the layers) the attention
+    projections and RoPE, K6, the router and top-k rounds, the dispatch
+    einsum, the expert einsums (wg, wu, SiLU, wd), the combine einsum and
+    the shared expert, the norms and residuals as what is left, lm_head;
+    a decode step against its byte bound; device busy shares."""
+    cdt = dtype_of(cfg.compute_dtype)
+    m, L = cfg.moe, cfg.n_layers
+    before = dict(LAUNCHES)
+    total = time_ms(lambda: transformer.prefill(cfg, params, tokens),
+                    iters=2, warmup=1, windows=1)
+    lp = params["layers"]["layer_0"]
+    x = layers.embed_lookup(params["embed"], tokens, cdt)
+    embed = time_ms(lambda: layers.embed_lookup(params["embed"], tokens,
+                                                cdt))
+    hn = layers.rmsnorm(lp["ln_attn"], x, cfg.norm_eps, cdt)
+
+    def attention():
+        return attn_lib.attention(lp["attn"], hn, n_heads=cfg.n_heads,
+                                  n_kv_heads=cfg.n_kv_heads,
+                                  rope_theta=cfg.rope_theta,
+                                  compute_dtype=cdt)
+    hm = layers.rmsnorm(lp["ln_mlp"], x + attention(), cfg.norm_eps, cdt)
+    mp = lp["moe"]
+    b, s, d = hm.shape
+    gs = min(m.group_size, b * s)
+    cap = moe.capacity(gs, m)
+    xt = hm.reshape(-1, gs, d)
+
+    def route():
+        logits = torch.einsum("gsd,de->gse", xt.float(),
+                              mp["router"].float())
+        disp, comb, _ = moe._top_k_dispatch(torch.softmax(logits, -1), m,
+                                            cap)
+        return disp.to(cdt), comb.to(cdt)
+
+    def experts(e_in):
+        w = {n: moe._eweight(mp[n], cdt) for n in ("wg", "wu", "wd")}
+        hh = layers.silu(torch.einsum("gecd,edf->gecf", e_in, w["wg"])) \
+            * torch.einsum("gecd,edf->gecf", e_in, w["wu"])
+        return torch.einsum("gecf,efd->gecd", hh, w["wd"])
+    disp, comb = route()
+    e_in = torch.einsum("gsec,gsd->gecd", disp, xt)
+    e_out = experts(e_in)
+    one = dict(iters=3, warmup=1, windows=1)
+    parts = {
+        "attention projections and RoPE": time_ms(attention, **one) - k6_ms,
+        "K6": k6_ms,
+        "router and top-k rounds": time_ms(route, **one),
+        "dispatch einsum": time_ms(
+            lambda: torch.einsum("gsec,gsd->gecd", disp, xt), **one),
+        "expert einsums": time_ms(lambda: experts(e_in), **one),
+        "combine einsum": time_ms(
+            lambda: torch.einsum("gsec,gecd->gsd", comb, e_out), **one),
+        "shared expert": time_ms(
+            lambda: layers.swiglu(mp["shared"], hm, cdt), **one)}
+    head = time_ms(lambda: transformer.logits(cfg, params, x[:, -1:]))
+    rest = total - embed - head - L * sum(parts.values())
+    einsum_flop = 2 * (b * s // gs) * gs * m.n_experts * cap * d
+    log(f"  prefill B={b} S={s} with kernels: {total:.2f} ms (CUDA events) "
+        f"= embed {embed:.3f} + {L} layers x {sum(parts.values()):.3f} + "
+        f"norms and residuals {rest:.2f} + lm_head {head:.3f}"
+        + (" (negative: the parts, timed one by one, add up to more than "
+           "the whole)" if rest < 0 else "")
+        + f"; a layer on layer 0's inputs (groups of {gs}, capacity {cap}):")
+    for name, ms in parts.items():
+        log(f"    {name:31s} {ms:8.3f} ms a layer, {L * ms:8.2f} ms "
+            f"({L * ms / total:.1%})")
+    pair_ms = parts["dispatch einsum"] + parts["combine einsum"]
+    log(f"    dispatch and combine einsums: {2 * einsum_flop / 1e12:.3f} "
+        f"TFLOP a layer, {2 * einsum_flop / 1e9 / pair_ms:.1f} TFLOP/s")
+    del disp, comb, e_in, e_out, hm, hn, x
+    weights = sum(t.numel() * t.element_size()
+                  for name, sub in params.items() if name != "embed"
+                  for t in param.leaves(sub))
+    pos = MOE_FORCED + MOE_GREEDY
+    cache = 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads * cfg.head_dim * 2 * L
+    bound = (weights + cache) / H100.hbm_bw * 1e3
+    for key, dd in dec.items():
+        log(f"  decode step {key}: {dd['step_ms']:.3f} ms (the teacher-"
+            f"forced steps' mean) vs byte bound {bound:.3f} ms ({(weights + cache) / 1e9:.2f} GB: "
+            f"{weights / 1e9:.2f} GB weights, every expert read by the "
+            f"dense dispatch, + {cache / 1e6:.1f} MB cache at pos {pos}), "
+            f"{bound / dd['step_ms']:.1%} of the bound's speed")
+    kv = transformer.init_cache(cfg, LM_BATCH, LM_SEQ, tokens.device)
+    step = tokens[:, :1]
+    for what, fn, wall in (
+            ("prefill", lambda: transformer.prefill(cfg, params, tokens),
+             total),
+            ("decode step", lambda: transformer.decode_step(
+                cfg, params, step, kv, pos), dec["kernels"]["step_ms"])):
+        busy = device_busy(fn)
+        if busy is None:
+            log(f"  {what}: the profiler recorded no device activity; idle "
+                f"share not measured")
+            continue
+        log(f"  {what} with kernels, torch.profiler: {busy[1]} device "
+            f"activities, {busy[0]:.3f} ms busy of {wall:.3f} ms (as "
+            f"above, no profiler): device idle share "
+            f"{1 - busy[0] / wall:.1%}")
+    LAUNCHES.update(before)
+    del kv
+
+
+def moe_phase(device, by_path: dict) -> list:
+    """Phase 8d: deepseek-moe-16b at full width, random bf16 weights drawn
+    on the card; prefill (B=2, S=4096) and decode with the kernels and
+    plain, held by routing agreement and logit statistics; decode against
+    prefill without drops; int8 weights; the prefill split and a decode
+    step against its byte bound.  Returns the K6[deepseek-moe-16b] and
+    K7[deepseek-moe-16b] rows."""
+    cfg = configs.get(MOE_ARCH)
+    m = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(MOE_SEED), device)
+    torch.cuda.synchronize()
+    log(f"  built {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
+        f"{m.n_experts} experts top-{m.top_k} and {m.n_shared} shared of "
+        f"{m.d_ff_expert}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+        f"{cfg.n_params / 1e9:.3f} B params ({cfg.n_active_params / 1e9:.3f}"
+        f" B active a token), {weight_bytes(params) / 1e9:.2f} GB, drawn on "
+        f"the card in {time.perf_counter() - t0:.1f}s")
+    tokens = torch.from_numpy(np.random.default_rng(MOE_SEED).integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_SEQ))).to(device)
+    gs = min(m.group_size, LM_BATCH * LM_SEQ)
+    log(f"  GShard dispatch: prefill {LM_BATCH * LM_SEQ // gs} groups of "
+        f"{gs} tokens at capacity {moe.capacity(gs, m)}; a decode step one "
+        f"group of {LM_BATCH} at capacity {moe.capacity(LM_BATCH, m)}")
+
+    runs = moe_prefill(cfg, params, tokens, by_path)
+    compounded = layer_agreement(runs, cfg.n_layers)
+    for r in runs.values():
+        del r["routes"]
+    layerwise = moe_layerwise((cfg, params, None), (cfg, params, "torch"),
+                              tokens)
+    log(f"  each layer on one input, kernels vs plain (ordered, as sets, "
+        f"output difference / RMS, correlation): {fmt_layers(layerwise)}")
+    fails = []
+    least = min(row[0] for row in layerwise)
+    largest = max(row[2] for row in layerwise)
+    sets = min(b for _, b in compounded)
+    log(f"  each layer on one input: least routing agreement {least:.4f} "
+        f"(limit {MOE_ROUTE_AGREE}), largest output difference "
+        f"{largest:.4f} of its RMS (limit {MOE_LAYER_TOL}); compounded: "
+        f"least agreement as sets {sets:.4f} (limit {MOE_ROUTE_SETS})")
+    if (least < MOE_ROUTE_AGREE or largest > MOE_LAYER_TOL
+            or sets < MOE_ROUTE_SETS):
+        fails.append(f"routing: layer-wise {least} / output {largest}, "
+                     f"compounded sets {sets}")
+    stats = {"prefill last logits": logit_stats(runs["kernels"]["last"],
+                                                runs["plain"]["last"]),
+             f"prefill logits 0-{MOE_FORCED - 1}": logit_stats(
+                 runs["kernels"]["early"], runs["plain"]["early"])}
+    dec = {}
+    for key, impl in (("kernels", None), ("plain", "torch")):
+        dec[key] = lm_decode(cfg, params, tokens, impl, MOE_FORCED,
+                             MOE_GREEDY, time_step=False)
+        dec[key]["step_ms"] = dec[key]["forced_s"] * 1e3 / MOE_FORCED
+        by_path[f"moe_decode_{key}"] = dec[key]["launches"]
+        log(f"  decode {key}: {MOE_FORCED} teacher-forced steps "
+            f"{dec[key]['step_ms']:.3f} ms a step, {MOE_GREEDY} greedy "
+            f"{dec[key]['greedy_s'] * 1e3 / MOE_GREEDY:.3f} ms a step (host "
+            f"clock, synchronized at both ends); launches "
+            f"{dec[key]['launches']}")
+    moe_launches(by_path, "moe_decode", "flash_decode",
+                 (MOE_FORCED + MOE_GREEDY) * cfg.n_layers)
+    stats[f"decode logits 0-{MOE_FORCED - 1}"] = logit_stats(
+        dec["kernels"]["forced"], dec["plain"]["forced"])
+    for what, st in stats.items():
+        hold_stats(st, f"{what}, kernels vs plain", "kernels vs plain",
+                   fails)
+    for key in dec:
+        if not torch.isfinite(dec[key]["forced"]).all():
+            raise AssertionError(f"non-finite {key} decode logits")
+    same = (dec["kernels"]["ids"] == dec["plain"]["ids"]).float()
+    log(f"  greedy ids equal kernels vs plain (a reading): "
+        f"{same.mean(1).tolist()} of {MOE_GREEDY + 1} choices a row")
+    published = logit_stats(dec["kernels"]["forced"],
+                            runs["kernels"]["early"])
+    log(f"  decode vs prefill at the published capacity factor (a reading, "
+        f"not held: decode groups are the batch at capacity "
+        f"{moe.capacity(LM_BATCH, m)}, prefill groups {gs} tokens at "
+        f"{moe.capacity(gs, m)}): "
+        f"{fmt_stats(published)}")
+    del runs
+    moe_nodrop(cfg, params, tokens, by_path, fails)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_int8(cfg, params, tokens, by_path, fails)
+    log("  K6 / K7 at its shapes and the prefill / decode split:")
+    rows = moe_attention_rows(device, by_path)
+    moe_split(cfg, params, tokens, rows[0]["ms_device"],
+              {k: {"step_ms": d["step_ms"]} for k, d in dec.items()})
+    log(f"  peak device memory over phase 8d "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if fails:
+        raise AssertionError("phase 8d outside its limits: "
+                             + "; ".join(fails))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -3740,6 +4351,11 @@ def main() -> None:
         "DeiT-B, ViT-S/16, EfficientNet-B7, DiT-S/2, DiT-XL/2), kernels "
         "and plain")
     rows += zoo_phase(device, by_path)
+    log(f"phase 8d: {MOE_ARCH} at full width: prefill B={LM_BATCH} "
+        f"S={LM_SEQ}, {MOE_FORCED} teacher-forced and {MOE_GREEDY} greedy "
+        f"decode steps, kernels and plain; decode vs prefill without drops; "
+        f"int8 weights")
+    rows += moe_phase(device, by_path)
     for row in rows:
         if "launches_by_path" not in row:      # phase 5f's rows have theirs
             row["launches_by_path"] = {path: counts[row["name"]]

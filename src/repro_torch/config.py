@@ -1,4 +1,4 @@
-"""Config dataclasses for the decoder-only LM, the ViT / DeiT
+"""Config dataclasses for the decoder-only LM (dense or MoE), the ViT / DeiT
 classifiers (and the detector's ViT trunk), DiT, EfficientNet, the
 detector, the card and the paper's Tangram defaults.
 
@@ -18,11 +18,22 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
-class TransformerConfig:
-    """Decoder-only LM: the JAX package's fields that the port reads.
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0            # shared (always-on) experts, DeepSeekMoE
+    d_ff_expert: int = 0         # per-expert hidden size (0 -> use model d_ff)
+    capacity_factor: float = 1.25
+    group_size: int = 512        # tokens per dispatch group (GShard grouping)
 
-    The port runs the dense model: ``moe`` raises ``NotImplementedError``
-    (MoE blocks are ROADMAP item 13).  ``quant_weights`` keeps the layer
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Decoder-only LM (dense or MoE): the JAX package's fields that the
+    port reads.
+
+    With ``moe`` set, each layer's MLP is a GShard mixture of experts
+    (``models/moe.py``).  ``quant_weights`` keeps the layer
     and ``lm_head`` kernels int8 with per-output-channel float32 scales
     (embedding and norms stay in ``param_dtype``); ``quant_kv`` keeps the
     KV cache int8 with a float32 scale per position and KV head.  The JAX
@@ -41,7 +52,7 @@ class TransformerConfig:
     d_ff: int
     vocab: int
     head_dim: int = 128
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -54,25 +65,44 @@ class TransformerConfig:
     family: str = "lm"
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE blocks are not ported yet (ROADMAP item "
-                f"13, models/moe.py)")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not "
                              f"a multiple of n_kv_heads {self.n_kv_heads}")
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        return (d * self.n_heads * self.head_dim
+                + 2 * d * self.n_kv_heads * self.head_dim
+                + self.n_heads * self.head_dim * d)
+
+    def _embed_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
 
     @property
     def n_params(self) -> int:
         """Total parameter count (embedding + layers)."""
         d, L = self.d_model, self.n_layers
-        att = (d * self.n_heads * self.head_dim
-               + 2 * d * self.n_kv_heads * self.head_dim
-               + self.n_heads * self.head_dim * d)
-        mlp = 3 * d * self.d_ff
+        if self.moe is not None:
+            ff = self.moe.d_ff_expert or self.d_ff
+            mlp = (self.moe.n_experts + self.moe.n_shared) * 3 * d * ff
+            mlp += d * self.moe.n_experts  # router
+        else:
+            mlp = 3 * d * self.d_ff
         norms = 2 * d
-        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        return L * (att + mlp + norms) + emb + d
+        return (L * (self._attn_params() + mlp + norms)
+                + self._embed_params() + d)
+
+    @property
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE counts only the routed top-k)."""
+        if self.moe is None:
+            return self.n_params
+        d, L = self.d_model, self.n_layers
+        ff = self.moe.d_ff_expert or self.d_ff
+        mlp = ((self.moe.top_k + self.moe.n_shared) * 3 * d * ff
+               + d * self.moe.n_experts)
+        return (L * (self._attn_params() + mlp + 2 * d)
+                + self._embed_params() + d)
 
 
 @dataclasses.dataclass(frozen=True)

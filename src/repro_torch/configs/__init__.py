@@ -24,12 +24,11 @@ ARCH_IDS = (
 )
 
 PORTED = ("minitron-4b", "tangram-detector", "vit-s16", "efficientnet-b7",
-          "vit-b16", "deit-b", "dit-s2", "dit-xl2")
+          "vit-b16", "deit-b", "dit-s2", "dit-xl2", "deepseek-moe-16b",
+          "llama4-scout-17b-a16e")
 
 #: where each unported id is ported
 UNPORTED = {
-    "deepseek-moe-16b": "ROADMAP item 13 (models/moe.py)",
-    "llama4-scout-17b-a16e": "ROADMAP item 13 (models/moe.py)",
     "mistral-large-123b": "ROADMAP item 14 (weights sharded over cards)",
 }
 

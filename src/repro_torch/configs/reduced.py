@@ -16,10 +16,18 @@ from repro_torch.config import (DetectorConfig, DiTConfig,
 def reduce_arch(model):
     """A full config -> a small CPU-runnable config of the same family."""
     if isinstance(model, TransformerConfig):
+        moe = None
+        if model.moe is not None:
+            # MoE stays MoE with shared experts
+            moe = dataclasses.replace(
+                model.moe, n_experts=min(model.moe.n_experts, 8),
+                top_k=min(model.moe.top_k, 2),
+                n_shared=min(model.moe.n_shared, 1),
+                d_ff_expert=64, group_size=64)
         return dataclasses.replace(
             model, n_layers=2, d_model=128, n_heads=4,
             n_kv_heads=2 if model.n_kv_heads < model.n_heads else 4,
-            d_ff=256, vocab=512, head_dim=32,
+            d_ff=256, vocab=512, head_dim=32, moe=moe,
             param_dtype="float32", compute_dtype="float32")
     if isinstance(model, ViTConfig):
         return dataclasses.replace(

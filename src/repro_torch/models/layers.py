@@ -83,7 +83,7 @@ def dense(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
 def quantize_dense(kernel: torch.Tensor) -> dict:
     """A (d_in, d_out) kernel -> ``{kernel_q, kernel_scale}``, one scale
     per output channel."""
-    q, scale = quantize_kernel(kernel, n_reduce=1)
+    q, scale = quantize_kernel(kernel, 1)
     return {"kernel_q": q, "kernel_scale": scale}
 
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM (dense): prefill and KV-cache decode.
+"""Decoder-only LM (dense or MoE): prefill and KV-cache decode.
 
 Port of the serving half of ``repro/models/transformer.py``:
 
@@ -20,6 +20,10 @@ per layer under ``"layer_{i}"`` (the port runs layers in a Python loop, not
                             "mlp": {"gate", "up", "down"}}, ...},
      "ln_f": {"scale"}, "lm_head": {"kernel": (d, V)}}
 
+An MoE config (``cfg.moe``) holds ``"moe": {"router", "wg", "wu", "wd"[,
+"shared"]}`` in place of ``"mlp"`` (``moe.moe_specs``), and ``forward``
+returns the layers' summed load-balancing loss.
+
 With ``quant_weights`` the layer and ``lm_head`` kernels are int8
 (``{q, scale}`` / ``{kernel_q, kernel_scale}``, from
 ``quantize.quantize_params``); with ``quant_kv`` the cache is int8 with
@@ -40,7 +44,7 @@ import torch
 from repro_torch.config import TransformerConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.param import convert_like, map_tree
 from repro_torch.param import init_params as _init_tree
 
@@ -49,15 +53,19 @@ from repro_torch.param import init_params as _init_tree
 
 def _layer_specs(cfg: TransformerConfig, dtype: torch.dtype) -> dict:
     quant = cfg.quant_weights
-    return {
+    p = {
         "ln_attn": layers.rmsnorm_specs(cfg.d_model, dtype),
         "attn": attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, dtype, fused=cfg.fused_qkv,
                                quant=quant),
         "ln_mlp": layers.rmsnorm_specs(cfg.d_model, dtype),
-        "mlp": layers.swiglu_specs(cfg.d_model, cfg.d_ff, dtype,
-                                   quant=quant),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_specs(cfg.d_model, cfg.moe, dtype, quant=quant)
+    else:
+        p["mlp"] = layers.swiglu_specs(cfg.d_model, cfg.d_ff, dtype,
+                                       quant=quant)
+    return p
 
 
 def param_specs(cfg: TransformerConfig) -> dict:
@@ -107,9 +115,18 @@ def convert_params(tree: dict, cfg: TransformerConfig,
 
 # --------------------------------------------------------------- forward ----
 
+def _mlp(cfg: TransformerConfig, lp: dict, h: torch.Tensor,
+         cdt: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP (SwiGLU, or the MoE block) and its aux loss (None
+    for SwiGLU, so a dense layer launches nothing for it)."""
+    if cfg.moe is not None:
+        return moe.moe_block(lp["moe"], h, cfg.moe, compute_dtype=cdt)
+    return layers.swiglu(lp["mlp"], h, cdt), None
+
+
 def _layer(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
-           positions: Optional[torch.Tensor],
-           impl: Optional[str]) -> torch.Tensor:
+           positions: Optional[torch.Tensor], impl: Optional[str]
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     cdt = dtype_of(cfg.compute_dtype)
     h = layers.rmsnorm(lp["ln_attn"], x, cfg.norm_eps, cdt)
     h = attn.attention(lp["attn"], h, n_heads=cfg.n_heads,
@@ -117,7 +134,8 @@ def _layer(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
                        compute_dtype=cdt, positions=positions, impl=impl)
     x = x + h
     h = layers.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps, cdt)
-    return x + layers.swiglu(lp["mlp"], h, cdt)
+    h, aux = _mlp(cfg, lp, h, cdt)
+    return x + h, aux
 
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
@@ -125,14 +143,18 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
             impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int -> (hidden (B, S, d) after the final norm, aux).
-    ``aux`` is the MoE load-balancing loss of the JAX function, always 0
-    here (the port runs dense models)."""
+    ``aux`` is the MoE load-balancing loss summed over the layers (0 for a
+    dense model), as the JAX function returns it."""
     cdt = dtype_of(cfg.compute_dtype)
     x = layers.embed_lookup(params["embed"], tokens, cdt)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x = _layer(cfg, params["layers"][f"layer_{i}"], x, positions, impl)
+        x, aux = _layer(cfg, params["layers"][f"layer_{i}"], x, positions,
+                        impl)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps, cdt)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def logits(cfg: TransformerConfig, params: dict,
@@ -186,6 +208,6 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             compute_dtype=cdt, impl=impl)
         x = x + h
         h = layers.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps, cdt)
-        x = x + layers.swiglu(lp["mlp"], h, cdt)
+        x = x + _mlp(cfg, lp, h, cdt)[0]
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps, cdt)
     return logits(cfg, params, x), cache

@@ -247,12 +247,20 @@ def test_partition_of_no_boxes_is_empty():
 
 
 def test_unported_arch_ids_name_their_item():
-    """The MoE ids wait on item 13; ``mistral-large-123b`` (246 GB in
-    bf16) on item 14 alone, its weights sharded over cards."""
+    """``mistral-large-123b`` (246 GB in bf16) waits on item 14 alone, its
+    weights sharded over cards; the MoE ids resolve and build at reduced
+    width."""
     from repro_torch import configs
+    from repro_torch.configs.reduced import reduce_arch
+    from repro_torch.models import transformer
     for arch in ("deepseek-moe-16b", "llama4-scout-17b-a16e"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            configs.get(arch)
+        cfg = reduce_arch(configs.get(arch))
+        assert cfg.name == arch and cfg.moe is not None
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu")
+        h, aux = transformer.forward(cfg, params,
+                                     torch.zeros((1, 64), dtype=torch.long))
+        assert h.shape == (1, 64, cfg.d_model) and float(aux) > 0
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP item 14 \(weights sharded over "
                              r"cards\)") as err:

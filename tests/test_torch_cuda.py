@@ -36,6 +36,7 @@ from repro_torch.launch.serve import (build_detector, fused_fields,
                                       fused_kwargs)
 from repro_torch.models import transformer
 from repro_torch.models.quantize import quantize_params
+from repro_torch.param import map_tree
 from repro_torch.serverless.platform import Platform
 from repro_torch.sources import make_source
 
@@ -827,6 +828,64 @@ def test_flash_attention_dit_xl2_shape_against_plain(cuda):
     want = attn_ops.flash_attention(q, k, v, causal=False, impl="torch")
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+def test_flash_attention_deepseek_moe_shape_against_plain(cuda):
+    """K6 at one deepseek-moe-16b prefill layer (B=2, S=4096, 16 query
+    heads over 16 KV heads, G = 1, D 128, causal: the wgmma kernel),
+    bf16 within 2e-2 of its plain version."""
+    rng = np.random.default_rng(49)
+    q, k, v = _qkv(rng, [(2, 4096, 16, 128)] * 3, torch.bfloat16, cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = attn_ops.flash_attention(q, k, v, causal=True)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attn_ops.flash_attention(q, k, v, causal=True, impl="torch")
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("pos", [0, 63, 511, 4095])
+def test_flash_decode_deepseek_moe_shape_against_plain(cuda, pos):
+    """K7 at deepseek-moe-16b's decode shape (B=2, a 4,096-position
+    cache, 16 query heads over 16 KV heads, G = 1, D 128) within 2e-2 and
+    the row limit of its plain version."""
+    rng = np.random.default_rng(50 + pos)
+    q, k, v = _qkv(rng, [(2, 1, 16, 128), (2, 4096, 16, 128),
+                         (2, 4096, 16, 128)], torch.bfloat16, cuda)
+    _k7_against_plain(q, k, v, pos)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_lm_on_card_matches_cpu(cuda, arch):
+    """The reduced MoE LMs (float32) on the card against the same weights
+    on the CPU: prefill hidden states, logits and aux loss, then eight
+    decode steps (groups of two tokens at capacity 1), within 1e-4; K6
+    once a layer in prefill and K7 once a layer a step."""
+    cfg = reduce_arch(get(arch))
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    dev = map_tree(lambda t: t.to(cuda), params)
+    tok = torch.from_numpy(np.random.default_rng(51).integers(
+        0, cfg.vocab, size=(2, 128)))
+    before = dict(kernels.LAUNCHES)
+    h, aux = transformer.forward(cfg, dev, tok.to(cuda))
+    assert kernels.LAUNCHES["flash_attention"] == (
+        before["flash_attention"] + cfg.n_layers)
+    h_cpu, aux_cpu = transformer.forward(cfg, params, tok)
+    torch.testing.assert_close(h.cpu(), h_cpu, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-5, rtol=1e-5)
+    caches = (transformer.init_cache(cfg, 2, 16, cuda),
+              transformer.init_cache(cfg, 2, 16, "cpu"))
+    for pos in range(8):
+        t = tok[:, pos:pos + 1]
+        got, _ = transformer.decode_step(cfg, dev, t.to(cuda), caches[0],
+                                         pos)
+        want, _ = transformer.decode_step(cfg, params, t, caches[1], pos)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert kernels.LAUNCHES["flash_decode"] == (
+        before["flash_decode"] + 8 * cfg.n_layers)
 
 
 @pytest.mark.parametrize("arch", ["vit-b16", "deit-b", "dit-xl2"])

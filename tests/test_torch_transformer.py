@@ -24,6 +24,7 @@ from repro.configs.reduced import reduce_arch as jreduce
 from repro.models import transformer as jtr
 from repro.sharding import ShardingConfig
 from repro_torch import param as tparam
+from repro_torch.config import MoEConfig
 from repro_torch.configs import get
 from repro_torch.configs.reduced import reduce_arch as treduce
 from repro_torch.models import attention as tattn
@@ -233,11 +234,14 @@ def test_init_params_follows_the_reference_rules():
 
 
 def test_unported_features_raise_naming_their_item():
+    """MoE is ported: an MoE config builds and the MoE ids resolve; the
+    id whose weights need several cards still names its item."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        dataclasses.replace(tcfg, moe=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        get("deepseek-moe-16b")
+    mcfg = dataclasses.replace(tcfg, moe=MoEConfig(n_experts=4, top_k=2))
+    assert "moe" in ttr.param_specs(mcfg)["layers"]["layer_0"]
+    assert get("deepseek-moe-16b").moe.top_k == 6
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        get("mistral-large-123b")
     with pytest.raises(KeyError):
         get("gpt-2")
     assert get("tangram-detector").canvas == 1024
