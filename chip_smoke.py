@@ -184,10 +184,35 @@ Phases (any failure raises, so the exit code is non-zero):
    expert, the attention projections), a decode step against its byte
    bound (every expert read every step), device idle shares and peak
    memory;
+10. training, which launches none of K1-K7 (the reference trains without
+   a Pallas kernel): (a) one train step (``make_train_step``'s parts:
+   loss and gradients, AdamW) of the reduced detector (canvas 256,
+   float32, B=4 from the port's loader) on the card and on the CPU with
+   TF32 off, the loss within 1e-5 relative, every gradient leaf within
+   1e-4 of its max-abs and the parameters after AdamW on the CPU's
+   gradients within 1e-5 (after each side's own gradients they are
+   printed: AdamW's first step amplifies the rounding of gradient
+   elements near its eps); the same for the reduced LM (``minitron-4b``'s family) at B=2 x 4096 with
+   ``"xla"`` and with ``"chunked"`` attention (two chunks of 2048), the two
+   within 1e-4 of each other; the LM's remat policies (``dots``,
+   ``minimal``) against remat off on the card, the loss bit-equal; (b) the
+   full-width ``tangram-detector`` at ``train_c32`` (canvas 1024, B=32,
+   bf16, remat off, weights drawn on the card from a seed, batches from
+   ``data/loader.detector_batches``): the loader's and the host->device
+   copy's times a batch, the device step time (CUDA events, median after
+   the first step), canvases a second, the step's forward / backward /
+   optimizer split, peak memory and the device's idle share in a profiled
+   step; 12 ``launch/train.train`` steps with a checkpoint every 4 and a
+   failure drill at step 9 against a run without it (the same losses to
+   step 8, then the restored step-8 state's); 20 steps on one batch (the
+   loss falls); one step with remat on (the loss bit-equal to remat off,
+   deterministic algorithms on; its peak memory); no K1-K7 launch in the
+   whole phase, and K6 refusing inputs that require grad;
 9. print one JSON line of kernels (K1-K7, the K4/K3 rows of phase 5f's
    models, named ``kernel[model]``, phase 8c's ``K6[vit-b16]`` and
    ``K6[dit-xl2]`` and phase 8d's ``K6[deepseek-moe-16b]`` and
-   ``K7[deepseek-moe-16b]``) and, last,
+   ``K7[deepseek-moe-16b]``; ``launches_by_path`` has phase 10's
+   ``train`` counts, all 0) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -210,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -237,6 +263,8 @@ from repro_torch.core.fleet import fleet_uniform_pool  # noqa: E402
 from repro_torch.core.workers import (  # noqa: E402
     WorkerPoolExecutor, device_worker_pool, make_placement,
     share_frame_store, weight_caches, worker_device)
+from repro_torch.configs import tangram_detector  # noqa: E402
+from repro_torch.data import loader  # noqa: E402
 from repro_torch.data.synthetic import Scene, preset  # noqa: E402
 from repro_torch.data.video import load_frames  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -249,6 +277,7 @@ from repro_torch.kernels.launches import (  # noqa: E402
 from repro_torch.kernels.stitch import fused_embed  # noqa: E402
 from repro_torch.kernels.stitch import ops as stitch_ops  # noqa: E402
 from repro_torch.kernels.stitch import stitch as stitch_kernels  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     build_source, detail_lines, fused_fields, fused_kwargs, profile,
     shard_lines, shard_stream, sharded_engine, summary_line)
@@ -264,6 +293,12 @@ from repro_torch.models.quantize import quantize_params  # noqa: E402
 from repro_torch.serverless.platform import (  # noqa: E402
     Platform, PlatformConfig)
 from repro_torch.sources import FleetCameraSource, make_source  # noqa: E402
+from repro_torch.training import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.training import optimizer as opt_lib  # noqa: E402
+from repro_torch.training.elastic import (  # noqa: E402
+    FailureEvent, FailureInjector)
+from repro_torch.training.train_state import (  # noqa: E402
+    make_train_step, value_and_grad)
 
 CANVAS = 1024
 PATCH = 32
@@ -418,6 +453,24 @@ MOE_LIMITS = {                   # (corr >=, median <=, p99 <=)
 # model's logits correlate 0.9011 with bf16's (above), where the JAX
 # package's own MoE int8 test holds only the loss (within 8%).
 MOE_INT8_CORR = 0.99
+
+
+TRAIN_SEED = 23
+TRAIN_REDUCED_BATCH = 4
+TRAIN_LM_ARCH = LM_ARCH           # the reduced LM of phase 10(a)
+TRAIN_LM_SHAPE = (2, 4096)        # B x S: "chunked" runs two chunks of 2048
+TRAIN_SHAPE = "train_c32"         # tangram-detector's training cell
+TRAIN_TIMED_STEPS = 6             # the step time: median of steps 1..5
+TRAIN_STEPS = 12                  # the drill runs
+TRAIN_CKPT_EVERY = 4
+TRAIN_DRILL_AT = 9                # restores step 8, dropping its update
+TRAIN_FIXED_STEPS = 20
+TRAIN_OPT = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                    total_steps=10)
+TRAIN_FULL_OPT = opt_lib.OptimizerConfig(lr=5e-4, warmup_steps=2,
+                                         total_steps=TRAIN_FIXED_STEPS)
+TRAIN_TOL = {"loss": 1e-5, "grads": 1e-4, "params": 1e-5}
+TRAIN_IMPL_TOL = 1e-4             # "xla" vs "chunked" on the card
 
 
 def log(msg: str) -> None:
@@ -4144,6 +4197,286 @@ def moe_phase(device, by_path: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------- phase 10 ----
+
+def step_parts(cfg, batch: dict, device, impl: str = "xla",
+               ref_grads=None) -> tuple:
+    """One train step's parts from the seeded initial parameters (drawn on
+    the host, so every device starts from the same numbers): (loss, the
+    gradient leaves, the parameter leaves after AdamW on these gradients,
+    and on ``ref_grads`` when given), on the host."""
+    params = param.map_tree(lambda t: t.to(device), train_lib.init_params(
+        cfg, TRAIN_SEED, torch.device("cpu")))
+    loss, grads = value_and_grad(train_lib.loss_fn(cfg, impl), params,
+                                 train_lib.to_device(batch, device))
+
+    def after(g):
+        new, _, _ = opt_lib.update(TRAIN_OPT, g, opt_lib.init(params),
+                                   params)
+        return [p.cpu() for p in param.sorted_leaves(new)]
+
+    fed = None if ref_grads is None else after(param.replace_leaves(
+        params, [g.to(device) for g in ref_grads]))
+    return (loss.cpu(), [g.cpu() for g in param.sorted_leaves(grads)],
+            after(grads), fed)
+
+
+def leaf_err(got: list, want: list) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def hold_step(got: tuple, want: tuple, what: str, tol: dict) -> None:
+    """Loss, gradients and, when ``got`` holds them, the parameters after
+    AdamW on ``want``'s gradients, within ``tol``; the parameters after
+    each side's own gradients are a reading: AdamW's first step moves a
+    parameter by lr x g / (|g| + eps), which turns the rounding of a
+    gradient element near eps (after the clip scale) into a difference of
+    up to lr."""
+    errs = {"loss": abs(float(got[0]) - float(want[0])) / abs(
+        float(want[0])), "grads": leaf_err(got[1], want[1])}
+    if got[3] is not None:
+        errs["params"] = leaf_err(got[3], want[2])
+    log(f"  {what}: loss {float(got[0]):.6f} vs {float(want[0]):.6f}; "
+        + ", ".join(f"{k} {v:.3e} (<= {tol[k]:g})" for k, v in errs.items())
+        + f"; parameters after each side's own gradients (a reading) "
+        f"{leaf_err(got[2], want[2]):.3e}")
+    bad = [k for k, v in errs.items() if not v <= tol[k]]
+    if bad:
+        raise AssertionError(f"{what}: {bad} outside their limits")
+
+
+def train_card_vs_cpu(device) -> None:
+    """Phase 10(a): the reduced detector and LM, a train step on the card
+    against the CPU, TF32 off; the LM's two attention paths against each
+    other; its remat policies against remat off."""
+    cpu = torch.device("cpu")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        det = train_lib.reduced_config(configs.get("tangram-detector"))
+        batch = next(loader.detector_batches(det.canvas,
+                                             TRAIN_REDUCED_BATCH))
+        want = step_parts(det, batch, cpu)
+        hold_step(step_parts(det, batch, device, ref_grads=want[1]), want,
+                  f"reduced detector (canvas {det.canvas}, B="
+                  f"{TRAIN_REDUCED_BATCH}), card vs CPU", TRAIN_TOL)
+        lm = train_lib.reduced_config(configs.get(TRAIN_LM_ARCH))
+        b, s = TRAIN_LM_SHAPE
+        batch = next(loader.lm_batches(lm.vocab, b, s, seed=TRAIN_SEED))
+        card = {}
+        for impl in ("xla", "chunked"):
+            want = step_parts(lm, batch, cpu, impl)
+            card[impl] = step_parts(lm, batch, device, impl,
+                                    ref_grads=want[1])
+            hold_step(card[impl], want,
+                      f"reduced LM ({b} x {s}, {impl!r}), card vs CPU",
+                      TRAIN_TOL)
+        hold_step(card["chunked"][:3] + (None,), card["xla"],
+                  "reduced LM on the card, 'chunked' vs 'xla'",
+                  dict.fromkeys(TRAIN_TOL, TRAIN_IMPL_TOL))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    for policy in ("dots", "minimal"):
+        cfg = dataclasses.replace(lm, remat=True, remat_policy=policy)
+        got = remat_step(cfg, lm, batch, device)
+        log(f"  reduced LM remat {policy!r}: loss {got[0]} vs {got[1]} "
+            f"remat off (bit-equal required); peak "
+            f"{got[2] / 1e9:.3f} GB vs {got[3] / 1e9:.3f} GB")
+
+
+def remat_step(cfg, base, batch: dict, device) -> tuple:
+    """(loss with ``cfg``'s remat, loss of ``base`` without, peak memory of
+    each) of one step's loss and gradients on the card, from the same
+    parameters and batch under deterministic algorithms; raises unless the
+    losses are bit-equal."""
+    params = train_lib.init_params(base, TRAIN_SEED, device)
+    dev_batch = train_lib.to_device(batch, device)
+    out = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for c in (cfg, base):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                loss, grads = value_and_grad(train_lib.loss_fn(c), params,
+                                             dev_batch)
+                torch.cuda.synchronize()
+                out.append((loss, torch.cuda.max_memory_allocated()))
+                del grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(out[0][0], out[1][0]):
+        raise AssertionError(f"remat changed the loss: {float(out[0][0])!r}"
+                             f" vs {float(out[1][0])!r}")
+    return float(out[0][0]), float(out[1][0]), out[0][1], out[1][1]
+
+
+def step_split(loss_fn, params, opt_state, batch) -> tuple:
+    """(forward, backward, optimizer) ms of one train step, CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = [p.detach().requires_grad_(True)
+              for p in param.sorted_leaves(params)]
+    ev[0].record()
+    with torch.enable_grad():
+        loss = loss_fn(param.replace_leaves(params, leaves), batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    ev[2].record()
+    opt_lib.update(TRAIN_FULL_OPT, param.replace_leaves(params, grads),
+                   opt_state, params)
+    ev[3].record()
+    ev[3].synchronize()
+    return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+
+
+def train_full_width(device) -> None:
+    """Phase 10(b): the full-width detector at ``train_c32``."""
+    cfg = configs.get("tangram-detector")
+    (shape,) = [s for s in tangram_detector.SHAPES if s.name == TRAIN_SHAPE]
+    b = shape.global_batch
+    log(f"  {cfg.name} at {shape.name}: canvas {cfg.canvas}, B={b}, "
+        f"{cfg.param_dtype}, remat {cfg.remat}, {cfg.n_params / 1e6:.1f}M "
+        f"params")
+    data = loader.detector_batches(cfg.canvas, b, seed=TRAIN_SEED)
+    host, load_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        host.append(next(data))
+        load_s.append(time.perf_counter() - t0)
+    copy_s, batches = [], []
+    for batch in host[:TRAIN_TIMED_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches.append(train_lib.to_device(batch, device))
+        torch.cuda.synchronize()
+        copy_s.append(time.perf_counter() - t0)
+    mb = sum(v.nbytes for v in host[0].values()) / 1e6
+    log(f"  loader: {statistics.median(load_s) * 1e3:.1f} ms a batch "
+        f"(median of {len(load_s)}, host clock; boxes a canvas "
+        f"{host[0]['valid'].sum(1).mean():.1f}); host->device copy "
+        f"{statistics.median(copy_s) * 1e3:.2f} ms for {mb:.1f} MB "
+        f"(pageable)")
+
+    params = train_lib.init_params(cfg, TRAIN_SEED, device)
+    opt_state = opt_lib.init(params)
+    loss_fn = train_lib.loss_fn(cfg)
+    step_fn = make_train_step(loss_fn, TRAIN_FULL_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(step_ms[1:])
+    log(f"  device step {ms:.2f} ms (CUDA events, median of steps 1-"
+        f"{len(step_ms) - 1}; first {step_ms[0]:.2f} ms): "
+        f"{b / ms * 1e3:.1f} canvases/s; peak memory {peak / 1e9:.2f} GB; "
+        f"losses {[round(x, 4) for x in losses]}")
+    split = [step_split(loss_fn, params, opt_state, batches[0])
+             for _ in range(3)]
+    fwd, bwd, opt = (statistics.median(x) for x in zip(*split))
+    log(f"  split (median of 3, CUDA events): forward {fwd:.2f} ms, "
+        f"backward {bwd:.2f} ms, optimizer {opt:.2f} ms")
+    busy = device_busy(lambda: step_fn(params, opt_state, batches[0]))
+    if busy is None:
+        log("  idle share: the profiler recorded no device activity; not "
+            "measured")
+    else:
+        log(f"  a profiled step: {busy[1]} device activities, "
+            f"{busy[0]:.2f} ms busy of {ms:.2f} ms: device idle share "
+            f"{1 - busy[0] / ms:.1%}")
+    fixed = []
+    for _ in range(TRAIN_FIXED_STEPS):
+        params, opt_state, metrics = step_fn(params, opt_state, batches[0])
+        fixed.append(float(metrics["loss"]))
+    log(f"  {TRAIN_FIXED_STEPS} steps on one batch: losses "
+        f"{[round(x, 4) for x in fixed]}")
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: "
+                             f"{fixed[0]} -> {fixed[-1]}")
+    got = remat_step(dataclasses.replace(cfg, remat=True), cfg, host[0],
+                     device)
+    log(f"  remat on (the trunk's dots policy): loss {got[0]} vs {got[1]} "
+        f"remat off, bit-equal; loss and gradients peak {got[2] / 1e9:.2f} "
+        f"GB vs {got[3] / 1e9:.2f} GB")
+    like = {"p": params, "o": opt_state}
+    del batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kw = dict(steps=TRAIN_STEPS, seed=TRAIN_SEED, opt_cfg=TRAIN_FULL_OPT,
+              log_every=TRAIN_CKPT_EVERY, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, drill = train_lib.train(
+            cfg, shape, ckpt_dir=tmp, ckpt_every=TRAIN_CKPT_EVERY,
+            injector=FailureInjector([FailureEvent(TRAIN_DRILL_AT, "host",
+                                                   0)]), **kw)
+        drill_s = time.perf_counter() - t0
+        at = TRAIN_DRILL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+        restored = ckpt_lib.restore(tmp, at, like)
+        with torch.no_grad():
+            again = float(loss_fn(restored["p"], train_lib.to_device(
+                host[TRAIN_DRILL_AT], device)))
+        del restored
+    t0 = time.perf_counter()
+    _, plain = train_lib.train(cfg, shape, ckpt_dir=None, **kw)
+    plain_s = time.perf_counter() - t0
+    log(f"  drill run ({drill_s:.1f} s, checkpoints every "
+        f"{TRAIN_CKPT_EVERY}, drill at {TRAIN_DRILL_AT}): "
+        f"{[round(x, 4) for x in drill]}")
+    log(f"  run without it ({plain_s:.1f} s): "
+        f"{[round(x, 4) for x in plain]}")
+    log(f"  the step-{at} checkpoint on batch {TRAIN_DRILL_AT}: {again!r} "
+        f"(the drill run's step {TRAIN_DRILL_AT}: {drill[TRAIN_DRILL_AT]!r})")
+    before = max(abs(a - b) / abs(b) for a, b in zip(
+        drill[:TRAIN_DRILL_AT], plain[:TRAIN_DRILL_AT]))
+    log(f"  steps 0-{TRAIN_DRILL_AT - 1}, drill run vs the other: largest "
+        f"relative difference {before:.3e}")
+    if not before <= TRAIN_TOL["loss"]:
+        raise AssertionError("the drill run left the plain run before the "
+                             "drill")
+    if abs(again - drill[TRAIN_DRILL_AT]) > TRAIN_TOL["loss"] * abs(again):
+        raise AssertionError("the drill did not resume from the restored "
+                             "checkpoint")
+
+
+def train_phase(device, by_path: dict) -> None:
+    """Phase 10: training, with no hand kernel launched."""
+    reset_launches()
+    log("  (a) card against CPU at reduced width")
+    train_card_vs_cpu(device)
+    log(f"  (b) full width at {TRAIN_SHAPE}")
+    train_full_width(device)
+    by_path["train"] = dict(LAUNCHES)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"training launched kernels: {LAUNCHES}")
+    q = torch.randn(1, 128, 4, 64, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        attn_ops.flash_attention(q, q, q, causal=True)
+    except RuntimeError as e:
+        log(f"  K6 on inputs that require grad raises: {e}")
+    else:
+        raise AssertionError("K6 accepted inputs that require grad")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -4356,6 +4689,9 @@ def main() -> None:
         f"decode steps, kernels and plain; decode vs prefill without drops; "
         f"int8 weights")
     rows += moe_phase(device, by_path)
+    log(f"phase 10: training (no hand kernel): a train step card vs CPU at "
+        f"reduced width, then {TRAIN_SHAPE} at full width")
+    train_phase(device, by_path)
     for row in rows:
         if "launches_by_path" not in row:      # phase 5f's rows have theirs
             row["launches_by_path"] = {path: counts[row["name"]]

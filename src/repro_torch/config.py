@@ -1,12 +1,13 @@
 """Config dataclasses for the decoder-only LM (dense or MoE), the ViT / DeiT
 classifiers (and the detector's ViT trunk), DiT, EfficientNet, the
-detector, the card and the paper's Tangram defaults.
+detector, a workload cell's shape, the card and the paper's Tangram
+defaults.
 
-Port of the parts of ``repro/config.py`` the ported paths need.  The JAX
-fields for training (``remat``, ``remat_policy``, ``scan_layers``) are
-left out everywhere: training is ROADMAP item 13's third part, and the
-port's layers are a Python loop over a list.  ``dtype_of`` maps the
-configs' dtype names to torch dtypes.
+Port of the parts of ``repro/config.py`` the ported paths need.  The
+training fields ``remat`` and ``remat_policy`` keep the JAX defaults; the
+JAX ``scan_layers`` is left out everywhere, because the port's layers are
+a Python loop over a list (the converters unstack scanned JAX trees).
+``dtype_of`` maps the configs' dtype names to torch dtypes.
 """
 from __future__ import annotations
 
@@ -36,12 +37,14 @@ class TransformerConfig:
     (``models/moe.py``).  ``quant_weights`` keeps the layer
     and ``lm_head`` kernels int8 with per-output-channel float32 scales
     (embedding and norms stay in ``param_dtype``); ``quant_kv`` keeps the
-    KV cache int8 with a float32 scale per position and KV head.  The JAX
-    fields for training (``remat``, ``remat_policy``, ``scan_layers``), the
-    TPU kernel's blocks (``flash_block_q`` / ``flash_block_kv``) and the
-    sharded cache's write (``cache_update``) are left out: the port serves
-    on one card, its kernels pick their own tiles, and its decode writes
-    the cache in place (ROADMAP items 13 and 14).
+    KV cache int8 with a float32 scale per position and KV head.  With
+    ``remat`` each layer's activations are recomputed in the backward pass
+    (``models/remat.py``): ``remat_policy="dots"`` keeps the weight
+    products, ``"minimal"`` keeps only the layer's input.  The JAX
+    ``scan_layers``, the TPU kernel's blocks (``flash_block_q`` /
+    ``flash_block_kv``) and the sharded cache's write (``cache_update``)
+    are left out: the port loops over its layers, its kernels pick their
+    own tiles, and its decode writes the cache in place (ROADMAP item 14).
     """
 
     name: str
@@ -58,6 +61,8 @@ class TransformerConfig:
     tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "dots"
     fused_qkv: bool = False
     quant_weights: bool = False
     quant_kv: bool = False
@@ -113,7 +118,8 @@ class ViTConfig:
     ``patch_embed`` is ``"reshape"`` (patchify, then a dense) or
     ``"conv"`` (a strided conv stem, the same product on a
     (patch, patch, C, d) kernel).  ``fused_qkv`` keeps one ``wqkv``
-    projection."""
+    projection.  ``remat`` recomputes each layer in the backward pass,
+    keeping its weight products (the JAX ``dots`` policy)."""
 
     name: str
     img_res: int
@@ -128,6 +134,7 @@ class ViTConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
     fused_qkv: bool = False
     # int8-resident encoder weights (per-output-channel scales); the
     # patch embed, position embedding and norms stay full precision
@@ -159,7 +166,8 @@ class DiTConfig:
     """Diffusion transformer (DiT) with adaLN-zero conditioning.
 
     Operates on a VAE latent grid: latent side = img_res // 8, 4 channels,
-    as in the DiT paper.  ``patch`` patchifies the latent grid.
+    as in the DiT paper.  ``patch`` patchifies the latent grid.  ``remat``
+    as for :class:`ViTConfig`.
     """
 
     name: str
@@ -175,6 +183,7 @@ class DiTConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
     family: str = "diffusion"
 
     @property
@@ -202,7 +211,8 @@ class DiTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """ViT-backbone anchor-free detector for the Tangram pipeline."""
+    """ViT-backbone anchor-free detector for the Tangram pipeline;
+    ``remat`` as for :class:`ViTConfig` (off, as in the JAX config)."""
 
     name: str
     canvas: int = 1024
@@ -213,6 +223,7 @@ class DetectorConfig:
     d_ff: int = 3072
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    remat: bool = False
     # int8-resident trunk weights (per-output-channel scales); the patch
     # embed, head and norms stay full precision
     quant_weights: bool = False
@@ -278,6 +289,26 @@ class EfficientNetConfig:
     @property
     def n_active_params(self) -> int:
         return self.n_params
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One workload cell: what step runs and at what sizes."""
+
+    name: str
+    kind: str               # train | prefill | decode | gen | cls | serve
+    seq_len: int = 0
+    global_batch: int = 0
+    img_res: int = 0
+    steps: int = 0          # diffusion sampler steps
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind in ("train", "cls")
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,16 +28,17 @@ def reduce_arch(model):
             model, n_layers=2, d_model=128, n_heads=4,
             n_kv_heads=2 if model.n_kv_heads < model.n_heads else 4,
             d_ff=256, vocab=512, head_dim=32, moe=moe,
-            param_dtype="float32", compute_dtype="float32")
+            param_dtype="float32", compute_dtype="float32", remat=False)
     if isinstance(model, ViTConfig):
         return dataclasses.replace(
             model, img_res=64, patch=16, n_layers=2, d_model=64, n_heads=4,
             d_ff=128, n_classes=16, param_dtype="float32",
-            compute_dtype="float32")
+            compute_dtype="float32", remat=False)
     if isinstance(model, DiTConfig):
         return dataclasses.replace(
             model, img_res=64, patch=2, n_layers=2, d_model=64, n_heads=4,
-            n_classes=16, param_dtype="float32", compute_dtype="float32")
+            n_classes=16, param_dtype="float32", compute_dtype="float32",
+            remat=False)
     if isinstance(model, EfficientNetConfig):
         return dataclasses.replace(
             model, img_res=64, width_mult=0.35, depth_mult=0.35,

@@ -5,8 +5,10 @@ implementation: ``"cuda"`` launches the hand-written kernel, ``"torch"``
 runs the plain version (``mha_reference`` / ``decode_reference``).  The
 default follows the device of ``q``, so a CUDA tensor always reaches the
 kernel and a CPU tensor (the tests) the plain version; ``impl="cuda"`` on
-a CPU tensor raises.  The JAX entries' ``block_*`` and ``interpret``
-arguments size and emulate the TPU kernel and have no counterpart here.
+a CPU tensor raises, and so does the kernel on inputs that require grad
+(it has no backward pass; ``launches.refuse_grad``).  The JAX entries'
+``block_*`` and ``interpret`` arguments size and emulate the TPU kernel
+and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels.attention.flash import (flash_attention_cuda,
                                                  flash_decode_cuda)
 from repro_torch.kernels.attention.ref import decode_reference, mha_reference
+from repro_torch.kernels.launches import refuse_grad
 
 IMPLS = ("cuda", "torch")
 
@@ -41,6 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     impl: Optional[str] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, Kv, D) -> context (B, Sq, H, D)."""
     if resolve_impl(impl, q) == "cuda":
+        refuse_grad("flash_attention", q, k, v)
         return flash_attention_cuda(q, k, v, causal=causal,
                                     segment_ids=segment_ids)
     return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids)
@@ -50,5 +54,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  pos: int, impl: Optional[str] = None) -> torch.Tensor:
     """q: (B, 1, H, D); k, v: (B, Smax, Kv, D); positions 0..pos."""
     if resolve_impl(impl, q) == "cuda":
+        refuse_grad("flash_decode", q, k, v)
         return flash_decode_cuda(q, k, v, pos)
     return decode_reference(q, k, v, pos)

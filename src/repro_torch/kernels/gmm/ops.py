@@ -4,7 +4,8 @@ Port of ``repro/kernels/gmm/ops.py``.  ``impl`` picks the implementation:
 ``"cuda"`` launches the hand-written kernel K5, ``"torch"`` runs the plain
 version.  The default follows the frame's device, so a CUDA tensor always
 reaches the kernel and a CPU tensor (the tests) the plain version;
-``impl="cuda"`` on a CPU tensor raises.
+``impl="cuda"`` on a CPU tensor raises, and so does the kernel on inputs
+that require grad (``launches.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.core.gmm import GMMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.gmm.gmm import STATE_KEYS, gmm_update_cuda
 from repro_torch.kernels.gmm.ref import gmm_update_reference
+from repro_torch.kernels.launches import refuse_grad
 
 IMPLS = ("cuda", "torch")
 
@@ -40,6 +42,7 @@ def gmm_update(state: dict, frame: torch.Tensor,
                ) -> Tuple[dict, torch.Tensor]:
     """One streaming update: (new state, foreground mask (H, W) bool)."""
     if resolve_impl(impl, frame) == "cuda":
+        refuse_grad("gmm_update", frame, *state.values())
         return gmm_update_cuda(state, frame, cfg)
     return gmm_update_reference(state, frame, cfg)
 

@@ -5,7 +5,8 @@ Port of ``repro/kernels/stitch/ops.py``.  ``impl`` picks
 the implementation: ``"cuda"`` launches the hand-written kernel,
 ``"torch"`` runs the plain version.  The default follows the tensor's
 device, so a CUDA tensor always reaches the kernel and a CPU tensor (the
-tests) the plain version; ``impl="cuda"`` on a CPU tensor raises.
+tests) the plain version; ``impl="cuda"`` on a CPU tensor raises, and so
+does a kernel on inputs that require grad (``launches.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import BatchPlan
+from repro_torch.kernels.launches import refuse_grad
 from repro_torch.kernels.stitch.fused_embed import (stitch_embed_cuda,
                                                     unstitch_decode_cuda)
 from repro_torch.kernels.stitch.ref import (stitch_embed_reference,
@@ -42,6 +44,7 @@ def stitch_canvases(patch_pixels: torch.Tensor, records: torch.Tensor,
                     ) -> torch.Tensor:
     """Assemble a batch of canvases from padded patch slots."""
     if resolve_impl(impl, patch_pixels) == "cuda":
+        refuse_grad("stitch", patch_pixels)
         return stitch_cuda(patch_pixels, records, m, n)
     return stitch_reference(patch_pixels, records, m, n)
 
@@ -51,6 +54,7 @@ def unstitch_patches(canvases: torch.Tensor, records: torch.Tensor,
                      impl: Optional[str] = None) -> torch.Tensor:
     """Inverse of :func:`stitch_canvases`: canvases -> padded patch slots."""
     if resolve_impl(impl, canvases) == "cuda":
+        refuse_grad("unstitch", canvases)
         return unstitch_cuda(canvases, records, num_patches, hmax, wmax)
     return unstitch_reference(canvases, records, num_patches, hmax, wmax)
 
@@ -61,6 +65,7 @@ def stitch_embed(patch_pixels: torch.Tensor, records: torch.Tensor,
     """Fused stitch -> patchify -> patch embed: slots to (B, seq, d)
     tokens without a canvas batch in device memory."""
     if resolve_impl(impl, patch_pixels) == "cuda":
+        refuse_grad("stitch_embed", patch_pixels, kernel, bias)
         return stitch_embed_cuda(patch_pixels, records, kernel, bias, m, n,
                                  patch)
     return stitch_embed_reference(patch_pixels, records, kernel, bias, m, n,
@@ -73,6 +78,7 @@ def unstitch_decode(raw: torch.Tensor, records: torch.Tensor, patch: int,
     """Fused head decode + placement gather: raw (B, s, s, 5) head outputs
     to per-slot (num_patches, s, s, 5) decoded grids."""
     if resolve_impl(impl, raw) == "cuda":
+        refuse_grad("unstitch_decode", raw)
         return unstitch_decode_cuda(raw, records, patch, num_patches)
     return unstitch_decode_reference(raw, records, patch, num_patches)
 

@@ -10,14 +10,19 @@ projections in, (d,) for ``wo``), dequantized in the compute dtype.  An
 int8 KV cache holds int8 ``k`` / ``v`` and float32 ``k_scale`` /
 ``v_scale`` per position and KV head.
 
-The causal ``attention`` and ``decode_attention`` always go through
-:mod:`repro_torch.kernels.attention.ops`: with ``impl=None`` a CUDA tensor
-launches the hand-written kernels (K6 in prefill, K7 in decode) and a CPU
-tensor runs their plain versions; ``impl="torch"`` asks for the plain
-versions on any device.  ``encoder_attention`` keeps the plain path by
-default (``impl="xla"``), as the JAX package does (its detector pins it);
-``impl="flash"`` takes K6, non-causal, and ``impl="torch"`` K6's plain
-version.
+``decode_attention`` always goes through
+:mod:`repro_torch.kernels.attention.ops`, and so does the causal
+``attention`` unless it is asked for one of the JAX package's training
+paths: with ``impl=None`` a CUDA tensor launches the hand-written kernels
+(K6 in prefill, K7 in decode) and a CPU tensor runs their plain versions;
+``impl="torch"`` asks for the plain versions on any device.  ``attention``
+also takes ``impl="xla"`` (plain scores, masked, a float32 softmax: the
+JAX package's default) and ``impl="chunked"`` (online softmax over KV
+chunks, so the S x S scores never exist at once): the training step's
+paths, which launch no kernel and carry gradients.
+``encoder_attention`` keeps the plain path by default (``impl="xla"``),
+as the JAX package does (its detector pins it); ``impl="flash"`` takes
+K6, non-causal, and ``impl="torch"`` K6's plain version.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.attention import ops as flash_ops
+from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.param import spec
 
 
@@ -116,20 +122,105 @@ def _out(params: dict, ctx: torch.Tensor,
                         weight(params["wo"], compute_dtype))
 
 
+def _inv_sqrt(d: int, device) -> torch.Tensor:
+    """1 / sqrt(D) in float32, as the JAX package takes it."""
+    return 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32,
+                                         device=device))
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                n_kv_heads: int) -> torch.Tensor:
+    """q (B, Sq, H, D), k (B, Skv, Kv, D) -> float32 scores (B, Kv, G, Sq,
+    Skv), scaled by 1 / sqrt(D)."""
+    b, sq, h, d = q.shape
+    qg = q.reshape(b, sq, n_kv_heads, h // n_kv_heads, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
+    return scores * _inv_sqrt(d, q.device)
+
+
+def _gqa_ctx(probs: torch.Tensor, v: torch.Tensor,
+             compute_dtype: torch.dtype) -> torch.Tensor:
+    """probs (B, Kv, G, Sq, Skv), v (B, Skv, Kv, D) -> ctx (B, Sq, H, D)."""
+    b, kv, g, sq, _ = probs.shape
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(compute_dtype), v)
+    return ctx.reshape(b, sq, kv * g, v.shape[-1])
+
+
+def _chunk_size(s: int) -> int:
+    """The chunked path's tile: at most 8 chunks a axis, at least 2048
+    positions, a divisor of ``s`` (the JAX package's ``_chunk_size``).  A
+    sequence of at most 2048 is one chunk: the reference's search for a
+    divisor from 2048 up never ends below 2048 (its plans take
+    ``"chunked"`` only from 2048)."""
+    if s <= 2048:
+        return s
+    c = max(2048, s // 8)
+    while s % c:
+        c += 1
+    return min(c, s)
+
+
+def _chunked_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    n_kv_heads: int) -> torch.Tensor:
+    """Causal online-softmax attention over KV chunks, the JAX package's
+    ``_chunked_causal``: per query chunk a running max ``m``, sum ``l``
+    and float32 accumulator over the KV chunks up to its end.  q (B, S, H,
+    D); k, v (B, S, Kv, D) -> ctx (B, S, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    g = h // n_kv_heads
+    c = _chunk_size(s)
+    scale = _inv_sqrt(d, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = []
+    for qs in range(0, s, c):
+        qg = q[:, qs:qs + c].reshape(b, c, n_kv_heads, g, d)
+        m = torch.full((b, n_kv_heads, g, c), NEG_INF, **f32)
+        l = torch.zeros((b, n_kv_heads, g, c), **f32)
+        acc = torch.zeros((b, c, n_kv_heads, g, d), **f32)
+        rows = qs + torch.arange(c, device=q.device)[:, None]
+        for ks in range(0, qs + c, c):
+            ke = min(ks + c, s)
+            sc = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                              k[:, ks:ke]).to(torch.float32) * scale
+            cols = ks + torch.arange(ke - ks, device=q.device)[None, :]
+            sc = torch.where((rows >= cols)[None, None, None], sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1)
+            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + torch.einsum(
+                "bhgqk,bkhd->bqhgd", p.to(q.dtype),
+                v[:, ks:ke]).to(torch.float32)
+            m = m_new
+        ctx = acc / l.permute(0, 3, 1, 2)[..., None]
+        out.append(ctx.reshape(b, c, h, d).to(q.dtype))
+    return torch.cat(out, dim=1)
+
+
 def attention(params: dict, x: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, rope_theta: float,
               compute_dtype: torch.dtype,
               positions: Optional[torch.Tensor] = None,
               impl: Optional[str] = None) -> torch.Tensor:
-    """Causal self-attention for prefill.  x: (B, S, d) -> (B, S, d); K6
-    on a CUDA tensor (``impl`` as in the module docstring)."""
+    """Causal self-attention for prefill and training.  x: (B, S, d) ->
+    (B, S, d); K6 on a CUDA tensor, or the ``"xla"`` / ``"chunked"``
+    paths (``impl`` as in the module docstring)."""
     _, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, x, n_kv_heads, compute_dtype)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    ctx = flash_ops.flash_attention(q, k, v, causal=True, impl=impl)
+    if impl == "chunked":
+        ctx = _chunked_causal(q, k, v, n_kv_heads)
+    elif impl == "xla":
+        scores = _gqa_scores(q, k, n_kv_heads)
+        idx = torch.arange(s, device=x.device)
+        causal = idx[:, None] >= idx[None, :]
+        scores = torch.where(causal[None, None, None], scores, NEG_INF)
+        ctx = _gqa_ctx(torch.softmax(scores, dim=-1), v, compute_dtype)
+    else:
+        ctx = flash_ops.flash_attention(q, k, v, causal=True, impl=impl)
     return _out(params, ctx, compute_dtype)
 
 

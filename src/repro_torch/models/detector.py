@@ -1,10 +1,12 @@
 """Anchor-free single-stage detector on a ViT trunk (the Tangram model).
 
-Port of the serving half of ``repro/models/detector.py``: a ViT trunk over
-the canvas (patch 32 -> a 32x32 grid at 1024^2) with a per-cell head
-predicting (objectness, cx, cy, w, h).  The trunk has no hand kernel: the
-reference runs it through XLA, the port through ``torch.matmul``/einsum
-(cuBLAS on the card) in the compute dtype.
+Port of ``repro/models/detector.py``: a ViT trunk over the canvas (patch
+32 -> a 32x32 grid at 1024^2) with a per-cell head predicting (objectness,
+cx, cy, w, h), and its training loss (grid-assigned targets, focal BCE on
+objectness, L1 on the box at positive cells).  The trunk has no hand
+kernel: the reference runs it through XLA with plain attention, the port
+through ``torch.matmul``/einsum (cuBLAS on the card) in the compute dtype,
+so the loss carries gradients.
 
 Parameters are nested dicts of tensors in the JAX package's layouts, with
 the stacked ``layers`` axis unstacked into a list (with ``quant_weights``
@@ -23,7 +25,7 @@ the JAX package's tree (as numpy arrays) instead.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +44,8 @@ def trunk_cfg(cfg: DetectorConfig) -> ViTConfig:
         name=f"{cfg.name}-trunk", img_res=cfg.canvas, patch=cfg.patch,
         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
         d_ff=cfg.d_ff, n_classes=1, param_dtype=cfg.param_dtype,
-        compute_dtype=cfg.compute_dtype, quant_weights=cfg.quant_weights)
+        compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+        quant_weights=cfg.quant_weights)
 
 
 # ------------------------------------------------------------ parameters ----
@@ -87,7 +90,8 @@ def init_params(cfg: DetectorConfig, generator: torch.Generator,
 
 
 def convert_params(tree: dict, cfg: DetectorConfig,
-                   device: torch.device) -> dict:
+                   device: torch.device,
+                   dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's detector parameters (nested dicts of arrays) ->
     the port's tree.  Stacked layers (``trunk.layers`` with a leading
     ``n_layers`` axis, ``scan_layers=True``) are unstacked into a list;
@@ -96,7 +100,8 @@ def convert_params(tree: dict, cfg: DetectorConfig,
     Leaves are cast to ``cfg.param_dtype``, but for the int8-quantised
     weights of a ``quant_weights`` tree (``{q, scale}``,
     ``{kernel_q, kernel_scale}``), which keep int8 values and float32
-    scales."""
+    scales. ``dtype``, when given, is every leaf's dtype instead (an
+    optimizer state's float32 moments, which have the parameters' tree)."""
     trunk = dict(tree["trunk"])
     # per-layer subtrees under trunk.layers, or beside it in the trunk
     if "layers" in trunk:
@@ -116,7 +121,7 @@ def convert_params(tree: dict, cfg: DetectorConfig,
                      for i in range(cfg.n_layers)]
     trunk["layers"] = per_layer
     out = {"trunk": trunk, "det_head": tree["det_head"]}
-    return convert_like(out, param_specs(cfg), device)
+    return convert_like(out, param_specs(cfg), device, dtype)
 
 
 def embed_params(cfg: DetectorConfig, params: dict
@@ -167,6 +172,74 @@ def decode_boxes(cfg: DetectorConfig, raw: torch.Tensor
     h = torch.exp(torch.clamp(r[..., 4], -6, 6)) * cell
     boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
     return obj, boxes
+
+
+def targets_from_boxes(cfg: DetectorConfig, boxes: torch.Tensor,
+                       valid: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grid-assign ground-truth boxes (B, K, 4) xyxy, valid mask (B, K).
+
+    Returns (obj_target (B, s, s), box_target (B, s, s, 4) = [dx, dy,
+    log w, log h]), float32, as the JAX package's ``.at[...]`` scatters
+    give them: a box's cell is its centre's, truncated toward zero and
+    clipped into the grid; ``obj`` takes the max of ``valid`` over the
+    boxes of a cell; ``box`` takes the last writer of a cell in (b, k)
+    order, invalid boxes included (their values are zeroed, so a padding
+    box after a real one in cell (0, 0) zeroes its target there while
+    ``obj`` keeps its 1).  The last writer is made explicit because
+    ``index_put_`` leaves the order of repeated indices undefined.
+    """
+    side = cfg.canvas // cfg.patch
+    cell = cfg.canvas / side
+    b, k, _ = boxes.shape
+    boxes = boxes.to(torch.float32)
+    cx = (boxes[..., 0] + boxes[..., 2]) / 2
+    cy = (boxes[..., 1] + boxes[..., 3]) / 2
+    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=1.0)
+    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=1.0)
+    gx = torch.clamp((cx / cell).to(torch.int32), 0, side - 1)
+    gy = torch.clamp((cy / cell).to(torch.int32), 0, side - 1)
+    valid32 = valid.to(torch.float32)
+    vals = torch.stack([cx / cell - gx, cy / cell - gy,
+                        torch.log(w / cell), torch.log(h / cell)], -1)
+    vals = vals * valid32[..., None]
+
+    bidx = torch.arange(b, device=boxes.device)[:, None]
+    flat = ((bidx * side + gy) * side + gx).reshape(-1).to(torch.int64)
+    n_cells = b * side * side
+    obj_t = torch.zeros(n_cells, dtype=torch.float32, device=boxes.device)
+    obj_t = obj_t.scatter_reduce(0, flat, valid32.reshape(-1), "amax")
+    order = torch.arange(b * k, device=boxes.device)
+    last = torch.full((n_cells,), -1, dtype=order.dtype,
+                      device=boxes.device)
+    last = last.scatter_reduce(0, flat, order, "amax")
+    winner = order == last[flat]
+    box_t = torch.zeros((n_cells, 4), dtype=torch.float32,
+                        device=boxes.device)
+    box_t[flat[winner]] = vals.reshape(-1, 4)[winner]
+    return (obj_t.reshape(b, side, side),
+            box_t.reshape(b, side, side, 4))
+
+
+def detection_loss(cfg: DetectorConfig, params: dict, batch: dict
+                   ) -> torch.Tensor:
+    """batch: {canvases (B, M, N, 3), boxes (B, K, 4), valid (B, K)} -> the
+    float32 loss: the mean focal BCE on objectness (weight (1 - p)^2 at
+    positive cells, p^2 elsewhere) plus the L1 on (sigmoid dx, sigmoid dy,
+    log w, log h) summed over positive cells over their count (at least
+    1), as the JAX package computes it."""
+    raw = forward(cfg, params, batch["canvases"]).to(torch.float32)
+    obj_t, box_t = targets_from_boxes(cfg, batch["boxes"], batch["valid"])
+    obj_logit = raw[..., 0]
+    p = layers.sigmoid(obj_logit)
+    bce = -(obj_t * layers.log_sigmoid(obj_logit)
+            + (1 - obj_t) * layers.log_sigmoid(-obj_logit))
+    focal = bce * torch.where(obj_t > 0, (1 - p) ** 2, p ** 2)
+    obj_loss = focal.mean()
+    pred = torch.cat([layers.sigmoid(raw[..., 1:3]), raw[..., 3:5]], -1)
+    l1 = torch.sum(torch.abs(pred - box_t), -1) * obj_t
+    box_loss = l1.sum() / torch.clamp(obj_t.sum(), min=1.0)
+    return obj_loss + box_loss
 
 
 @torch.inference_mode()

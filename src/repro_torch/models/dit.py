@@ -19,21 +19,22 @@ list:
 freshly drawn model predicts eps = 0.  The attention is
 ``attention.encoder_attention``: ``impl="xla"`` (the default, as in the
 JAX package) is plain attention, ``impl="flash"`` runs K6 non-causal on a
-CUDA tensor.  ``diffusion_loss`` is the forward loss only (training is
-ROADMAP item 13); ``ddim_sample`` runs its steps as a Python loop where
-the JAX package scans.
+CUDA tensor.  ``diffusion_loss`` carries gradients; with ``cfg.remat``
+each layer is recomputed in the backward pass, its weight products kept
+(``models/remat.py``).  ``ddim_sample`` runs its steps as a Python loop
+where the JAX package scans.
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from repro_torch.config import DiTConfig, dtype_of
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, remat
 from repro_torch.models.vit import unstack_layers
 from repro_torch.param import convert_like, spec
 from repro_torch.param import init_params as init_tree
@@ -85,13 +86,16 @@ def init_params(cfg: DiTConfig, generator: torch.Generator,
 
 
 def convert_params(tree: dict, cfg: DiTConfig,
-                   device: DeviceLike = None) -> dict:
+                   device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's DiT parameters (nested dicts of arrays) -> the
     port's tree on ``device``: the stacked layers unstacked into a list,
-    each leaf in its spec's dtype (bf16 keeps its bits)."""
+    each leaf in its spec's dtype (bf16 keeps its bits). ``dtype``, when
+    given, is every leaf's dtype instead (an optimizer state's float32
+    moments, which have the parameters' tree)."""
     out = dict(tree)
     out["layers"] = unstack_layers(tree["layers"], cfg.n_layers)
-    return convert_like(out, param_specs(cfg), device)
+    return convert_like(out, param_specs(cfg), device, dtype)
 
 
 # ------------------------------------------------------------ embeddings ----
@@ -125,6 +129,19 @@ def unpatchify_latent(x: torch.Tensor, patch: int, side: int,
 
 # ----------------------------------------------------------------- model ----
 
+def _block(cfg: DiTConfig, lp: dict, x: torch.Tensor, cond: torch.Tensor,
+           impl: str) -> torch.Tensor:
+    cdt = dtype_of(cfg.compute_dtype)
+    mod = layers.dense(lp["ada"], cond, cdt)                    # (B, 6d)
+    s1, sc1, g1, s2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+    h = layers.modulated_layernorm(x, s1, sc1, cfg.norm_eps, cdt)
+    h = attn.encoder_attention(lp["attn"], h, compute_dtype=cdt, impl=impl)
+    x = x + g1[:, None, :] * h
+    h = layers.modulated_layernorm(x, s2, sc2, cfg.norm_eps, cdt)
+    h = layers.gelu_mlp(lp["mlp"], h, cdt)
+    return x + g2[:, None, :] * h
+
+
 def forward(cfg: DiTConfig, params: dict, latents: torch.Tensor,
             t: torch.Tensor, labels: torch.Tensor, *,
             impl: str = "xla") -> torch.Tensor:
@@ -144,15 +161,7 @@ def forward(cfg: DiTConfig, params: dict, latents: torch.Tensor,
     cond = layers.silu(cond + table[ids].to(cdt))               # (B, d)
 
     for lp in params["layers"]:
-        mod = layers.dense(lp["ada"], cond, cdt)                # (B, 6d)
-        s1, sc1, g1, s2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
-        h = layers.modulated_layernorm(x, s1, sc1, cfg.norm_eps, cdt)
-        h = attn.encoder_attention(lp["attn"], h, compute_dtype=cdt,
-                                   impl=impl)
-        x = x + g1[:, None, :] * h
-        h = layers.modulated_layernorm(x, s2, sc2, cfg.norm_eps, cdt)
-        h = layers.gelu_mlp(lp["mlp"], h, cdt)
-        x = x + g2[:, None, :] * h
+        x = remat.run(_block, cfg, lp, x, cond, impl, remat=cfg.remat)
 
     sf, scf = torch.chunk(layers.dense(params["final_ada"], cond, cdt), 2,
                           dim=-1)
@@ -198,12 +207,11 @@ def ddim_timesteps(n_steps: int) -> List[int]:
         torch.int32)]
 
 
-@torch.inference_mode()
 def diffusion_loss(cfg: DiTConfig, params: dict, batch: dict, *,
                    impl: str = "xla") -> torch.Tensor:
     """batch: {latents (B, H, W, C) clean, t (B,) int, noise (B, H, W, C),
     labels (B,)} -> the float32 epsilon-prediction MSE at the given
-    timesteps.  Forward only."""
+    timesteps."""
     alphas = linear_alphas(device=batch["latents"].device)
     a = alphas[batch["t"].to(torch.int64)][:, None, None, None]
     x0 = batch["latents"].to(torch.float32)

@@ -13,12 +13,12 @@ False (PyTorch's default is True); bf16 configs are unaffected.
 Batch norm takes the batch's statistics with ``train=True`` and the
 running ones kept as parameters otherwise (the serve path).  The registry's
 ``efficientnet_b7`` detector reads :func:`count_params` for its weight
-economics.  ``cls_loss`` is the forward loss only; gradients come with
-training (ROADMAP item 13).
+economics.  ``cls_loss`` (batch statistics, as the JAX loss takes them)
+carries gradients; the kept statistics get none.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,11 +109,14 @@ def init_params(cfg: EfficientNetConfig, generator: torch.Generator,
 
 
 def convert_params(tree: dict, cfg: EfficientNetConfig,
-                   device: DeviceLike = None) -> dict:
+                   device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's parameters (nested dicts of arrays) -> the port's
     tree on ``device``, each leaf in its spec's dtype (the batch-norm
-    statistics float32, the rest ``cfg.param_dtype``)."""
-    return convert_like(tree, param_specs(cfg), device)
+    statistics float32, the rest ``cfg.param_dtype``). ``dtype``, when
+    given, is every leaf's dtype instead (an optimizer state's float32
+    moments, which have the parameters' tree)."""
+    return convert_like(tree, param_specs(cfg), device, dtype)
 
 
 # ------------------------------------------------------------------ ops -----
@@ -201,12 +204,11 @@ def forward(cfg: EfficientNetConfig, params: dict, images: torch.Tensor,
             + params["classifier"]["bias"].to(cdt))
 
 
-@torch.inference_mode()
 def cls_loss(cfg: EfficientNetConfig, params: dict, batch: dict
              ) -> torch.Tensor:
     """batch: {images (B, H, W, 3), labels (B,)} -> the float32 mean
     cross-entropy of the training-mode forward pass, labels clamped into
-    range.  Forward only."""
+    range."""
     lg = forward(cfg, params, batch["images"], train=True).to(torch.float32)
     labels = batch["labels"].to(torch.int64).clamp(0, cfg.n_classes - 1)
     gold = lg.gather(1, labels[:, None])[:, 0]

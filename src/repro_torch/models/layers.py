@@ -8,8 +8,12 @@ holds ``kernel_q`` (int8) and ``kernel_scale`` (float32, one per output
 channel) instead of ``kernel``, dequantized in the compute dtype.  Norm
 statistics accumulate in float32 whatever the compute dtype.  ``*_specs``
 build :class:`ParamSpec` subtrees with the JAX package's init rules.
+``chunked_softmax_xent`` is the LM's loss, taken over chunks of the
+sequence so that only one chunk's logits exist at a time.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -139,11 +143,35 @@ def embed_logits(params: dict, x: torch.Tensor,
     return x.to(compute_dtype) @ table.T
 
 
+class _Sigmoid(torch.autograd.Function):
+    """1 / (1 + exp(-x)) with ``lax.logistic``'s derivative, g * (s * (1 -
+    s)), taken from the output: differentiating the formula itself would
+    give inf / inf = nan where exp(-x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid``'s arithmetic op by op, 1 / (1 + exp(-x)), so
     bf16 rounds where the JAX package rounds (``torch.sigmoid`` rounds
-    once, and differs in the last bf16 bit on about a third of inputs)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    once, and differs in the last bf16 bit on about a third of inputs);
+    its gradient is the JAX package's too."""
+    return _Sigmoid.apply(x)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``, -softplus(-x) = min(x, 0) - log1p(exp(-|x|)),
+    with its gradient 1 - sigmoid(x) (``jnp.logaddexp``'s, 0.5 at 0)."""
+    return F.logsigmoid(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -164,3 +192,33 @@ def gelu_mlp(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
     # jax.nn.gelu(approximate=True) is the tanh approximation
     h = F.gelu(dense(params["fc1"], x, compute_dtype), approximate="tanh")
     return dense(params["fc2"], h, compute_dtype)
+
+
+def chunked_softmax_xent(logits_fn: Callable[[torch.Tensor], torch.Tensor],
+                         x: torch.Tensor, labels: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    """The mean negative log-likelihood over the sequence, in chunks of
+    ``chunk`` positions so that only one chunk's logits exist at a time.
+
+    ``logits_fn(h) -> (B, c, V)``; x: (B, S, d); labels: (B, S).  Each
+    chunk's logits are taken to float32; its loss is logsumexp minus the
+    gold logit, summed and added to the total chunk by chunk in order; the
+    total is divided by B * S.  The gold index is taken as the JAX
+    package's ``take_along_axis(mode="clip")`` takes it: a negative one
+    counts from the end, then it is clipped into [0, V - 1].
+    """
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        logits = logits_fn(x[:, i:i + chunk]).to(torch.float32)
+        v = logits.shape[-1]
+        gold_idx = labels[:, i:i + chunk].to(torch.int64)
+        gold_idx = torch.where(gold_idx < 0, gold_idx + v,
+                               gold_idx).clamp(0, v - 1)
+        gold = logits.gather(-1, gold_idx[..., None])[..., 0]
+        total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
+    return total / (b * s)

@@ -1,11 +1,13 @@
-"""Decoder-only LM (dense or MoE): prefill and KV-cache decode.
+"""Decoder-only LM (dense or MoE): the training loss, prefill and KV-cache
+decode.
 
-Port of the serving half of ``repro/models/transformer.py``:
+Port of ``repro/models/transformer.py``:
 
   param_specs(cfg)                           -> ParamSpec tree
   init_params(cfg, generator, device)        -> parameters
   convert_params(tree, cfg, device)          -> the JAX package's parameters
   forward(cfg, params, tokens)               -> (hidden (B, S, d), aux)
+  lm_loss(cfg, params, batch)                -> scalar float32 loss
   prefill(cfg, params, tokens)               -> (last logits, hidden)
   init_cache(cfg, batch, max_seq, device)    -> KV cache
   decode_step(cfg, params, tokens, cache, pos) -> (logits (B, 1, V), cache)
@@ -31,8 +33,11 @@ float32 scales.
 
 Every layer's attention goes through K6 in prefill and K7 in decode on a
 CUDA tensor (``impl=None``); ``impl="torch"`` runs their plain versions, and
-a CPU tensor always does.  There are no sharding rules (ROADMAP item 14);
-``lm_loss`` comes with the training slice (ROADMAP item 13).
+a CPU tensor always does.  ``lm_loss`` takes the JAX package's training
+paths, ``impl="xla"`` (its default) or ``"chunked"``, which launch no
+kernel; with ``cfg.remat`` each layer is recomputed in the backward pass
+(``models/remat.py``, ``cfg.remat_policy``).  There are no sharding rules
+(ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -44,10 +49,11 @@ import torch
 from repro_torch.config import TransformerConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, remat
 from repro_torch.param import convert_like, map_tree
 from repro_torch.param import init_params as _init_tree
 
+LOSS_CHUNK = 512
 
 # ----------------------------------------------------------------- specs ----
 
@@ -94,7 +100,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def convert_params(tree: dict, cfg: TransformerConfig,
-                   device: DeviceLike = None) -> dict:
+                   device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's LM parameters (nested dicts of arrays, e.g. via
     ``np.asarray``) -> the port's tree on ``device``.  A scanned tree
     (``scan_layers=True``: every leaf under ``"layers"`` has a leading
@@ -102,7 +109,8 @@ def convert_params(tree: dict, cfg: TransformerConfig,
     one is taken as it is.  Leaves are cast to ``cfg.param_dtype``, but for
     the int8-quantised weights of a ``quant_weights`` tree (``{q, scale}``,
     ``{kernel_q, kernel_scale}``), which keep int8 values and float32
-    scales."""
+    scales. ``dtype``, when given, is every leaf's dtype instead (an
+    optimizer state's float32 moments, which have the parameters' tree)."""
     device = resolve_device(device)
     out = dict(tree)
     stacked = out["layers"]
@@ -110,7 +118,7 @@ def convert_params(tree: dict, cfg: TransformerConfig,
         out["layers"] = {f"layer_{i}": map_tree(
             lambda a, i=i: np.asarray(a)[i], stacked)
             for i in range(cfg.n_layers)}
-    return convert_like(out, param_specs(cfg), device)
+    return convert_like(out, param_specs(cfg), device, dtype)
 
 
 # --------------------------------------------------------------- forward ----
@@ -149,8 +157,9 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
     x = layers.embed_lookup(params["embed"], tokens, cdt)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux = _layer(cfg, params["layers"][f"layer_{i}"], x, positions,
-                        impl)
+        x, aux = remat.run(_layer, cfg, params["layers"][f"layer_{i}"], x,
+                           positions, impl, remat=cfg.remat,
+                           policy=cfg.remat_policy)
         if aux is not None:
             aux_total = aux_total + aux
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps, cdt)
@@ -164,6 +173,17 @@ def logits(cfg: TransformerConfig, params: dict,
     if cfg.tie_embeddings:
         return layers.embed_logits(params["embed"], h, cdt)
     return layers.dense(params["lm_head"], h, cdt)
+
+
+def lm_loss(cfg: TransformerConfig, params: dict, batch: dict, *,
+            aux_weight: float = 0.01, impl: str = "xla") -> torch.Tensor:
+    """batch: {tokens (B, S), labels (B, S)} -> the float32 mean next-token
+    NLL (``layers.chunked_softmax_xent`` over ``LOSS_CHUNK`` positions)
+    plus ``aux_weight`` x the MoE load-balancing loss."""
+    h, aux = forward(cfg, params, batch["tokens"], impl=impl)
+    nll = layers.chunked_softmax_xent(
+        lambda hc: logits(cfg, params, hc), h, batch["labels"], LOSS_CHUNK)
+    return nll + aux_weight * aux
 
 
 def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,

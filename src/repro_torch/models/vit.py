@@ -18,8 +18,10 @@ loop):
 
 The encoder's attention is ``attention.encoder_attention``: ``impl="xla"``
 (the default, as in the JAX package) is plain attention, ``impl="flash"``
-runs K6 non-causal on a CUDA tensor.  ``cls_loss`` is the forward loss
-only; its gradients come with training (ROADMAP item 13).
+runs K6 non-causal on a CUDA tensor.  ``cls_loss`` carries gradients
+(its default ``impl="xla"`` launches no kernel); with ``cfg.remat`` each
+layer is recomputed in the backward pass, its weight products kept
+(``models/remat.py``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.config import ViTConfig, dtype_of
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, remat
 from repro_torch.param import convert_like, map_tree, spec
 from repro_torch.param import init_params as init_tree
 
@@ -98,14 +100,17 @@ def unstack_layers(stacked, n_layers: int) -> list:
 
 
 def convert_params(tree: dict, cfg: ViTConfig,
-                   device: DeviceLike = None) -> dict:
+                   device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's classifier parameters (nested dicts of arrays,
     e.g. via ``np.asarray``) -> the port's tree on ``device``: the stacked
     layers unstacked into a list, each leaf cast to its spec's dtype (bf16
-    keeps its bits)."""
+    keeps its bits). ``dtype``, when given, is every leaf's dtype instead
+    (an optimizer state's float32 moments, which have the parameters'
+    tree)."""
     out = dict(tree)
     out["layers"] = unstack_layers(tree["layers"], cfg.n_layers)
-    return convert_like(out, param_specs(cfg), device)
+    return convert_like(out, param_specs(cfg), device, dtype)
 
 
 # ---------------------------------------------------------------- forward ----
@@ -119,19 +124,25 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, h * w, patch * patch * c)
 
 
+def _block(cfg: ViTConfig, lp: dict, x: torch.Tensor,
+           impl: str) -> torch.Tensor:
+    cdt = dtype_of(cfg.compute_dtype)
+    h = layers.layernorm(lp["ln1"], x, cfg.norm_eps, cdt)
+    x = x + attn.encoder_attention(lp["attn"], h, compute_dtype=cdt,
+                                   impl=impl)
+    h = layers.layernorm(lp["ln2"], x, cfg.norm_eps, cdt)
+    return x + layers.gelu_mlp(lp["mlp"], h, cdt)
+
+
 def encoder(cfg: ViTConfig, params: dict, x: torch.Tensor,
             impl: str = "xla") -> torch.Tensor:
     """Pre-norm transformer blocks over ``params["layers"]``, then the
     final layernorm; ``impl`` as ``attention.encoder_attention`` takes
     it."""
-    cdt = dtype_of(cfg.compute_dtype)
     for lp in params["layers"]:
-        h = layers.layernorm(lp["ln1"], x, cfg.norm_eps, cdt)
-        x = x + attn.encoder_attention(lp["attn"], h, compute_dtype=cdt,
-                                       impl=impl)
-        h = layers.layernorm(lp["ln2"], x, cfg.norm_eps, cdt)
-        x = x + layers.gelu_mlp(lp["mlp"], h, cdt)
-    return layers.layernorm(params["ln_f"], x, cfg.norm_eps, cdt)
+        x = remat.run(_block, cfg, lp, x, impl, remat=cfg.remat)
+    return layers.layernorm(params["ln_f"], x, cfg.norm_eps,
+                            dtype_of(cfg.compute_dtype))
 
 
 def resize_grid(grid_pos: torch.Tensor, side: int) -> torch.Tensor:
@@ -205,12 +216,11 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (torch.logsumexp(lg, -1) - gold).mean()
 
 
-@torch.inference_mode()
 def cls_loss(cfg: ViTConfig, params: dict, batch: dict, *,
              impl: str = "xla") -> torch.Tensor:
     """batch: {images (B, H, W, C), labels (B,)} -> the float32 mean
     cross-entropy, labels clamped into range; DeiT averages its two
-    heads' losses.  Forward only."""
+    heads' losses."""
     logits, heads = forward(cfg, params, batch["images"], impl=impl)
     labels = batch["labels"].to(torch.int64).clamp(0, cfg.n_classes - 1)
     if heads is not None:

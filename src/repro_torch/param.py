@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,18 +55,21 @@ def from_numpy(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def convert_like(tree, specs, device: DeviceLike = None):
+def convert_like(tree, specs, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None):
     """A tree of numpy arrays (e.g. the JAX package's parameters through
     ``np.asarray``, its stacked layers already cut into per-layer
     subtrees) as tensors on ``device``, each leaf cast to the dtype of its
     spec in ``specs`` (a :func:`spec` tree of the same structure): the
     parameter dtype, or int8 values and float32 scales for an int8
-    weight; bf16 arrays keep their bits."""
+    weight; bf16 arrays keep their bits.  ``dtype``, when given, is every
+    leaf's dtype instead (an optimizer's float32 moments, which have the
+    parameters' tree)."""
     device = resolve_device(device)
 
     def walk(node, s):
         if isinstance(s, ParamSpec):
-            t = from_numpy(node, s.dtype, device)
+            t = from_numpy(node, dtype or s.dtype, device)
             if tuple(t.shape) != s.shape:
                 raise ValueError(f"leaf of shape {tuple(t.shape)} where the "
                                  f"spec has {s.shape}")
@@ -91,6 +94,36 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves of nested dicts and lists in ``jax.tree_util``'s order:
+    dict keys sorted, lists in order (the order of a checkpoint's leaves,
+    so either package restores the other's)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in sorted_leaves(v)]
+    return [tree]
+
+
+def replace_leaves(tree, new_leaves: Iterable):
+    """``tree`` with its leaves replaced, in :func:`sorted_leaves` order,
+    by ``new_leaves``."""
+    it = iter(new_leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {k: walk(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return next(it)
+
+    out = walk(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
 
 
 def count_params(specs) -> int:

@@ -26,19 +26,24 @@ from repro_torch.core.scheduler import TangramScheduler
 from repro_torch.core.workers import (device_worker_pool, make_placement,
                                       worker_device)
 from repro_torch.core.stitching import build_batch_plan, stitch
+from repro_torch.data import loader
 from repro_torch.kernels.attention import flash as flash_kernels
 from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.launches import LAUNCHES, reset_launches
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.stitch import fused_embed
 from repro_torch.kernels.stitch import ops
 from repro_torch.kernels.stitch import stitch as kernels
+from repro_torch.launch import train as train_lib
 from repro_torch.launch.serve import (build_detector, fused_fields,
                                       fused_kwargs)
 from repro_torch.models import transformer
 from repro_torch.models.quantize import quantize_params
-from repro_torch.param import map_tree
+from repro_torch.param import map_tree, replace_leaves, sorted_leaves
 from repro_torch.serverless.platform import Platform
 from repro_torch.sources import make_source
+from repro_torch.training import optimizer as opt
+from repro_torch.training.train_state import value_and_grad
 
 pytestmark = pytest.mark.cuda
 
@@ -1298,3 +1303,58 @@ def test_two_shards_on_two_streams_match_one_sequential_executor(cuda,
                 np.testing.assert_array_equal(a, b)
         seq.on_complete(comp)
     assert len(seq.frames) == 0
+
+
+def test_k6_refuses_inputs_that_require_grad(cuda):
+    """K6 has no backward pass: on inputs that require grad the dispatcher
+    raises instead of returning an output without a gradient; under
+    ``torch.no_grad`` it launches."""
+    q = torch.randn(1, 128, 4, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="flash_attention.*no backward"):
+        attn_ops.flash_attention(q, k, k, causal=True)
+    with torch.no_grad():
+        assert attn_ops.flash_attention(q, k, k, causal=True).shape == q.shape
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of the reduced detector (canvas 256, float32, B=4
+    from the port's loader) on the card and on the CPU, TF32 off: the
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    max-abs, the parameters after AdamW on the CPU's gradients within
+    1e-5 (on each side's own gradients AdamW's first step, lr x g / (|g|
+    + eps), turns the rounding of elements near eps into differences up
+    to lr); no kernel launched."""
+    cfg = train_lib.reduced_config(get("tangram-detector"))
+    batch = next(loader.detector_batches(cfg.canvas, 4))
+    opt_cfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    loss_fn = train_lib.loss_fn(cfg)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        reset_launches()
+        for dev in (torch.device("cpu"), cuda):
+            params = train_lib.init_params(cfg, 0, torch.device("cpu"))
+            params = map_tree(lambda t: t.to(dev), params)
+            loss, grads = value_and_grad(loss_fn, params,
+                                         train_lib.to_device(batch, dev))
+            grads = [g.cpu() for g in sorted_leaves(grads)]
+            cpu_grads = out["cpu"][1] if out else grads
+            new, _, _ = opt.update(opt_cfg, replace_leaves(params, [
+                g.to(dev) for g in cpu_grads]), opt.init(params), params)
+            out[dev.type] = (loss.cpu(), grads,
+                             [p.cpu() for p in sorted_leaves(new)])
+        assert not any(LAUNCHES.values()), LAUNCHES
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=0)
+    for tol, got, want in [(1e-4, gg, gc), (1e-5, pg, pc)]:
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol * float(
+                w.abs().max().clamp(min=1e-30))

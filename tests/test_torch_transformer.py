@@ -81,7 +81,8 @@ def _close(got, want, dtype):
 
 def _read_fields(jcfg, tcfg):
     """The JAX config's fields that the port's config has (the port leaves
-    out the training, TPU-block and sharded-cache fields it never reads)."""
+    out ``scan_layers`` and the TPU-block and sharded-cache fields it never
+    reads)."""
     t = dataclasses.asdict(tcfg)
     return {k: v for k, v in dataclasses.asdict(jcfg).items() if k in t}, t
 
@@ -93,8 +94,7 @@ def test_reduced_and_full_configs_match_the_reference():
     j, t = _read_fields(full_j, full_t)
     assert t == j
     assert set(dataclasses.asdict(full_j)) - set(t) == {
-        "remat", "remat_policy", "scan_layers", "cache_update",
-        "flash_block_q", "flash_block_kv"}
+        "scan_layers", "cache_update", "flash_block_q", "flash_block_kv"}
     assert full_t.n_params == full_j.n_params
     assert tparam.count_params(ttr.param_specs(full_t)) == \
         jparam.count_params(jtr.param_specs(full_j))
