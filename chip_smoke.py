@@ -208,11 +208,32 @@ Phases (any failure raises, so the exit code is non-zero):
    loss falls); one step with remat on (the loss bit-equal to remat off,
    deterministic algorithms on; its peak memory); no K1-K7 launch in the
    whole phase, and K6 refusing inputs that require grad;
+11. the mesh (no kernel of its own; K1-K5 on its serve path): (a) the
+   2048x1024 trace through the full-width ``tangram`` detector at SLO
+   5.0 s on the card's serve mesh (``make_serve_mesh()``: data=1) and on
+   a data=2 mesh laid over the card twice, unfused, then fused on the
+   data=2 mesh; require equal boundaries and bit-equal evidence, the
+   data=2 heads and detections within phase 5b's bf16 limits of the
+   data=1 run's (the half batches may tile their GEMMs otherwise),
+   ``n_sharded`` 0 at data=1, every invocation at data=2 and 0 fused,
+   K1/K2 (K4/K3) launched; print the summary lines; (b) plan and count
+   ``tangram-detector``'s ``serve_c1`` and ``serve_c8`` on the unit mesh
+   (``api.plan_cell``, ``dryrun.run_cell``) and run the same steps on the
+   card from seeded weights: ``FlopCounterMode``'s FLOPs and the
+   argument bytes must equal the dry run's; print ``t_compute`` beside
+   the CUDA-graph device time, ``hbm_estimate`` beside the step's own
+   peak memory (the peak less what was live before the step, plus the
+   arguments) and the data sheet's memory beside the card's; (c)
+   meanwhile, in one worker process a host CPU, ``dryrun --all --mesh
+   production --quick`` with every model cut to ``DRYRUN_DEPTH`` layers
+   (``dryrun.cut_depth``: widths, microbatches and sampler steps as the
+   cells have them; the full depth is the CLI's): all 40 cells must
+   plan and count (rows in ``build/dryrun_production.json``);
 9. print one JSON line of kernels (K1-K7, the K4/K3 rows of phase 5f's
    models, named ``kernel[model]``, phase 8c's ``K6[vit-b16]`` and
    ``K6[dit-xl2]`` and phase 8d's ``K6[deepseek-moe-16b]`` and
    ``K7[deepseek-moe-16b]``; ``launches_by_path`` has phase 10's
-   ``train`` counts, all 0) and, last,
+   ``train`` counts, all 0, and phase 11's serve runs) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -251,8 +272,8 @@ from repro_torch.core import partitioning  # noqa: E402
 from repro_torch.core import sequence_packing  # noqa: E402
 from repro_torch.core.config import ServeConfig  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
-    InvokerPool, ModelRuntime, ServingEngine, make_executor, slo_class,
-    uniform_pool)
+    InvokerPool, ModelRuntime, ServingEngine, data_devices, make_executor,
+    slo_class, uniform_pool)
 from repro_torch.core.invoker import SLOAwareInvoker  # noqa: E402
 from repro_torch.core.models import make_model, register_model  # noqa: E402
 from repro_torch.core.partitioning import Patch  # noqa: E402
@@ -262,7 +283,7 @@ from repro_torch.core.stitching import build_batch_plan, stitch  # noqa: E402
 from repro_torch.core.fleet import fleet_uniform_pool  # noqa: E402
 from repro_torch.core.workers import (  # noqa: E402
     WorkerPoolExecutor, device_worker_pool, make_placement,
-    share_frame_store, weight_caches, worker_device)
+    share_frame_store, weight_caches)
 from repro_torch.configs import tangram_detector  # noqa: E402
 from repro_torch.data import loader  # noqa: E402
 from repro_torch.data.synthetic import Scene, preset  # noqa: E402
@@ -278,6 +299,8 @@ from repro_torch.kernels.stitch import fused_embed  # noqa: E402
 from repro_torch.kernels.stitch import ops as stitch_ops  # noqa: E402
 from repro_torch.kernels.stitch import stitch as stitch_kernels  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_serve_mesh, make_worker_meshes)
 from repro_torch.launch.serve import (  # noqa: E402
     build_source, detail_lines, fused_fields, fused_kwargs, profile,
     shard_lines, shard_stream, sharded_engine, summary_line)
@@ -471,6 +494,15 @@ TRAIN_FULL_OPT = opt_lib.OptimizerConfig(lr=5e-4, warmup_steps=2,
                                          total_steps=TRAIN_FIXED_STEPS)
 TRAIN_TOL = {"loss": 1e-5, "grads": 1e-4, "params": 1e-5}
 TRAIN_IMPL_TOL = 1e-4             # "xla" vs "chunked" on the card
+
+# Phase 11: the mesh.  One card, so the data-parallel split runs on a
+# data=2 serve mesh laid over the card twice; the dry run's cells count,
+# at DRYRUN_DEPTH layers, in one worker process a host CPU while (a) and
+# (b) run.
+DP_DATA = 2
+DRYRUN_CELLS = ("serve_c1", "serve_c8")
+DRYRUN_SEED = 24
+DRYRUN_DEPTH = 2
 
 
 def log(msg: str) -> None:
@@ -1165,10 +1197,11 @@ def calibrate_head(build, arrivals, frames, device) -> None:
 
 
 def serve_run(name: str, impl, build, table, source_fn, device,
-              fuse: bool = False):
+              fuse: bool = False, mesh=None):
     """One full serve of the source ``source_fn(executor)`` builds; returns
     what the run routed, its arrivals, and the detector head outputs of
-    every invocation ((obj, boxes) unfused, the raw head fused)."""
+    every call of the trunk ((obj, boxes) unfused, the raw head fused:
+    one an invocation, or one a ``data`` chunk on a serve ``mesh``)."""
     cfg, params, serve_fn = build
     config = ServeConfig(max_canvases=4, executor=name, fuse=fuse)
     heads = []
@@ -1190,7 +1223,8 @@ def serve_run(name: str, impl, build, table, source_fn, device,
         fused["tokens_fn"] = recording_tokens_fn
     ex = make_executor(name, serve_fn=recording_serve_fn, params=params,
                        canvas_m=CANVAS, canvas_n=CANVAS, device=device,
-                       impl=impl, max_inflight=config.max_inflight, **fused)
+                       impl=impl, max_inflight=config.max_inflight,
+                       mesh=mesh, **fused)
     outputs = {}        # id(invocation) -> (per-frame dets, pixels)
     release = ex.on_complete
 
@@ -1218,8 +1252,9 @@ def serve_run(name: str, impl, build, table, source_fn, device,
             routed.setdefault(fid, []).extend(dets)
         for fid, px in per_frame_pixels.items():
             pixels.setdefault(fid, []).extend(px)
+    n_data = mesh.shape["data"] if mesh is not None else 1
     log(f"  [{name}, {impl or 'kernels'}] "
-        + summary_line(engine, ex, source.stats(), config, wall))
+        + summary_line(engine, ex, source.stats(), config, wall, n_data))
     heads = [tuple(t.float().cpu().numpy() for t in h) for h in heads]
     obj = [1 / (1 + np.exp(-h[0][..., 0])) if fuse else h[0]
            for h in heads]
@@ -1233,7 +1268,8 @@ def serve_run(name: str, impl, build, table, source_fn, device,
               for inv in engine.invocations]
     return {"routed": routed, "pixels": pixels, "launches": launches,
             "bounds": bounds, "invocations": engine.invocations,
-            "heads": heads, "arrivals": source.arrivals}
+            "heads": heads, "arrivals": source.arrivals,
+            "n_sharded": ex.n_sharded}
 
 
 def margin_filter(per_frame, threshold=0.5, margin=1e-3):
@@ -1684,9 +1720,9 @@ def recording_runtime(build, heads: list, fuse: bool) -> ModelRuntime:
     return ModelRuntime(serve, params, CANVAS, CANVAS, **fields)
 
 
-def model_executor(name, impl, runtimes, fuse, device, record):
+def model_executor(name, impl, runtimes, fuse, device, record, mesh=None):
     """A device executor over the models' runtimes (tangram's the default
-    one), instrumented: ``record["invs"]`` gets each invocation as it
+    one), on ``mesh`` when given (a worker's slice), instrumented: ``record["invs"]`` gets each invocation as it
     launches, ``record["by_model"]`` the launches it made, and
     ``record["outputs"]`` what each completion routed."""
     rt = runtimes["tangram"]
@@ -1697,7 +1733,8 @@ def model_executor(name, impl, runtimes, fuse, device, record):
                      patch=rt.patch)
     ex = make_executor(name, serve_fn=rt.serve_fn, params=rt.params,
                        canvas_m=CANVAS, canvas_n=CANVAS, device=device,
-                       impl=impl, models=runtimes, max_inflight=4, **fused)
+                       impl=impl, models=runtimes, max_inflight=4,
+                       mesh=mesh, **fused)
     launch, release = ex._launch, ex.on_complete
 
     def counted(inv):
@@ -1785,8 +1822,8 @@ def models_serve(impl, builds, tables, arrivals, frames, device, fuse):
 
 def pool_serve(builds, tables, arrivals, frames, device, fuse):
     """``TangramScheduler`` over a two-worker model-placement pool of
-    async executors (worker i on ``worker_device(i)``: one card, both on
-    it), online latency tables seeded with the profiled ones, and weight
+    async executors (worker i on its serve mesh of ``make_worker_meshes``:
+    one card, both on it), online latency tables seeded with the profiled ones, and weight
     caches sized to the largest model, as the serve driver sizes them."""
     config = ServeConfig(max_canvases=4, model_map=MODEL_MAP,
                          classify="slo", n_workers=2, placement="model",
@@ -1799,10 +1836,12 @@ def pool_serve(builds, tables, arrivals, frames, device, fuse):
     heads, record = [], {"by_model": {}, "invs": [], "outputs": {}}
     runtimes = {n: recording_runtime(b, heads, fuse)
                 for n, b in builds.items()}
+    meshes = make_worker_meshes(config.n_workers)
     pool = device_worker_pool(
         config.n_workers,
         lambda i: model_executor("async_device", None, runtimes, fuse,
-                                 worker_device(i, device), record),
+                                 data_devices(meshes[i])[0], record,
+                                 mesh=meshes[i]),
         placement=make_placement(config.placement), weight_caches=caches)
     sched = TangramScheduler(CANVAS, CANVAS, tables["tangram"],
                              Platform(tables["tangram"], PlatformConfig()),
@@ -1979,8 +2018,10 @@ def shard_runtime(build, rec: dict, fuse: bool, device) -> ModelRuntime:
     return rt
 
 
-def shard_executor(rt: ModelRuntime, impl, fuse, device, stream, rec):
-    """A sync executor over ``rt`` (on ``stream``), instrumented:
+def shard_executor(rt: ModelRuntime, impl, fuse, device, stream, rec,
+                   mesh=None):
+    """A sync executor over ``rt`` (on ``stream``, on ``mesh`` when given),
+    instrumented:
     ``rec["invs"]`` gets each invocation as it launches, ``rec["outputs"]``
     what each completion routed."""
     fused = {}
@@ -1990,7 +2031,7 @@ def shard_executor(rt: ModelRuntime, impl, fuse, device, stream, rec):
                      patch=rt.patch)
     ex = make_executor("device", serve_fn=rt.serve_fn, params=rt.params,
                        canvas_m=CANVAS, canvas_n=CANVAS, device=device,
-                       impl=impl, stream=stream, **fused)
+                       impl=impl, stream=stream, mesh=mesh, **fused)
     launch, release = ex._launch, ex.on_complete
 
     def recorded(inv):
@@ -2025,21 +2066,21 @@ def sharded_serve(build, table, arrivals, frames, device, fuse: bool,
                   parallel: bool) -> dict:
     """The trace through the serve driver's ``--shards 2`` objects
     (``--parallel`` with ``parallel``): one kernel executor a shard on
-    ``worker_device(i)`` and its own stream from ``shard_stream``, one
+    its serve mesh of ``make_worker_meshes`` and its own stream from ``shard_stream``, one
     shared frame store, ``sharded_engine`` over fleet invoker pools on
     the profiled table, the virtual clock."""
     config = ServeConfig(max_canvases=4, executor="device", fuse=fuse,
                          shards=SHARDS, parallel=parallel)
     recs = [new_record() for _ in range(SHARDS)]
     streams, executors = [], []
-    for s in range(SHARDS):
-        dev = worker_device(s, device)
+    for s, mesh in enumerate(make_worker_meshes(SHARDS)):
+        dev = data_devices(mesh)[0]
         if dev.type != device.type:
             raise AssertionError(f"shard {s} on {dev}, not on {device}")
         streams.append(shard_stream(dev))
         rt = shard_runtime(build, recs[s], fuse, dev)
         executors.append(shard_executor(rt, None, fuse, dev, streams[s],
-                                        recs[s]))
+                                        recs[s], mesh=mesh))
     share_frame_store(executors)
     for fid, (rgb, n) in frames.items():
         executors[0].add_frame(fid, rgb, n)
@@ -4477,6 +4518,196 @@ def train_phase(device, by_path: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 11 ----
+
+def dryrun_production() -> tuple:
+    """Phase 11(c): ``dryrun --all --mesh production --quick`` through the
+    dry run's own job runner, every model cut to ``DRYRUN_DEPTH`` layers,
+    its cells counted in worker processes (one a host CPU; each starts its
+    own fake process group and touches no card's memory).  Returns (rows,
+    failures, seconds); the rows also go to
+    ``build/dryrun_production.json``."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    jobs = [(arch, shape.name, "production", False, "16x16", True,
+             DRYRUN_DEPTH)
+            for arch, shape in configs.all_cells()]
+    rows, failures = dryrun.run_jobs(jobs)
+    out = ROOT / "build" / "dryrun_production.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"results": rows, "failures": failures},
+                              indent=1))
+    return rows, failures, time.perf_counter() - t0
+
+
+def chunk_heads(run: dict) -> list:
+    """A data-parallel run's heads, one an invocation: its ``data``
+    chunks' (obj, boxes) joined, the padded rows dropped."""
+    heads, i = [], 0
+    for inv in run["invocations"]:
+        n = len(inv.canvases)
+        parts = run["heads"][i:i + DP_DATA]
+        i += DP_DATA
+        heads.append(tuple(np.concatenate([p[j] for p in parts])[:n]
+                           for j in range(2)))
+    if i != len(run["heads"]):
+        raise AssertionError(f"{len(run['heads'])} trunk calls for "
+                             f"{len(run['invocations'])} invocations of "
+                             f"{DP_DATA} chunks")
+    return heads
+
+
+def same_data_parallel(one: dict, two: dict) -> None:
+    """Phase 11(a)'s check: the data=2 run serves what the data=1 run
+    serves.  Bit-equal boundaries and evidence (K1/K2 run on the whole
+    batch either way); the trunk runs on half batches, where cuBLAS may
+    pick other tiles, so heads are reported bit-equal or held to phase
+    5b's bf16 limits, and routed detections paired within them."""
+    same_bounds_and_evidence(one, two, "data=2 vs data=1")
+    split = chunk_heads(two)
+    exact = all(np.array_equal(x, y) for ha, hb in zip(one["heads"], split)
+                for x, y in zip(ha, hb))
+    d_obj = max(float(np.abs(a[0] - b[0]).max())
+                for a, b in zip(one["heads"], split))
+    d_box = max(float(np.abs(a[1] - b[1]).max())
+                for a, b in zip(one["heads"], split))
+    if d_obj > SCORE_TOL or d_box > BOX_TOL:
+        raise AssertionError(f"data=2 vs data=1: heads differ by obj "
+                             f"{d_obj}, box {d_box} px")
+    ra, rb = margin_filter(one["routed"]), margin_filter(two["routed"])
+    for a, b, what in ((ra, rb, "data=1"), (rb, ra, "data=2")):
+        matched, excused, bad = match_detections(a, b, SCORE_TOL, BOX_TOL)
+        if bad:
+            raise AssertionError(f"data=2 vs data=1: {len(bad)} {what} "
+                                 f"detections unpaired: {bad[:3]}")
+    n = sum(len(v) for v in ra.values())
+    log(f"  data=2 vs data=1: {len(one['bounds'])} invocations, {n} routed "
+        f"detections paired both ways, evidence bit-equal, heads "
+        f"{'bit-equal' if exact else f'within obj {d_obj:.3g}, box {d_box:.3g} px'}")
+
+
+def data_parallel_phase(device, by_path: dict) -> None:
+    """Phase 11(a): the 2048x1024 trace through the full-width detector on
+    the serve mesh of the card (data=1), on a data=2 mesh laid over the
+    card twice, and fused on the data=2 mesh."""
+    build = make_model("tangram").build(reduced=False, device=device)
+    arrivals, frames, _ = make_trace(device, n_frames=24, slo=5.0)
+    calibrate_head(build, arrivals, frames, device)
+    one = make_serve_mesh()
+    two = make_serve_mesh(devices=[device] * DP_DATA)
+    log(f"  serve meshes: data={one.shape['data']} over "
+        f"{list(one.devices[:, 0])}, data={two.shape['data']} over "
+        f"{list(two.devices[:, 0])}")
+    table = profile(build[2], build[1], CANVAS, CANVAS, device, mesh=one)
+    source_fn = trace_source(arrivals, frames)
+    runs = {}
+    for key, mesh, fuse, kernels in (
+            ("dp1_unfused", one, False, UNFUSED),
+            ("dp2_unfused", two, False, UNFUSED),
+            ("dp2_fused", two, True, FUSED)):
+        run = serve_run("device", None, build, table, source_fn, device,
+                        fuse=fuse, mesh=mesh)
+        check_launches(run, kernels, key)
+        by_path[key] = run["launches"]
+        runs[key] = run
+    one_run, two_run = runs["dp1_unfused"], runs["dp2_unfused"]
+    n_inv = len(two_run["invocations"])
+    if one_run["n_sharded"] != 0 or two_run["n_sharded"] != n_inv:
+        raise AssertionError(f"n_sharded {one_run['n_sharded']} at data=1, "
+                             f"{two_run['n_sharded']} of {n_inv} at data=2")
+    if runs["dp2_fused"]["n_sharded"] != 0:
+        raise AssertionError("the fused path split a batch")
+    if not margin_filter(one_run["routed"]):
+        raise AssertionError("data=1: no detections routed")
+    same_data_parallel(one_run, two_run)
+    same_bounds_and_evidence(runs["dp2_fused"], one_run,
+                             "fused data=2 vs unfused data=1")
+    del build, frames, arrivals, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_vs_card(device, card: str) -> None:
+    """Phase 11(b): the detector's serve cells planned and counted on the
+    unit mesh (``api.plan_cell`` + ``dryrun.run_cell``), then the same
+    step run on the card at the same shapes from weights drawn from a
+    seed: FLOPs (``FlopCounterMode`` over the real run) and argument
+    bytes equal; the roofline compute time beside the measured CUDA-graph
+    time, the memory estimate beside the peak, the data sheet's memory
+    beside the card's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import api
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_unit_mesh
+    from repro_torch.sharding import ShardingConfig
+    spec = configs.arch_spec("tangram-detector")
+    mesh = make_unit_mesh()
+    total = torch.cuda.get_device_properties(0).total_memory
+    for shape in (s for s in spec.shapes if s.name in DRYRUN_CELLS):
+        terms, run_s, fits = dryrun.run_cell("tangram-detector", shape,
+                                             mesh, "1x1", H100, quick=True)
+        plan = api.plan_cell(spec.model, shape, mesh,
+                             ShardingConfig.make().rules)
+        gen = torch.Generator(device=device).manual_seed(DRYRUN_SEED)
+        params = param.init_params(api.param_specs(spec.model), gen, device)
+        x = torch.rand((shape.global_batch, CANVAS, CANVAS, 3),
+                       generator=gen, device=device)
+        plan.step_fn(params, x)
+        torch.cuda.synchronize()
+        # the step's own peak: what earlier phases left live is not its
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            out = plan.step_fn(params, x)
+        torch.cuda.synchronize()
+        flops, args = fc.get_total_flops(), hlo_analysis.local_bytes(
+            (params, x))
+        peak = torch.cuda.max_memory_allocated() - live + args
+        if flops != terms.flops_per_device or args != terms.arg_bytes:
+            raise AssertionError(
+                f"{shape.name}: dry run flops {terms.flops_per_device} / "
+                f"arg bytes {terms.arg_bytes}, the card's run {flops} / "
+                f"{args}")
+        if any(not torch.isfinite(t).all() for t in out):
+            raise AssertionError(f"{shape.name}: non-finite outputs")
+        ms = graph_ms(lambda: plan.step_fn(params, x), iters=5)
+        log(f"  {shape.name} on {card}: flops {flops:.6e} and arg bytes "
+            f"{args} equal the dry run's ({run_s:.2f}s to plan and "
+            f"count); t_compute {terms.t_compute * 1e3:.4f} ms vs "
+            f"CUDA-graph device time {ms:.4f} ms (roofline fraction "
+            f"{terms.t_compute * 1e3 / ms:.4f}); hbm_estimate "
+            f"{terms.hbm_estimate / 2**30:.3f} GiB vs the step's peak "
+            f"{peak / 2**30:.3f} GiB (max_memory_allocated less the "
+            f"{live / 2**30:.3f} GiB live before it, plus the arguments); "
+            f"HardwareConfig.hbm_bytes {H100.hbm_bytes / 2**30:.2f} GiB vs "
+            f"total_memory {total / 2**30:.2f} GiB")
+        del params, x, out
+        torch.cuda.empty_cache()
+
+
+def mesh_phase(device, by_path: dict, card: str) -> None:
+    """Phase 11: the production dry run starts in a thread (its cells in
+    worker processes), (a) and (b) run meanwhile, then (c) is read."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        full = pool.submit(dryrun_production)
+        log(f"phase 11a: the data-parallel canvas batch at full width: "
+            f"data=1 and data={DP_DATA} (the card twice), unfused and fused")
+        data_parallel_phase(device, by_path)
+        log("phase 11b: the dry run against the card, tangram-detector "
+            f"{' and '.join(DRYRUN_CELLS)} on the unit mesh")
+        dryrun_vs_card(device, card)
+        rows, failures, seconds = full.result()
+    log(f"phase 11c: dryrun --all --mesh production --quick, every model "
+        f"cut to {DRYRUN_DEPTH} layers: {len(rows)} cells OK, "
+        f"{len(failures)} failed in {seconds:.1f}s "
+        f"({len(os.sched_getaffinity(0))} worker processes; rows in "
+        f"build/dryrun_production.json)")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures or len(rows) != 40:
+        raise AssertionError(f"dry run: {len(failures)} cells failed")
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -4692,6 +4923,9 @@ def main() -> None:
     log(f"phase 10: training (no hand kernel): a train step card vs CPU at "
         f"reduced width, then {TRAIN_SHAPE} at full width")
     train_phase(device, by_path)
+    t11 = time.perf_counter()
+    mesh_phase(device, by_path, card)
+    log(f"phase 11: {time.perf_counter() - t11:.1f}s")
     for row in rows:
         if "launches_by_path" not in row:      # phase 5f's rows have theirs
             row["launches_by_path"] = {path: counts[row["name"]]

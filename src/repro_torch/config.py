@@ -44,7 +44,8 @@ class TransformerConfig:
     ``scan_layers``, the TPU kernel's blocks (``flash_block_q`` /
     ``flash_block_kv``) and the sharded cache's write (``cache_update``)
     are left out: the port loops over its layers, its kernels pick their
-    own tiles, and its decode writes the cache in place (ROADMAP item 14).
+    own tiles, and its decode writes the cache in place (the masked write
+    of a sequence-sharded cache is ROADMAP item 17).
     """
 
     name: str
@@ -240,6 +241,10 @@ class DetectorConfig:
         return (self.n_layers * per_layer + 3 * self.patch**2 * d + d * 5
                 + self.n_tokens * d)
 
+    @property
+    def n_active_params(self) -> int:
+        return self.n_params
+
 
 @dataclasses.dataclass(frozen=True)
 class EfficientNetConfig:
@@ -309,6 +314,41 @@ class ShapeConfig:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+LM_SHAPES = (
+    ShapeConfig("train_4k", "train", seq_len=4096, global_batch=256),
+    ShapeConfig("prefill_32k", "prefill", seq_len=32_768, global_batch=32),
+    ShapeConfig("decode_32k", "decode", seq_len=32_768, global_batch=128),
+    ShapeConfig("long_500k", "decode", seq_len=524_288, global_batch=1),
+)
+
+DIFFUSION_SHAPES = (
+    ShapeConfig("train_256", "train", img_res=256, global_batch=256,
+                steps=1000),
+    ShapeConfig("gen_1024", "gen", img_res=1024, global_batch=4, steps=50),
+    ShapeConfig("gen_fast", "gen", img_res=512, global_batch=16, steps=4),
+    ShapeConfig("train_1024", "train", img_res=1024, global_batch=32,
+                steps=1000),
+)
+
+VISION_SHAPES = (
+    ShapeConfig("cls_224", "cls", img_res=224, global_batch=256),
+    ShapeConfig("cls_384", "cls", img_res=384, global_batch=64),
+    ShapeConfig("serve_b1", "serve", img_res=224, global_batch=1),
+    ShapeConfig("serve_b128", "serve", img_res=224, global_batch=128),
+)
+
+
+def shapes_for(model_cfg) -> Tuple[ShapeConfig, ...]:
+    fam = model_cfg.family
+    if fam == "lm":
+        return LM_SHAPES
+    if fam == "diffusion":
+        return DIFFUSION_SHAPES
+    if fam in ("vision", "detector"):
+        return VISION_SHAPES
+    raise ValueError(f"unknown family {fam}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,9 @@
 """deit-b [arXiv:2012.12877; paper] — DeiT-Base with distillation token.
 
-Port of ``repro/configs/deit_b.py``: ``ARCH`` (the sharding cells,
-``SHAPES``, are ROADMAP item 14).  ViT-B/16's trunk with a distillation
+Port of ``repro/configs/deit_b.py``: ``ARCH`` and its shape cells.  ViT-B/16's trunk with a distillation
 token and a second head: 198 tokens at 224^2.
 """
-from repro_torch.config import ViTConfig
+from repro_torch.config import VISION_SHAPES, ViTConfig
 
 ARCH = ViTConfig(
     name="deit-b",
@@ -16,3 +15,5 @@ ARCH = ViTConfig(
     d_ff=3072,
     distill_token=True,
 )
+
+SHAPES = VISION_SHAPES

@@ -1,16 +1,16 @@
 """Reduced same-family configs for CPU tests and rehearsals.
 
-Port of ``reduce_arch`` from ``repro/configs/reduced.py`` for the families
-the port runs: the same numbers, so a reduced JAX config and a reduced
-port config describe the same model.
+Port of ``repro/configs/reduced.py``: the same numbers, so a reduced JAX
+config and a reduced port config describe the same model, and a reduced
+shape cell (:func:`reduce_shape`) the same step.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.config import (DetectorConfig, DiTConfig,
-                                EfficientNetConfig, TransformerConfig,
-                                ViTConfig)
+                                EfficientNetConfig, ShapeConfig,
+                                TransformerConfig, ViTConfig)
 
 
 def reduce_arch(model):
@@ -48,3 +48,16 @@ def reduce_arch(model):
             model, canvas=128, patch=32, n_layers=2, d_model=64, n_heads=4,
             d_ff=128, param_dtype="float32", compute_dtype="float32")
     raise TypeError(type(model))
+
+
+def reduce_shape(model, shape: ShapeConfig) -> ShapeConfig:
+    """Shrink a shape cell to smoke-test size for the reduced config."""
+    kw = dict(seq_len=min(shape.seq_len, 128) if shape.seq_len else 0,
+              global_batch=min(shape.global_batch, 4) or 2,
+              steps=min(shape.steps, 2) if shape.steps else 0)
+    if shape.img_res:
+        if isinstance(model, DiTConfig):
+            kw["img_res"] = 64 if shape.img_res <= 512 else 128
+        else:
+            kw["img_res"] = 64 if shape.img_res <= 300 else 128
+    return ShapeConfig(shape.name, shape.kind, **kw)

@@ -1,10 +1,9 @@
 """vit-b16 [arXiv:2010.11929; paper] — ViT-B/16.
 
-Port of ``repro/configs/vit_b16.py``: ``ARCH`` (the sharding cells,
-``SHAPES``, are ROADMAP item 14).  12 layers, d 768, 12 heads of 64, 197
+Port of ``repro/configs/vit_b16.py``: ``ARCH`` and its shape cells.  12 layers, d 768, 12 heads of 64, 197
 tokens at 224^2; 86.5 M parameters (``n_params``).
 """
-from repro_torch.config import ViTConfig
+from repro_torch.config import VISION_SHAPES, ViTConfig
 
 ARCH = ViTConfig(
     name="vit-b16",
@@ -15,3 +14,5 @@ ARCH = ViTConfig(
     n_heads=12,
     d_ff=3072,
 )
+
+SHAPES = VISION_SHAPES

@@ -1,10 +1,10 @@
 """vit-s16 [arXiv:2010.11929; paper] — ViT-S/16.
 
-Port of ``repro/configs/vit_s16.py``: ``ARCH`` only.  The classifier
-runs through ``models/vit.py`` and the registry's ``vit_s16`` detector on
-this trunk; the sharding cells (``SHAPES``) are ROADMAP item 14.
+Port of ``repro/configs/vit_s16.py``: ``ARCH`` and its shape cells.
+The classifier runs through ``models/vit.py`` and the registry's
+``vit_s16`` detector on this trunk.
 """
-from repro_torch.config import ViTConfig
+from repro_torch.config import VISION_SHAPES, ViTConfig
 
 ARCH = ViTConfig(
     name="vit-s16",
@@ -15,3 +15,5 @@ ARCH = ViTConfig(
     n_heads=6,
     d_ff=1536,
 )
+
+SHAPES = VISION_SHAPES

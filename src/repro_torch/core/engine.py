@@ -1,7 +1,7 @@
 """Unified event-driven serving engine over the platform model and the
 device executors.
 
-Port of ``repro/core/engine.py`` for one card: the event loop
+Port of ``repro/core/engine.py``: the event loop
 (:class:`ServingEngine`), the per-class invoker pool, and the device
 executors that run Tangram's cloud side - pack crops into slots -> K1
 stitch -> ViT detector -> K2 unstitch -> per-frame routing, or, with
@@ -25,7 +25,11 @@ launch, probed with ``.query()`` (on the CPU every launch is ready at
 once).  ``DeviceExecutor(stream=)`` puts an executor's uploads, kernels,
 ``done`` event and host copies on a CUDA stream of its own, so the fleet's
 shards (:mod:`.fleet`, :mod:`.parallel`) share one card without sharing a
-queue.  Invocation boundaries depend only on arrivals and the batcher, so
+queue.  ``DeviceExecutor(mesh=)`` lays each unfused canvas batch out over
+a serve mesh's ``data`` axis (:func:`shard_canvases`: one process drives
+every device, the params copied to each once), as the JAX executor lays
+it out with a ``NamedSharding``; the fused path does not shard, as in the
+reference.  Invocation boundaries depend only on arrivals and the batcher, so
 a trace produces the same patch->invocation groupings on all three.  A
 :class:`~repro_torch.core.workers.WorkerPoolExecutor` puts several
 executors behind the same protocol: handles ready together deliver in
@@ -48,11 +52,12 @@ import dataclasses
 import heapq
 import math
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.compat.shardingx import make_mesh, mesh_axis_sizes
 from repro_torch.core.clock import Clock, VirtualClock
 from repro_torch.core.framestore import FrameStore
 from repro_torch.core.invoker import Invocation, SLOAwareInvoker
@@ -62,7 +67,9 @@ from repro_torch.core.stitching import validate
 from repro_torch.data.video import Arrival
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.stitch import ops as stitch_ops
+from repro_torch.param import map_tree
 from repro_torch.serverless.platform import Platform
+from repro_torch.sharding import DEFAULT_RULES, divisible_spec
 
 
 # ------------------------------------------------------------- outcomes ----
@@ -404,7 +411,17 @@ class ModelRuntime:
     The fused path's fields: ``tokens_fn(params, tokens) -> raw head`` is
     the trunk minus the patch embed, ``embed_kernel`` / ``embed_bias`` the
     patch-embed projection in the compute dtype (K4 applies it), and
-    ``patch`` the detector's patch size."""
+    ``patch`` the detector's patch size.
+
+    ``mesh`` (a serve mesh, ``launch/mesh.make_serve_mesh``) lays each
+    unfused canvas batch out over its ``data`` axis
+    (:func:`shard_canvases`); the params are copied once to each of the
+    axis's devices here, when the runtime is built (``replicas``, one a
+    ``data`` row; a device listed twice shares one copy).  A
+    :class:`DeviceExecutor` serves an unfused runtime given without a mesh
+    on its own (a copy of the runtime on it).  ``rules`` is
+    the logical-axis table the batch's ``("batch", ...)`` axes resolve
+    through (default ``sharding.DEFAULT_RULES``)."""
     serve_fn: Callable
     params: object
     canvas_m: int
@@ -413,6 +430,68 @@ class ModelRuntime:
     embed_kernel: Optional[torch.Tensor] = None
     embed_bias: Optional[torch.Tensor] = None
     patch: Optional[int] = None
+    mesh: object = None
+    rules: object = None
+    replicas: list = dataclasses.field(default_factory=list, repr=False)
+
+    def __post_init__(self):
+        if self.mesh is None or self.replicas:
+            return
+        copies = {}
+        for dev in data_devices(self.mesh):
+            if dev not in copies:
+                copies[dev] = map_tree(
+                    lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, self.params)
+            self.replicas.append(copies[dev])
+
+    def serve_sharded(self, chunks: List[torch.Tensor], n_real: int,
+                      device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``serve_fn`` on each chunk of :func:`shard_canvases` with its
+        device's replica; ``obj`` and ``boxes`` gathered on ``device``,
+        the padded rows dropped (no record references them)."""
+        outs = [self.serve_fn(rep, chunk)
+                for rep, chunk in zip(self.replicas, chunks)]
+        if len(outs) == 1:      # one data device: no pad rows, no gather
+            return outs[0]
+        obj = torch.cat([o.to(device) for o, _ in outs])[:n_real]
+        boxes = torch.cat([b.to(device) for _, b in outs])[:n_real]
+        return obj, boxes
+
+
+def data_devices(mesh) -> List[torch.device]:
+    """The devices of a serve mesh's ``data`` axis, in order (its first
+    ``model`` column)."""
+    names = tuple(mesh.axis_names)
+    devs = np.moveaxis(np.asarray(mesh.devices), names.index("data"), 0)
+    return [torch.device(d) for d in devs.reshape(devs.shape[0], -1)[:, 0]]
+
+
+def shard_canvases(canvases: torch.Tensor, mesh, rules=None
+                   ) -> Tuple[List[torch.Tensor], bool]:
+    """Lay the canvas batch out data-parallel over the serve mesh.
+
+    The batch is padded to a multiple of the "data"-axis size with zero
+    canvases (records never reference pad rows, so the detector output
+    for them is dropped before routing), then split along the batch axis
+    into one chunk a ``data`` device, each copied there (a peer copy;
+    none to the executor's own device).  Returns the chunks and whether
+    the data axis actually split the batch (False on one device), as the
+    JAX function's ``bool(sh.spec) and n_data > 1``.
+    """
+    n_data = mesh_axis_sizes(mesh).get("data", 1)
+    pad = (-canvases.shape[0]) % n_data
+    if pad:
+        canvases = torch.cat([canvases, canvases.new_zeros(
+            (pad,) + tuple(canvases.shape[1:]))])
+    spec = divisible_spec(canvases.shape, ("batch", None, None, None),
+                          rules or DEFAULT_RULES, mesh)
+    if not spec or n_data == 1:
+        return [canvases], False
+    devs = data_devices(mesh)
+    chunks = torch.chunk(canvases, n_data)
+    return [c.to(d) for c, d in zip(chunks, devs)], n_data > 1
 
 
 class DeviceExecutor:
@@ -451,6 +530,14 @@ class DeviceExecutor:
     Each method enters the stream itself, because the current stream is
     per thread and one thread may drive several executors.  ``None``
     keeps the thread's current stream.
+
+    ``mesh`` / ``rules``: the serve mesh of every unfused runtime that
+    comes without one (:class:`ModelRuntime`; default: the unit mesh of
+    ``device``, data=1) and the default runtime's rule table.  An unfused
+    invocation splits its canvas batch over its runtime's ``data``
+    devices (:func:`shard_canvases`; one device, one chunk) and counts in
+    ``n_sharded`` when the axis split it.  Unused with ``fuse=True`` (no
+    canvas batch exists).
     """
 
     def __init__(self, serve_fn, params, canvas_m: int, canvas_n: int, *,
@@ -461,21 +548,24 @@ class DeviceExecutor:
                  embed_bias: Optional[torch.Tensor] = None,
                  patch: Optional[int] = None,
                  models: Optional[Dict[str, object]] = None,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 mesh=None, rules=None):
         if impl is not None and impl not in stitch_ops.IMPLS:
             raise ValueError(f"unknown stitch impl {impl!r}; choose from "
                              f"{list(stitch_ops.IMPLS)}")
         self.fuse = fuse
+        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            (1, 1), ("data", "model"), devices=[self.device])
         self.runtime = self._checked(
             ModelRuntime(serve_fn, params, canvas_m, canvas_n, tokens_fn,
-                         embed_kernel, embed_bias, patch), None)
+                         embed_kernel, embed_bias, patch, rules=rules), None)
         self.models = dict(models) if models else {}
         self._runtimes: Dict[Optional[str], ModelRuntime] = {
             None: self.runtime}
         for name, entry in self.models.items():
             if isinstance(entry, ModelRuntime):
                 self._runtimes[name] = self._checked(entry, name)
-        self.device = resolve_device(device)
         if stream is not None and not _on_device(stream, self.device):
             raise ValueError(f"stream on {stream.device} for an executor on "
                              f"{self.device}")
@@ -486,14 +576,17 @@ class DeviceExecutor:
         self.n_invocations = 0
         self.n_fused = 0
         self.n_detections = 0
+        self.n_sharded = 0
         self.evidence_bytes = 0
 
     def _checked(self, rt: ModelRuntime, model: Optional[str]
                  ) -> ModelRuntime:
-        """``rt``, or a ValueError when ``fuse=True`` and it lacks the
-        fused fields or its canvas is not a multiple of its patch."""
+        """``rt`` ready to serve: unfused, on the executor's mesh when it
+        came without one; fused, a ValueError when it lacks the fused
+        fields or its canvas is not a multiple of its patch."""
         if not self.fuse:
-            return rt
+            return rt if rt.mesh is not None else dataclasses.replace(
+                rt, mesh=self.mesh, replicas=[])
         what = "the default runtime" if model is None else f"model {model!r}"
         missing = [k for k in ("tokens_fn", "embed_kernel", "embed_bias",
                                "patch") if getattr(rt, k) is None]
@@ -576,7 +669,8 @@ class DeviceExecutor:
                     "done": self._record_done(fused), "t0": t0}
         canvases = stitch_ops.stitch_canvases(
             slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
-        obj, boxes = rt.serve_fn(rt.params, canvases)
+        chunks, sharded = shard_canvases(canvases, rt.mesh, rt.rules)
+        obj, boxes = rt.serve_sharded(chunks, canvases.shape[0], self.device)
         # inverse gather: the box head has no pixel-space output, so the
         # canvases stand in for a per-pixel head; the gathered slots equal
         # the input crops and are routed back as evidence
@@ -584,6 +678,7 @@ class DeviceExecutor:
             canvases, records, plan.slot_capacity, plan.hmax, plan.wmax,
             impl=self.impl)
         self.n_invocations += 1
+        self.n_sharded += bool(sharded)
         return {"plan": plan, "obj": obj, "boxes": boxes,
                 "patch_out": patch_out,
                 "done": self._record_done(obj, boxes, patch_out), "t0": t0}
@@ -704,7 +799,8 @@ def make_executor(name: str, **cfg):
     cls = lookup("executor", _EXECUTORS, name)
     device_only = {"fuse", "tokens_fn", "embed_kernel", "embed_bias",
                    "patch", "serve_fn", "params", "canvas_m", "canvas_n",
-                   "device", "impl", "clock", "models", "stream"}
+                   "device", "impl", "clock", "models", "stream", "mesh",
+                   "rules"}
     sim_only = {"platform", "model_loads", "model_tables"}
     if cls is SimExecutor:
         drop = {"max_inflight"} | device_only

@@ -18,9 +18,10 @@ each fired :class:`~repro_torch.core.invoker.Invocation` to the worker a
 
 Workers are plain executors: ``SimExecutor``\\ s over platform shards
 (:func:`repro_torch.serverless.platform.split_platform`) or device
-executors (:func:`device_worker_pool`).  Worker ``i`` runs on
-``cuda:(i % torch.cuda.device_count())`` (:func:`worker_device`), as the
-reference pins device ``i % n_devices``.  On a one-card host every worker
+executors (:func:`device_worker_pool`).  Worker ``i`` runs on its serve
+mesh of ``launch/mesh.make_worker_meshes`` (a contiguous slice of the
+devices; with fewer devices than workers, device ``i % n_devices``), as
+the reference lays its workers out.  On a one-card host every worker
 shares the card and its current stream, the counterpart of the JAX pool
 on a one-device host: the pool then routes, accounts and feeds the
 estimator per worker, but the card runs one invocation at a time.
@@ -39,12 +40,9 @@ import collections
 import math
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
-import torch
-
 from repro_torch.core.engine import Completion, ExecHandle
 from repro_torch.core.invoker import Invocation
 from repro_torch.core.registry import lookup
-from repro_torch.device import DeviceLike, resolve_device
 
 
 # ----------------------------------------------------- weight cache ----
@@ -424,6 +422,10 @@ class WorkerPoolExecutor:
         return self._sum("n_detections")
 
     @property
+    def n_sharded(self) -> int:
+        return self._sum("n_sharded")
+
+    @property
     def evidence_bytes(self) -> int:
         return self._sum("evidence_bytes")
 
@@ -470,21 +472,12 @@ def share_frame_store(executors: Sequence[object]) -> None:
             ex.store = executors[0].store
 
 
-def worker_device(i: int, device: DeviceLike = None) -> torch.device:
-    """Worker ``i``'s device: ``cuda:(i % torch.cuda.device_count())`` for
-    a CUDA ``device`` (default), the device itself otherwise."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        return dev
-    return torch.device("cuda", i % torch.cuda.device_count())
-
-
 def device_worker_pool(n_workers: int, make_executor: Callable[[int], object],
                        placement=None, estimator=None,
                        weight_caches: Optional[Sequence[WeightCache]] = None
                        ) -> WorkerPoolExecutor:
     """A device pool: ``make_executor(i)`` builds worker ``i`` (typically
-    an ``AsyncDeviceExecutor`` on :func:`worker_device` ``(i)``); the
+    an ``AsyncDeviceExecutor`` on worker ``i``'s serve mesh); the
     frame stores are shared and the pool assembled."""
     workers = [make_executor(i) for i in range(n_workers)]
     share_frame_store(workers)

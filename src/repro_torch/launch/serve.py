@@ -30,11 +30,20 @@ completion's time back into the tables the invokers fire against.
 ``--shards N`` serves the cameras through N shard engines
 (:class:`~repro_torch.core.fleet.ShardedEngine`; ``--parallel``: a thread
 a shard, :class:`~repro_torch.core.parallel.ParallelShardedEngine`), each
-with its own executor on ``worker_device(i)`` and, on a card, a CUDA
-stream of its own, all sharing one frame store; ``--planner`` places the
-cameras when the source reports their rates, else camera ``c`` goes to
-shard ``c % N``.  ``--device`` defaults to ``cuda``; ``--device cpu`` runs
-the plain PyTorch versions of the kernels.
+with its own executor and, on a card, a CUDA stream of its own, all
+sharing one frame store; ``--planner`` places the cameras when the source
+reports their rates, else camera ``c`` goes to shard ``c % N``.
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
+versions of the kernels.
+
+The devices are laid out as the JAX driver lays them out: one serve mesh
+over every device (``launch/mesh.make_serve_mesh``), or one slice a
+worker or shard (``make_worker_meshes``), each unfused canvas batch split
+over its slice's ``data`` axis (``core/engine.shard_canvases``).  The
+devices are the CUDA devices, or one CPU with ``--device cpu``;
+:func:`main` also takes a list of devices from its caller (a test passes
+eight CPU devices, the port's stand-in for the JAX driver's eight fake
+host devices).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --frames 40 --slo 1.0
@@ -61,7 +70,8 @@ from repro_torch.config import DetectorConfig
 from repro_torch.core.clock import make_clock
 from repro_torch.core.config import ServeConfig, make_classify
 from repro_torch.core.engine import (InvokerPool, ModelRuntime,
-                                     ServingEngine, make_executor,
+                                     ServingEngine, data_devices,
+                                     make_executor, shard_canvases,
                                      uniform_pool)
 from repro_torch.core.fleet import (FleetCostModel, FleetInvokerPool,
                                     FleetPlan, ShardedEngine,
@@ -73,8 +83,9 @@ from repro_torch.core.models import make_model, model_names
 from repro_torch.core.parallel import ParallelShardedEngine
 from repro_torch.core.workers import (WorkerPoolExecutor, device_worker_pool,
                                       make_placement, share_frame_store,
-                                      weight_caches, worker_device)
+                                      weight_caches)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.launch.mesh import make_serve_mesh, make_worker_meshes
 from repro_torch.models import detector as detector_lib
 from repro_torch.models.quantize import quantize_params
 from repro_torch.sources import RateProfile, make_source
@@ -111,11 +122,12 @@ def fused_kwargs(cfg, params) -> dict:
     return dict(fuse=True, **fused_fields(cfg, params))
 
 
-def runtimes(builds: dict, m: int, n: int, fuse: bool) -> dict:
+def runtimes(builds: dict, m: int, n: int, fuse: bool, mesh=None) -> dict:
     """One :class:`ModelRuntime` a built model (``name -> (cfg, params,
-    serve_fn)``), with the fused fields when ``fuse``."""
+    serve_fn)``), with the fused fields when ``fuse``, else on ``mesh``."""
     return {name: ModelRuntime(fn, pr, m, n,
-                               **(fused_fields(mcfg, pr) if fuse else {}))
+                               **(fused_fields(mcfg, pr) if fuse
+                                  else dict(mesh=mesh)))
             for name, (mcfg, pr, fn) in builds.items()}
 
 
@@ -132,13 +144,25 @@ def on_device(builds: dict, device: torch.device) -> dict:
 
 
 def profile(serve_fn, params, m: int, n: int, device: torch.device,
-            batch_sizes=(1, 2, 4), iters: int = 5) -> LatencyTable:
+            batch_sizes=(1, 2, 4), iters: int = 5, mesh=None
+            ) -> LatencyTable:
     """Offline profiling (the paper's 1000-iteration stage, scaled down),
-    synchronising the device inside each timed call."""
+    synchronising the device inside each timed call, under the
+    data-parallel layout execution will use: ``mesh``, else the unit serve
+    mesh of ``device``."""
+    mesh = mesh if mesh is not None else make_serve_mesh(devices=[device])
+    rt = ModelRuntime(serve_fn, params, m, n, mesh=mesh)
+
     def run_batch(b):
-        return serve_fn(params, torch.zeros((b, m, n, 3), device=device))
+        x = torch.zeros((b, m, n, 3), device=device)
+        chunks, _ = shard_canvases(x, mesh)
+        return rt.serve_sharded(chunks, b, device)
+
+    def sync():
+        for d in set(data_devices(mesh)):
+            synchronize(d)
     return measure(run_batch, batch_sizes=batch_sizes, iters=iters,
-                   warmup=1, sync=lambda: synchronize(device))
+                   warmup=1, sync=sync)
 
 
 def build_source(args, frame_sink, slos, device: torch.device):
@@ -203,9 +227,10 @@ def sharded_engine(config: ServeConfig, executors, make_pool, source,
 
 
 def summary_line(engine, executor, stats, config: ServeConfig,
-                 wall_s: float) -> str:
-    """The driver's one-line run summary; ``executor`` is a list of the
-    shards' executors under ``--shards``."""
+                 wall_s: float, n_data: int = 1) -> str:
+    """The driver's one-line run summary (the JAX driver's text);
+    ``executor`` is a list of the shards' executors under ``--shards``;
+    ``n_data`` the serve mesh's ``data`` axis."""
     executors = (list(executor) if isinstance(executor, (list, tuple))
                  else [executor])
     first = executors[0]
@@ -229,8 +254,6 @@ def summary_line(engine, executor, stats, config: ServeConfig,
         overlap += ", fused"
     if config.quantize:
         overlap += ", int8"
-    device = (first.workers[0].device
-              if isinstance(first, WorkerPoolExecutor) else first.device)
     violated = sum(o.violated for o in engine.outcomes)
 
     def total(attr: str) -> int:
@@ -238,7 +261,8 @@ def summary_line(engine, executor, stats, config: ServeConfig,
 
     return (f"served {stats.patches_emitted} patches in "
             f"{total('n_invocations')} invocations ({overlap}, "
-            f"{config.clock} clock, {device}), "
+            f"{config.clock} clock, {total('n_sharded')} data-parallel over "
+            f"data={n_data}), "
             f"routed {total('n_detections')} detections + "
             f"{total('evidence_bytes') / 1e6:.2f} MB patch evidence back to "
             f"frames, {violated} SLO violations "
@@ -285,7 +309,10 @@ def detail_lines(engine, executor) -> list:
     return lines
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """The CLI.  ``devices`` (a list of ``torch.device``s, repeats
+    allowed) replaces the devices ``--device`` names: the serve mesh, or
+    the worker / shard slices, are laid over them."""
     p = argparse.ArgumentParser()
     p.add_argument("--frames", type=int, default=40)
     p.add_argument("--slo", default="1.0",
@@ -389,7 +416,11 @@ def main(argv=None):
             model_map = dict(kv.split("=", 1) for kv in args.model_map)
         except ValueError:
             p.error("--model-map entries must look like CLASS=MODEL")
-    device = resolve_device(args.device)
+    if devices is None:
+        devices = ([resolve_device("cpu")] if args.device == "cpu"
+                   else None)            # every CUDA device (or raise)
+    else:
+        devices = [resolve_device(d) for d in devices]
 
     config = ServeConfig(
         max_canvases=4,
@@ -415,9 +446,17 @@ def main(argv=None):
             model_map=({k: _q(v) for k, v in config.model_map.items()}
                        if config.model_map else None))
     m = n = args.canvas
+    n_slices = config.shards or config.n_workers
+    meshes = (make_worker_meshes(n_slices, devices) if n_slices > 1
+              else [make_serve_mesh(devices=devices)])
+    mesh = meshes[0]
+    device = data_devices(mesh)[0]
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {device} ({name})")
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    print(f"serve mesh: {len(meshes)} worker(s) x data={n_data} "
+          f"model={n_model} ({mesh.size} devices each)")
     if config.multi_model:
         # each named model built at the CLI canvas (its reduced trunk),
         # weights seeded by its name
@@ -434,11 +473,11 @@ def main(argv=None):
             args.canvas, quantize=config.quantize, device=device)
     # the tables profile the unfused serve_fn on canvases, as
     # repro.launch.serve does for both paths; one a model
-    table = profile(serve_fn, params, m, n, device)
+    table = profile(serve_fn, params, m, n, device, mesh=mesh)
     print("latency table:", {k: (round(mu, 4), round(sd, 4))
                              for k, (mu, sd) in table.table.items()})
     model_tables = {nm: (table if nm == default_model
-                         else profile(fn, pr, m, n, device))
+                         else profile(fn, pr, m, n, device, mesh=mesh))
                     for nm, (_, pr, fn) in builds.items()}
     estimator = None
     if config.online_latency:
@@ -457,16 +496,18 @@ def main(argv=None):
             config.n_workers, max(s.weight_bytes for s in specs.values()),
             {nm: (s.weight_bytes, s.load_s) for nm, s in specs.items()})
 
-    def executor_on(dev: torch.device, stream=None):
-        """One worker's (or shard's) executor on ``dev``, every model's
-        runtime with it."""
+    def executor_on(mesh_i, stream_of=None):
+        """One worker's (or shard's) executor on its mesh slice (on the
+        slice's first device), every model's runtime with it."""
+        dev = data_devices(mesh_i)[0]
         here = on_device({**builds, None: (cfg, params, serve_fn)}, dev)
         dcfg, dparams, dfn = here.pop(None)
         return make_executor(
             config.executor, serve_fn=dfn, params=dparams, canvas_m=m,
             canvas_n=n, device=dev, max_inflight=config.max_inflight,
-            models=runtimes(here, m, n, config.fuse) if here else None,
-            stream=stream,
+            models=(runtimes(here, m, n, config.fuse, mesh_i) if here
+                    else None),
+            stream=stream_of(dev) if stream_of else None, mesh=mesh_i,
             **(fused_kwargs(dcfg, dparams) if config.fuse else {}))
 
     t_start = time.time()
@@ -474,21 +515,21 @@ def main(argv=None):
     if config.shards:
         # one executor a shard, each on its worker device and its own
         # stream; one frame store, since any shard may route a frame
-        devs = [worker_device(i, device) for i in range(config.shards)]
-        shard_executors = [executor_on(d, shard_stream(d)) for d in devs]
+        shard_executors = [executor_on(meshes[i % len(meshes)], shard_stream)
+                           for i in range(config.shards)]
         share_frame_store(shard_executors)
         # the weights were written on the current stream: let them land
         # before another stream reads them
-        for d in set(devs):
+        for d in {d for mh in meshes for d in data_devices(mh)}:
             synchronize(d)
         executor = shard_executors[0]
     elif config.n_workers > 1:
         executor = device_worker_pool(
-            config.n_workers, lambda i: executor_on(worker_device(i, device)),
+            config.n_workers, lambda i: executor_on(meshes[i]),
             placement=make_placement(config.placement),
             estimator=estimator, weight_caches=caches)
     else:
-        executor = executor_on(device)
+        executor = executor_on(mesh)
         if config.online_latency or caches is not None:
             # a one-worker pool adds only the estimator's feedback and the
             # weight-cache accounting; the executor keeps its mode
@@ -525,7 +566,7 @@ def main(argv=None):
     engine.serve(source)
     stats = source.stats()
     print(summary_line(engine, shard_executors or executor, stats, config,
-                       time.time() - t_start))
+                       time.time() - t_start, n_data))
     for line in shard_lines(engine):
         print(line)
     print(f"source {stats.kind}: {stats.frames_total} frames, "

@@ -2,8 +2,10 @@
 drills (restore the latest checkpoint and go on).
 
 Port of ``repro/launch/train.py`` and of the loss dispatch of
-``repro/api.py`` (``loss_fn``; the rest of ``api.py`` waits for ROADMAP
-item 14).  ``train`` runs any config on one device: the CLI trains the
+``repro/api.py`` (``loss_fn``, which ``repro_torch/api.py`` re-exports as
+``_loss_fn``).  ``train`` runs any config on one device (a step sharded
+over cards is ROADMAP item 17; ``api.plan_cell`` plans and counts one on
+the meta device): the CLI trains the
 reduced configs (``--reduced`` is on, as in the reference, whose flag
 cannot be turned off); full width is reached by calling :func:`train`
 with a registry config.  Every loss takes the reference's training path,

@@ -1,8 +1,10 @@
 """Grouped-query attention with RoPE: prefill, KV-cache decode, and the
 bidirectional encoder attention of the ViT trunk.
 
-Port of ``repro/models/attention.py`` (the sharding constraints are
-ROADMAP item 14).  Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wk`` /
+Port of ``repro/models/attention.py``, with its logical constraints on
+q, k, the output and the decode cache (``sharding.with_logical_constraint``:
+they read the ambient mesh and rules, and return their input outside a
+mesh).  Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wk`` /
 ``wv`` (d, Kv, Dh) or one fused ``wqkv`` (d, H + 2 Kv, Dh), and ``wo``
 (H, Dh, d), no biases.  An int8-resident weight is ``{q, scale}``: int8
 values and a float32 scale over the output axes ((H, Dh) for the
@@ -34,6 +36,8 @@ import torch
 from repro_torch.kernels.attention import ops as flash_ops
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.param import spec
+from repro_torch.sharding import (is_dtensor, per_device,
+                                  with_logical_constraint)
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -61,15 +65,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ----------------------------------------------------------------- specs ----
 
-def _wspec(shape, dtype: torch.dtype, quant: bool,
+def _wspec(shape, axes, dtype: torch.dtype, quant: bool,
            scale_axes_from: int = 1):
     """Weight spec; int8 + a float32 scale over ``shape[scale_axes_from:]``
     when quantized."""
     if quant:
-        return {"q": spec(shape, dtype=torch.int8, init="zeros"),
-                "scale": spec(shape[scale_axes_from:], dtype=torch.float32,
+        return {"q": spec(shape, axes, dtype=torch.int8, init="zeros"),
+                "scale": spec(shape[scale_axes_from:],
+                              axes[scale_axes_from:], dtype=torch.float32,
                               init="ones")}
-    return spec(shape, dtype=dtype,
+    return spec(shape, axes, dtype=dtype,
                 fan_in_axes=tuple(range(scale_axes_from)))
 
 
@@ -85,15 +90,18 @@ def weight(p, compute_dtype: torch.dtype) -> torch.Tensor:
 def gqa_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
               dtype: torch.dtype, fused: bool = False,
               quant: bool = False) -> dict:
-    wo = _wspec((n_heads, head_dim, d_model), dtype, quant,
-                scale_axes_from=2)
+    wo = _wspec((n_heads, head_dim, d_model), ("heads", "head_dim", "embed"),
+                dtype, quant, scale_axes_from=2)
     if fused:
         return {"wqkv": _wspec((d_model, n_heads + 2 * n_kv_heads, head_dim),
-                               dtype, quant),
+                               ("embed", "heads", "head_dim"), dtype, quant),
                 "wo": wo}
-    return {"wq": _wspec((d_model, n_heads, head_dim), dtype, quant),
-            "wk": _wspec((d_model, n_kv_heads, head_dim), dtype, quant),
-            "wv": _wspec((d_model, n_kv_heads, head_dim), dtype, quant),
+    return {"wq": _wspec((d_model, n_heads, head_dim),
+                         ("embed", "heads", "head_dim"), dtype, quant),
+            "wk": _wspec((d_model, n_kv_heads, head_dim),
+                         ("embed", "kv_heads", "head_dim"), dtype, quant),
+            "wv": _wspec((d_model, n_kv_heads, head_dim),
+                         ("embed", "kv_heads", "head_dim"), dtype, quant),
             "wo": wo}
 
 
@@ -103,8 +111,7 @@ def _qkv(params: dict, x: torch.Tensor, n_kv_heads: int,
          compute_dtype: torch.dtype
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     def proj(w):
-        return torch.einsum("bsd,dhk->bshk", x,
-                            weight(w, compute_dtype)).contiguous()
+        return _heads_proj(x, weight(w, compute_dtype)).contiguous()
 
     if "wqkv" in params:
         qkv = proj(params["wqkv"])
@@ -118,8 +125,7 @@ def _qkv(params: dict, x: torch.Tensor, n_kv_heads: int,
 def _out(params: dict, ctx: torch.Tensor,
          compute_dtype: torch.dtype) -> torch.Tensor:
     """ctx (B, S, H, Dh) -> (B, S, d)."""
-    return torch.einsum("bshk,hkd->bsd", ctx,
-                        weight(params["wo"], compute_dtype))
+    return _heads_out(ctx, weight(params["wo"], compute_dtype))
 
 
 def _inv_sqrt(d: int, device) -> torch.Tensor:
@@ -211,17 +217,24 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     q, k, v = _qkv(params, x, n_kv_heads, compute_dtype)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if impl == "chunked":
-        ctx = _chunked_causal(q, k, v, n_kv_heads)
-    elif impl == "xla":
-        scores = _gqa_scores(q, k, n_kv_heads)
-        idx = torch.arange(s, device=x.device)
-        causal = idx[:, None] >= idx[None, :]
-        scores = torch.where(causal[None, None, None], scores, NEG_INF)
-        ctx = _gqa_ctx(torch.softmax(scores, dim=-1), v, compute_dtype)
-    else:
-        ctx = flash_ops.flash_attention(q, k, v, causal=True, impl=impl)
-    return _out(params, ctx, compute_dtype)
+    q = with_logical_constraint(q, ("batch", "seq", "heads", "head_dim"))
+    k = with_logical_constraint(k, ("batch", "seq", "kv_heads", "head_dim"))
+
+    def core(q, k, v):
+        kv = k.shape[2]                 # the local KV heads under a mesh
+        if impl == "chunked":
+            return _chunked_causal(q, k, v, kv)
+        if impl == "xla":
+            scores = _gqa_scores(q, k, kv)
+            idx = torch.arange(s, device=q.device)
+            causal = idx[:, None] >= idx[None, :]
+            scores = torch.where(causal[None, None, None], scores, NEG_INF)
+            return _gqa_ctx(torch.softmax(scores, dim=-1), v, compute_dtype)
+        return flash_ops.flash_attention(q, k, v, causal=True, impl=impl)
+
+    ctx = _per_head_group(core, q, k, v)
+    return with_logical_constraint(_out(params, ctx, compute_dtype),
+                                   ("batch", "seq", "embed"))
 
 
 def encoder_attention(params: dict, x: torch.Tensor, *,
@@ -247,11 +260,17 @@ def encoder_attention(params: dict, x: torch.Tensor, *,
     if impl != "xla":
         raise ValueError(f"unknown encoder attention impl {impl!r}; choose "
                          f"from ['xla', 'flash', 'torch']")
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
-    probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
-    return _out(params, ctx, compute_dtype)
+
+    def core(q, k, v):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(
+            torch.float32) * scale
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
+
+    ctx = _per_head_group(core, q, k, v)
+    return with_logical_constraint(_out(params, ctx, compute_dtype),
+                                   ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------- decode ----
@@ -272,6 +291,18 @@ def init_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_specs(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
+                dtype: torch.dtype, quant_kv: bool = False) -> dict:
+    """``meta`` cache stand-ins for the dry run (``jax.ShapeDtypeStruct``s
+    in the JAX package)."""
+    return init_cache(batch, max_seq, n_kv_heads, head_dim, dtype,
+                      torch.device("meta"), quant_kv=quant_kv)
+
+
+CACHE_AXES = ("decode_batch", "kv_seq", "kv_heads", "head_dim")
+CACHE_SCALE_AXES = ("decode_batch", "kv_seq", "kv_heads")
+
+
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, 1, Kv, D) -> (int8 values, (B, 1, Kv) float32 scales)."""
     x32 = x.to(torch.float32)
@@ -290,7 +321,7 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
     The new K/V row is written into the cache tensors in place, and the
     returned dict is ``cache`` itself: the JAX function returns a new cache
     (its ``"dus"`` update; the ``"masked"`` one serves a cache sharded on
-    the sequence axis, which waits for ROADMAP item 14), so a decode loop
+    the sequence axis, which is ROADMAP item 17), so a decode loop
     here moves no cache bytes but the new row.  An int8 cache (``k_scale``
     in ``cache``) takes the new row quantized, values and scales written in
     place at ``pos``; the whole cache is then dequantized to the compute
@@ -309,14 +340,186 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
     if "k_scale" in cache:
         for name, new in (("k", k_new), ("v", v_new)):
             qv, scale = _quantize_kv(new)
-            cache[name][:, pos] = qv[:, 0]
-            cache[f"{name}_scale"][:, pos] = scale[:, 0]
-        k, v = (cache[name].to(compute_dtype)
+            _write_row(cache[name], qv, pos)
+            _write_row(cache[f"{name}_scale"], scale, pos)
+        k, v = (with_logical_constraint(cache[name], CACHE_AXES).to(
+                    compute_dtype)
                 * cache[f"{name}_scale"].to(compute_dtype)[..., None]
                 for name in ("k", "v"))
     else:
-        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-        k, v = cache["k"].to(compute_dtype), cache["v"].to(compute_dtype)
-    ctx = flash_ops.flash_decode(q, k, v, pos, impl=impl)
+        _write_row(cache["k"], k_new.to(cache["k"].dtype), pos)
+        _write_row(cache["v"], v_new.to(cache["v"].dtype), pos)
+        k, v = (with_logical_constraint(cache[name], CACHE_AXES).to(
+            compute_dtype) for name in ("k", "v"))
+    if _seq_dims(k):
+        ctx = _seq_sharded_decode(q, k, v, pos)
+    else:
+        ctx = _per_head_group(
+            lambda q, k, v: flash_ops.flash_decode(q, k, v, pos, impl=impl),
+            q, k, v)
     return _out(params, ctx, compute_dtype), cache
+
+
+# ----------------------------------------------------- on a device mesh ----
+#
+# Inside ``api.run_abstract`` the activations are DTensors.  DTensor does
+# not reshard through a view of a sharded dim the way GSPMD does, and the
+# grouped-query reshapes and einsums of attention view the heads (and,
+# inside ``torch.einsum``, the batch and sequence) dims.  So attention runs
+# through ``local_map``: q, k and v are redistributed (explicitly, which the
+# counters see) to a layout under which every device holds whole query
+# groups — the batch kept where it was sharded, the heads sharded where
+# they divide, everything else replicated — and the plain attention runs on
+# each device's shard.  Outside a mesh these helpers call the plain
+# function on the tensors themselves.
+
+
+def _group_placements(q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """Per mesh dim: ``Shard(0)`` where q is batch-sharded, ``Shard(2)``
+    (heads) where q is sharded otherwise and both head counts divide,
+    else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = q.device_mesh.shape
+    h_div, kv_div = q.shape[2], k.shape[2]
+    out = []
+    for size, pl in zip(sizes, q.placements):
+        if pl == Shard(0):
+            out.append(Shard(0))
+        elif (not isinstance(pl, Replicate) and h_div % size == 0
+              and kv_div % size == 0):
+            h_div, kv_div = h_div // size, kv_div // size
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _per_head_group(fn, q, k, v):
+    """``fn(q, k, v) -> ctx`` (B, S, H, D), per device on whole query
+    groups when q is a DTensor (see above), else on the tensors."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    pl = _group_placements(q, k)
+    return per_device(fn, pl, (pl, pl, pl), q.device_mesh)(q, k, v)
+
+
+def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, H, Dh) -> (B, S, H, Dh).  On DTensors, per mesh
+    dim: batch-sharded x stays so (w replicated); else heads-sharded w
+    stays so (column parallel: x replicated, so a sequence-sharded x is
+    all-gathered, as Megatron's sequence parallelism does); else a
+    sequence-sharded x stays so; else both replicated (an FSDP-sharded w
+    is all-gathered)."""
+    if not is_dtensor(x):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Replicate, Shard
+    xs, ws, os_ = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if xp == Shard(0):
+            xs.append(Shard(0)), ws.append(Replicate()), os_.append(Shard(0))
+        elif wp == Shard(1):
+            xs.append(Replicate()), ws.append(Shard(1)), os_.append(Shard(2))
+        elif xp == Shard(1):
+            xs.append(Shard(1)), ws.append(Replicate()), os_.append(Shard(1))
+        else:
+            xs.append(Replicate()), ws.append(Replicate())
+            os_.append(Replicate())
+    return per_device(lambda a, b: torch.einsum("bsd,dhk->bshk", a, b),
+                      os_, (xs, ws), x.device_mesh)(x, w)
+
+
+def _heads_out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """ctx (B, S, H, Dh) @ wo (H, Dh, d) -> (B, S, d).  On DTensors, per
+    mesh dim: batch and sequence shards of ctx stay; heads-sharded ctx
+    meets heads-sharded wo (row parallel: a partial sum, reduced where the
+    next constraint asks); else both replicated."""
+    if not is_dtensor(ctx):
+        return torch.einsum("bshk,hkd->bsd", ctx, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    cs, ws, os_ = [], [], []
+    for cp, wp in zip(ctx.placements, w.placements):
+        if cp in (Shard(0), Shard(1)):
+            cs.append(cp), ws.append(Replicate()), os_.append(cp)
+        elif cp == Shard(2) and w.shape[0] == ctx.shape[2]:
+            cs.append(Shard(2)), ws.append(Shard(0)), os_.append(Partial())
+        else:
+            cs.append(Replicate()), ws.append(Replicate())
+            os_.append(Replicate())
+    return per_device(lambda a, b: torch.einsum("bshk,hkd->bsd", a, b),
+                      os_, (cs, ws), ctx.device_mesh)(ctx, w)
+
+
+def _seq_dims(cache: torch.Tensor) -> list:
+    """The mesh dims a DTensor cache shards its sequence axis over."""
+    if not is_dtensor(cache):
+        return []
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(cache.placements) if pl == Shard(1)]
+
+
+def _seq_offset(cache: torch.Tensor) -> int:
+    """The first cache position this device's shard holds (mesh order)."""
+    mesh = cache.device_mesh
+    local = cache.to_local().shape[1]
+    off, span = 0, local
+    for i in reversed(_seq_dims(cache)):
+        off += mesh.get_local_rank(i) * span
+        span *= mesh.shape[i]
+    return off
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place.  A DTensor cache takes the
+    row on the device whose shard holds ``pos`` (the row laid out as the
+    cache is, its one position replicated): each device writes its own
+    shard, so nothing but the row moves."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(cache):
+        cache[:, pos] = new[:, 0]
+        return
+    want = tuple(Replicate() if pl == Shard(1) else pl
+                 for pl in cache.placements)
+    row = new.redistribute(cache.device_mesh, want).to_local()
+    local = cache.to_local()
+    at = pos - (_seq_offset(cache) if _seq_dims(cache) else 0)
+    if 0 <= at < local.shape[1]:
+        local[:, at] = row[:, 0]
+
+
+def _seq_sharded_decode(q, k, v, pos: int):
+    """Decode attention over a cache whose sequence axis is sharded (the
+    sequence-parallel overlay): each device scores its own positions, the
+    softmax's max and sum reduce across the shards (DTensor's reductions:
+    two small all-reduces), and each device's share of the context is
+    summed (a third).  q (B, 1, H, D) is replicated over the sequence's
+    mesh dims (an all-gather of one token's heads)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    seq = set(_seq_dims(k))
+    batch = [pl == Shard(0) for pl in k.placements]
+    kv_pl = tuple(Shard(1) if i in seq else Shard(0) if batch[i]
+                  else Replicate() for i in range(len(batch)))
+    q_pl = tuple(Shard(0) if batch[i] else Replicate()
+                 for i in range(len(batch)))
+    s_pl = tuple(Shard(4) if i in seq else Shard(0) if batch[i]
+                 else Replicate() for i in range(len(batch)))
+    c_pl = tuple(Partial() if i in seq else Shard(0) if batch[i]
+                 else Replicate() for i in range(len(batch)))
+    k = k.redistribute(k.device_mesh, kv_pl)
+    v = v.redistribute(v.device_mesh, kv_pl)
+    off = _seq_offset(k)
+
+    def scores_fn(q, k):
+        sc = _gqa_scores(q, k, k.shape[2])               # (B,Kv,G,1,S_l)
+        cols = off + torch.arange(k.shape[1], device=q.device)
+        return torch.where((cols <= pos)[None, None, None, None], sc,
+                           NEG_INF)
+
+    def ctx_fn(p, v):
+        return _gqa_ctx(p, v, v.dtype)
+
+    mesh = k.device_mesh
+    scores = per_device(scores_fn, s_pl, (q_pl, kv_pl), mesh)(q, k)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return per_device(ctx_fn, c_pl, (s_pl, kv_pl), mesh)(p.to(v.dtype), v)

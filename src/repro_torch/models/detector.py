@@ -35,6 +35,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, vit
 from repro_torch.param import convert_like, map_tree, spec
 from repro_torch.param import init_params as init_tree
+from repro_torch.sharding import (is_dtensor, per_device,
+                                  with_logical_constraint)
 
 
 def trunk_cfg(cfg: DetectorConfig) -> ViTConfig:
@@ -69,12 +71,16 @@ def param_specs(cfg: DetectorConfig) -> dict:
     return {
         "trunk": {
             "patch_embed": layers.dense_specs(3 * cfg.patch * cfg.patch, d,
-                                              dtype=dtype, bias=True),
-            "pos_embed": spec((1, side * side, d), dtype=dtype, init="pos"),
+                                              in_axis="patch",
+                                              out_axis="embed", dtype=dtype,
+                                              bias=True),
+            "pos_embed": spec((1, side * side, d), (None, "seq", "embed"),
+                              dtype=dtype, init="pos"),
             "layers": [layer] * cfg.n_layers,
             "ln_f": layers.layernorm_specs(d, dtype),
         },
-        "det_head": layers.dense_specs(d, 5, dtype=dtype, bias=True),
+        "det_head": layers.dense_specs(d, 5, in_axis="embed", out_axis=None,
+                                       dtype=dtype, bias=True),
     }
 
 
@@ -141,6 +147,7 @@ def forward_tokens(cfg: DetectorConfig, params: dict, tokens: torch.Tensor
     cdt = dtype_of(cfg.compute_dtype)
     tp = params["trunk"]
     x = tokens.to(cdt) + tp["pos_embed"].to(cdt)
+    x = with_logical_constraint(x, ("canvas", "seq", "embed"))
     x = vit.encoder(trunk_cfg(cfg), tp, x)
     out = layers.dense(params["det_head"], x, cdt)
     side = cfg.canvas // cfg.patch
@@ -187,8 +194,17 @@ def targets_from_boxes(cfg: DetectorConfig, boxes: torch.Tensor,
     order, invalid boxes included (their values are zeroed, so a padding
     box after a real one in cell (0, 0) zeroes its target there while
     ``obj`` keeps its 1).  The last writer is made explicit because
-    ``index_put_`` leaves the order of repeated indices undefined.
+    ``index_put_`` leaves the order of repeated indices undefined: the
+    other writers go to a spare row past the grid, dropped after, so no
+    shape depends on the data (the dry run's ``meta`` tensors hold none).
+    On a DTensor batch each device assigns its own canvases.
     """
+    if is_dtensor(boxes):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [p if p == Shard(0) else Replicate() for p in boxes.placements]
+        return per_device(
+            lambda bx, vd: targets_from_boxes(cfg, bx, vd), (pl, pl),
+            (pl, pl), boxes.device_mesh)(boxes, valid)
     side = cfg.canvas // cfg.patch
     cell = cfg.canvas / side
     b, k, _ = boxes.shape
@@ -214,11 +230,12 @@ def targets_from_boxes(cfg: DetectorConfig, boxes: torch.Tensor,
                       device=boxes.device)
     last = last.scatter_reduce(0, flat, order, "amax")
     winner = order == last[flat]
-    box_t = torch.zeros((n_cells, 4), dtype=torch.float32,
+    box_t = torch.zeros((n_cells + 1, 4), dtype=torch.float32,
                         device=boxes.device)
-    box_t[flat[winner]] = vals.reshape(-1, 4)[winner]
+    box_t[torch.where(winner, flat, n_cells)] = vals.reshape(-1, 4)
     return (obj_t.reshape(b, side, side),
-            box_t.reshape(b, side, side, 4))
+            box_t[:n_cells].reshape(b, side, side, 4))
+
 
 
 def detection_loss(cfg: DetectorConfig, params: dict, batch: dict

@@ -38,6 +38,7 @@ from repro_torch.models import layers, remat
 from repro_torch.models.vit import unstack_layers
 from repro_torch.param import convert_like, spec
 from repro_torch.param import init_params as init_tree
+from repro_torch.sharding import with_logical_constraint
 
 T_MAX = 1000  # diffusion timestep range
 
@@ -51,8 +52,8 @@ def _layer_specs(cfg: DiTConfig, dtype: torch.dtype) -> dict:
                                d // cfg.n_heads, dtype),
         "mlp": layers.gelu_mlp_specs(d, cfg.d_ff, dtype),
         # adaLN-zero: 6*d modulation from the conditioning, zero-init
-        "ada": layers.dense_specs(d, 6 * d, dtype=dtype, bias=True,
-                                  zero_init=True),
+        "ada": layers.dense_specs(d, 6 * d, in_axis="embed", out_axis=None,
+                                  dtype=dtype, bias=True, zero_init=True),
     }
 
 
@@ -63,17 +64,22 @@ def param_specs(cfg: DiTConfig) -> dict:
     d = cfg.d_model
     patch_dim = cfg.latent_channels * cfg.patch * cfg.patch
     return {
-        "patch_embed": layers.dense_specs(patch_dim, d, dtype=dtype,
+        "patch_embed": layers.dense_specs(patch_dim, d, in_axis="patch",
+                                          out_axis="embed", dtype=dtype,
                                           bias=True),
-        "t_mlp1": layers.dense_specs(cfg.timestep_dim, d, dtype=dtype,
+        "t_mlp1": layers.dense_specs(cfg.timestep_dim, d, in_axis=None,
+                                     out_axis="embed", dtype=dtype,
                                      bias=True),
-        "t_mlp2": layers.dense_specs(d, d, dtype=dtype, bias=True),
-        "label_embed": spec((cfg.n_classes + 1, d), dtype=dtype,
-                            init="embed"),
+        "t_mlp2": layers.dense_specs(d, d, in_axis="embed", out_axis=None,
+                                     dtype=dtype, bias=True),
+        "label_embed": spec((cfg.n_classes + 1, d), ("vocab", "embed"),
+                            dtype=dtype, init="embed"),
         "layers": [_layer_specs(cfg, dtype)] * cfg.n_layers,
-        "final_ada": layers.dense_specs(d, 2 * d, dtype=dtype, bias=True,
-                                        zero_init=True),
-        "final_proj": layers.dense_specs(d, patch_dim, dtype=dtype,
+        "final_ada": layers.dense_specs(d, 2 * d, in_axis="embed",
+                                        out_axis=None, dtype=dtype,
+                                        bias=True, zero_init=True),
+        "final_proj": layers.dense_specs(d, patch_dim, in_axis="embed",
+                                         out_axis="patch", dtype=dtype,
                                          bias=True, zero_init=True),
     }
 
@@ -153,6 +159,7 @@ def forward(cfg: DiTConfig, params: dict, latents: torch.Tensor,
 
     x = layers.dense(params["patch_embed"],
                      patchify_latent(latents.to(cdt), cfg.patch), cdt)
+    x = with_logical_constraint(x, ("batch", "seq", "embed"))
     temb = timestep_embedding(t, cfg.timestep_dim)
     cond = layers.dense(params["t_mlp2"], layers.silu(
         layers.dense(params["t_mlp1"], temb.to(cdt), cdt)), cdt)

@@ -30,6 +30,8 @@ from repro_torch.param import convert_like
 from repro_torch.param import count_params as _count
 from repro_torch.param import init_params as init_tree
 from repro_torch.param import spec
+from repro_torch.sharding import (is_dtensor, per_device, take_along,
+                                  with_logical_constraint)
 
 
 def block_args(cfg: EfficientNetConfig) -> List[dict]:
@@ -47,16 +49,17 @@ def block_args(cfg: EfficientNetConfig) -> List[dict]:
 
 
 def _conv_specs(k: int, in_c: int, out_c: int, dtype, groups: int = 1):
-    return {"kernel": spec((k, k, in_c // groups, out_c), dtype=dtype,
+    return {"kernel": spec((k, k, in_c // groups, out_c),
+                           (None, None, "in_channels", None), dtype=dtype,
                            fan_in_axes=(0, 1, 2))}
 
 
 def _bn_specs(c: int, dtype):
     return {
-        "scale": spec((c,), dtype=dtype, init="ones"),
-        "bias": spec((c,), dtype=dtype, init="zeros"),
-        "mean": spec((c,), dtype=torch.float32, init="zeros"),
-        "var": spec((c,), dtype=torch.float32, init="ones"),
+        "scale": spec((c,), (None,), dtype=dtype, init="ones"),
+        "bias": spec((c,), (None,), dtype=dtype, init="zeros"),
+        "mean": spec((c,), (None,), dtype=torch.float32, init="zeros"),
+        "var": spec((c,), (None,), dtype=torch.float32, init="ones"),
     }
 
 
@@ -68,7 +71,8 @@ def _block_specs(b: dict, dtype):
         p["expand_conv"] = _conv_specs(1, b["in_c"], mid, dtype)
         p["expand_bn"] = _bn_specs(mid, dtype)
     p["dw_conv"] = {"kernel": spec((b["kernel"], b["kernel"], 1, mid),
-                                   dtype=dtype, fan_in_axes=(0, 1))}
+                                   (None, None, None, None), dtype=dtype,
+                                   fan_in_axes=(0, 1))}
     p["dw_bn"] = _bn_specs(mid, dtype)
     p["se_reduce"] = _conv_specs(1, mid, se_c, dtype)
     p["se_expand"] = _conv_specs(1, se_c, mid, dtype)
@@ -90,9 +94,10 @@ def param_specs(cfg: EfficientNetConfig):
         "head_conv": _conv_specs(1, blocks[-1]["out_c"], head_c, dtype),
         "head_bn": _bn_specs(head_c, dtype),
         "classifier": {
-            "kernel": spec((head_c, cfg.n_classes), dtype=dtype,
-                           fan_in_axes=(0,)),
-            "bias": spec((cfg.n_classes,), dtype=dtype, init="zeros"),
+            "kernel": spec((head_c, cfg.n_classes), ("embed", "vocab"),
+                           dtype=dtype, fan_in_axes=(0,)),
+            "bias": spec((cfg.n_classes,), ("vocab",), dtype=dtype,
+                         init="zeros"),
         },
     }
 
@@ -132,8 +137,26 @@ def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 def _conv(p: dict, x: torch.Tensor, stride: int, cdt: torch.dtype,
           groups: int = 1) -> torch.Tensor:
-    """NHWC x, HWIO kernel -> NHWC, ``"SAME"`` padding, in ``cdt``."""
+    """NHWC x, HWIO kernel -> NHWC, ``"SAME"`` padding, in ``cdt``.  On a
+    DTensor the convolution runs on each device's batch shard with the
+    kernel replicated (``local_map``): the data-parallel layout GSPMD
+    gives these replicated weights, where DTensor's own convolution
+    strategy may reshard the batch onto another mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
     kernel = p["kernel"].to(cdt)
+    if is_dtensor(x):
+        xp = tuple(pl if pl == Shard(0) else Replicate()
+                   for pl in x.placements)
+        rep = (Replicate(),) * len(xp)
+        return per_device(
+            lambda a, w: _conv_local(a, w, stride, cdt, groups), xp,
+            (xp, rep), x.device_mesh)(x, kernel)
+    return _conv_local(x, kernel, stride, cdt, groups)
+
+
+
+def _conv_local(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+                cdt: torch.dtype, groups: int) -> torch.Tensor:
     k = kernel.shape[0]
     (top, bottom) = same_padding(x.shape[1], k, stride)
     (left, right) = same_padding(x.shape[2], k, stride)
@@ -192,7 +215,8 @@ def forward(cfg: EfficientNetConfig, params: dict, images: torch.Tensor,
     """images: (B, H, W, 3) -> logits (B, n_classes) in the compute
     dtype."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = images.to(cdt)
+    x = with_logical_constraint(images.to(cdt),
+                                ("batch", "img_h", "img_w", None))
     x = silu(_bn(params["stem_bn"], _conv(params["stem_conv"], x, 2, cdt),
                  train, cdt))
     for i, b in enumerate(block_args(cfg)):
@@ -211,7 +235,7 @@ def cls_loss(cfg: EfficientNetConfig, params: dict, batch: dict
     range."""
     lg = forward(cfg, params, batch["images"], train=True).to(torch.float32)
     labels = batch["labels"].to(torch.int64).clamp(0, cfg.n_classes - 1)
-    gold = lg.gather(1, labels[:, None])[:, 0]
+    gold = take_along(lg, labels, 1)
     return (torch.logsumexp(lg, -1) - gold).mean()
 
 

@@ -7,64 +7,79 @@ d_out)); an int8-resident dense
 holds ``kernel_q`` (int8) and ``kernel_scale`` (float32, one per output
 channel) instead of ``kernel``, dequantized in the compute dtype.  Norm
 statistics accumulate in float32 whatever the compute dtype.  ``*_specs``
-build :class:`ParamSpec` subtrees with the JAX package's init rules.
+build :class:`ParamSpec` subtrees with the JAX package's logical axes and
+init rules.
 ``chunked_softmax_xent`` is the LM's loss, taken over chunks of the
 sequence so that only one chunk's logits exist at a time.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.quantize import quantize_kernel
 from repro_torch.param import spec
+from repro_torch.sharding import (is_dtensor, per_device, per_shard,
+                                  take_along, take_rows)
 
 
 # ----------------------------------------------------------------- specs ----
 
-def dense_specs(d_in: int, d_out: int, *, dtype: torch.dtype,
+def dense_specs(d_in: int, d_out: int, *, in_axis: Optional[str],
+                out_axis: Optional[str], dtype: torch.dtype,
                 bias: bool = False, quant: bool = False,
                 zero_init: bool = False) -> dict:
     if quant:
         # int8 weight + per-output-channel float32 scale (serving residency)
-        p = {"kernel_q": spec((d_in, d_out), dtype=torch.int8, init="zeros"),
-             "kernel_scale": spec((d_out,), dtype=torch.float32,
-                                  init="ones")}
+        p = {"kernel_q": spec((d_in, d_out), (in_axis, out_axis),
+                              dtype=torch.int8, init="zeros"),
+             "kernel_scale": spec((d_out,), (out_axis,),
+                                  dtype=torch.float32, init="ones")}
     else:
-        p = {"kernel": spec((d_in, d_out), dtype=dtype,
+        p = {"kernel": spec((d_in, d_out), (in_axis, out_axis), dtype=dtype,
                             init="zeros" if zero_init else "normal",
                             fan_in_axes=(0,))}
     if bias:
-        p["bias"] = spec((d_out,), dtype=dtype, init="zeros")
+        p["bias"] = spec((d_out,), (out_axis,), dtype=dtype, init="zeros")
     return p
 
 
-def rmsnorm_specs(d: int, dtype: torch.dtype) -> dict:
-    return {"scale": spec((d,), dtype=dtype, init="ones")}
+def rmsnorm_specs(d: int, dtype: torch.dtype,
+                  axis: Optional[str] = "embed") -> dict:
+    return {"scale": spec((d,), (axis,), dtype=dtype, init="ones")}
 
 
-def layernorm_specs(d: int, dtype: torch.dtype) -> dict:
-    return {"scale": spec((d,), dtype=dtype, init="ones"),
-            "bias": spec((d,), dtype=dtype, init="zeros")}
+def layernorm_specs(d: int, dtype: torch.dtype,
+                    axis: Optional[str] = "embed") -> dict:
+    return {"scale": spec((d,), (axis,), dtype=dtype, init="ones"),
+            "bias": spec((d,), (axis,), dtype=dtype, init="zeros")}
 
 
 def embed_specs(vocab: int, d: int, dtype: torch.dtype) -> dict:
-    return {"embedding": spec((vocab, d), dtype=dtype, init="embed")}
+    return {"embedding": spec((vocab, d), ("vocab", "embed"), dtype=dtype,
+                              init="embed")}
 
 
-def swiglu_specs(d: int, d_ff: int, dtype: torch.dtype,
-                 quant: bool = False) -> dict:
-    return {"gate": dense_specs(d, d_ff, dtype=dtype, quant=quant),
-            "up": dense_specs(d, d_ff, dtype=dtype, quant=quant),
-            "down": dense_specs(d_ff, d, dtype=dtype, quant=quant)}
+def swiglu_specs(d: int, d_ff: int, dtype: torch.dtype, in_axis="embed",
+                 out_axis="mlp", quant: bool = False) -> dict:
+    kw = dict(dtype=dtype, quant=quant)
+    return {"gate": dense_specs(d, d_ff, in_axis=in_axis, out_axis=out_axis,
+                                **kw),
+            "up": dense_specs(d, d_ff, in_axis=in_axis, out_axis=out_axis,
+                              **kw),
+            "down": dense_specs(d_ff, d, in_axis=out_axis, out_axis=in_axis,
+                                **kw)}
 
 
-def gelu_mlp_specs(d: int, d_ff: int, dtype: torch.dtype,
-                   quant: bool = False) -> dict:
-    return {"fc1": dense_specs(d, d_ff, dtype=dtype, bias=True, quant=quant),
-            "fc2": dense_specs(d_ff, d, dtype=dtype, bias=True, quant=quant)}
+def gelu_mlp_specs(d: int, d_ff: int, dtype: torch.dtype, in_axis="embed",
+                   out_axis="mlp", quant: bool = False) -> dict:
+    kw = dict(dtype=dtype, bias=True, quant=quant)
+    return {"fc1": dense_specs(d, d_ff, in_axis=in_axis, out_axis=out_axis,
+                               **kw),
+            "fc2": dense_specs(d_ff, d, in_axis=out_axis, out_axis=in_axis,
+                               **kw)}
 
 
 # ---------------------------------------------------------------- apply ----
@@ -78,10 +93,43 @@ def dense(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
              * params["kernel_scale"].to(compute_dtype))
     else:
         w = params["kernel"].to(compute_dtype)
-    y = x.to(compute_dtype) @ w
+    y = matmul(x.to(compute_dtype), w)
     if "bias" in params:
         y = y + params["bias"].to(compute_dtype)
     return y
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out).
+
+    On DTensors it runs per device (``local_map``) in the layout GSPMD
+    gives a dense layer, per mesh dim: a weight sharded on its output
+    axis is column parallel (x replicated there, the output sharded on
+    its last axis); else a weight sharded on its input axis is row
+    parallel (x sharded on its last axis, the output a partial sum); else
+    x keeps a shard of a leading axis and the weight is gathered (FSDP's
+    all-gather).  A weight shard that meets a batch-sharded x on the same
+    mesh dim is gathered too.  DTensor's own strategy is free to shard any
+    axis of a replicated product, unevenly too (197 ViT tokens over 16
+    devices), which the next op cannot broadcast."""
+    if not is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    last = x.ndim - 1
+    xs, ws, os_ = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        lead = isinstance(xp, Shard) and xp.dim < last
+        if lead:
+            xs.append(xp), ws.append(Replicate()), os_.append(xp)
+        elif wp == Shard(1):
+            xs.append(Replicate()), ws.append(wp), os_.append(Shard(last))
+        elif wp == Shard(0):
+            xs.append(Shard(last)), ws.append(wp), os_.append(Partial())
+        else:
+            xs.append(Replicate()), ws.append(Replicate())
+            os_.append(Replicate())
+    return per_device(lambda a, b: a @ b, os_, (xs, ws), x.device_mesh)(
+        x, w)
 
 
 def quantize_dense(kernel: torch.Tensor) -> dict:
@@ -133,7 +181,7 @@ def embed_lookup(params: dict, ids: torch.Tensor,
     ``mode="clip"``), so a bad id never poisons the batch."""
     table = params["embedding"]
     ids = ids.clamp(0, table.shape[0] - 1)
-    return table[ids].to(compute_dtype)
+    return take_rows(table, ids).to(compute_dtype)
 
 
 def embed_logits(params: dict, x: torch.Tensor,
@@ -171,7 +219,7 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.log_sigmoid``, -softplus(-x) = min(x, 0) - log1p(exp(-|x|)),
     with its gradient 1 - sigmoid(x) (``jnp.logaddexp``'s, 0.5 at 0)."""
-    return F.logsigmoid(x)
+    return per_shard(F.logsigmoid, x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -219,6 +267,6 @@ def chunked_softmax_xent(logits_fn: Callable[[torch.Tensor], torch.Tensor],
         gold_idx = labels[:, i:i + chunk].to(torch.int64)
         gold_idx = torch.where(gold_idx < 0, gold_idx + v,
                                gold_idx).clamp(0, v - 1)
-        gold = logits.gather(-1, gold_idx[..., None])[..., 0]
+        gold = take_along(logits, gold_idx, -1 % logits.ndim)
         total = total + (torch.logsumexp(logits, dim=-1) - gold).sum()
     return total / (b * s)

@@ -11,6 +11,7 @@ Port of ``repro/models/transformer.py``:
   prefill(cfg, params, tokens)               -> (last logits, hidden)
   init_cache(cfg, batch, max_seq, device)    -> KV cache
   decode_step(cfg, params, tokens, cache, pos) -> (logits (B, 1, V), cache)
+  cache_axes(cfg)                            -> the cache's logical axes
 
 Parameters and the cache take the JAX package's unscanned form, one dict
 per layer under ``"layer_{i}"`` (the port runs layers in a Python loop, not
@@ -36,22 +37,25 @@ CUDA tensor (``impl=None``); ``impl="torch"`` runs their plain versions, and
 a CPU tensor always does.  ``lm_loss`` takes the JAX package's training
 paths, ``impl="xla"`` (its default) or ``"chunked"``, which launch no
 kernel; with ``cfg.remat`` each layer is recomputed in the backward pass
-(``models/remat.py``, ``cfg.remat_policy``).  There are no sharding rules
-(ROADMAP item 14).
+(``models/remat.py``, ``cfg.remat_policy``).  The activations take the
+JAX package's logical constraints, which read the ambient mesh and rules
+(``sharding.with_logical_constraint``; no-ops outside a mesh).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.config import TransformerConfig, dtype_of
+from repro_torch.config import HardwareConfig, TransformerConfig, dtype_of
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, remat
-from repro_torch.param import convert_like, map_tree
+from repro_torch.param import convert_like, leaves, map_tree
 from repro_torch.param import init_params as _init_tree
+from repro_torch.sharding import with_logical_constraint
 
 LOSS_CHUNK = 512
 
@@ -84,6 +88,7 @@ def param_specs(cfg: TransformerConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_specs(cfg.d_model, cfg.vocab,
+                                          in_axis="embed", out_axis="vocab",
                                           dtype=dtype,
                                           quant=cfg.quant_weights)
     return p
@@ -95,8 +100,23 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     ``generator`` on ``device`` (a CUDA generator draws them on the card).
     As in the JAX package, the int8 leaves of a ``quant_weights`` config
     are zeros: quantize a floating-point tree instead
-    (``quantize.quantize_params``)."""
-    return _init_tree(param_specs(cfg), generator, device)
+    (``quantize.quantize_params``).
+
+    A config whose parameters exceed one card's memory
+    (``HardwareConfig.hbm_bytes``: ``mistral-large-123b``, 246 GB in bf16)
+    raises before anything is allocated: such a model is planned on the
+    meta device (``api.plan_cell``), and running it sharded over cards is
+    ROADMAP item 17 (the second half of item 14)."""
+    specs = param_specs(cfg)
+    nbytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                 for s in leaves(specs))
+    if nbytes > HardwareConfig.hbm_bytes:
+        raise NotImplementedError(
+            f"{cfg.name}: {nbytes / 1e9:.1f} GB of parameters do not fit "
+            f"one {HardwareConfig.hbm_bytes / 2**30:.0f} GiB card; running "
+            f"it sharded over cards is ROADMAP item 17 (the second half of "
+            f"item 14)")
+    return _init_tree(specs, generator, device)
 
 
 def convert_params(tree: dict, cfg: TransformerConfig,
@@ -155,6 +175,7 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor, *,
     dense model), as the JAX function returns it."""
     cdt = dtype_of(cfg.compute_dtype)
     x = layers.embed_lookup(params["embed"], tokens, cdt)
+    x = with_logical_constraint(x, ("batch", "seq", "embed"))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, aux = remat.run(_layer, cfg, params["layers"][f"layer_{i}"], x,
@@ -202,13 +223,23 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
     """A zeroed KV cache, ``{"layer_{i}": {"k", "v"}}`` of (batch, max_seq,
     n_kv_heads, head_dim) in the compute dtype; with ``cfg.quant_kv``
     int8 ``k`` / ``v`` and float32 ``k_scale`` / ``v_scale`` of (batch,
-    max_seq, n_kv_heads)."""
+    max_seq, n_kv_heads).  ``device="meta"`` gives the dry run's abstract
+    cache (``attention.cache_specs``), which allocates nothing."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
     return {f"layer_{i}": attn.init_cache(batch, max_seq, cfg.n_kv_heads,
                                           cfg.head_dim, dtype, device,
                                           quant_kv=cfg.quant_kv)
             for i in range(cfg.n_layers)}
+
+
+def cache_axes(cfg: TransformerConfig) -> dict:
+    """The logical axes of :func:`init_cache`'s tree, leaf for leaf."""
+    one = {"k": attn.CACHE_AXES, "v": attn.CACHE_AXES}
+    if cfg.quant_kv:
+        one["k_scale"] = attn.CACHE_SCALE_AXES
+        one["v_scale"] = attn.CACHE_SCALE_AXES
+    return {f"layer_{i}": dict(one) for i in range(cfg.n_layers)}
 
 
 def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
@@ -219,6 +250,7 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     ``attention.decode_attention``)."""
     cdt = dtype_of(cfg.compute_dtype)
     x = layers.embed_lookup(params["embed"], tokens, cdt)
+    x = with_logical_constraint(x, ("decode_batch", None, "embed"))
     for i in range(cfg.n_layers):
         lp = params["layers"][f"layer_{i}"]
         h = layers.rmsnorm(lp["ln_attn"], x, cfg.norm_eps, cdt)

@@ -37,6 +37,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, remat
 from repro_torch.param import convert_like, map_tree, spec
 from repro_torch.param import init_params as init_tree
+from repro_torch.sharding import (per_shard, replicated, take_along,
+                                  with_logical_constraint)
 
 
 # ------------------------------------------------------------ parameters ----
@@ -62,21 +64,28 @@ def param_specs(cfg: ViTConfig) -> dict:
     patch_dim = cfg.in_channels * cfg.patch * cfg.patch
     if cfg.patch_embed == "conv":
         pe = {"kernel": spec((cfg.patch, cfg.patch, cfg.in_channels, d),
+                             (None, None, "in_channels", "embed"),
                              dtype=dtype, fan_in_axes=(0, 1, 2)),
-              "bias": spec((d,), dtype=dtype, init="zeros")}
+              "bias": spec((d,), ("embed",), dtype=dtype, init="zeros")}
     else:
-        pe = layers.dense_specs(patch_dim, d, dtype=dtype, bias=True)
+        pe = layers.dense_specs(patch_dim, d, in_axis="patch",
+                                out_axis="embed", dtype=dtype, bias=True)
     p = {
         "patch_embed": pe,
-        "cls_token": spec((1, 1, d), dtype=dtype, init="pos"),
-        "pos_embed": spec((1, cfg.n_tokens, d), dtype=dtype, init="pos"),
+        "cls_token": spec((1, 1, d), (None, None, "embed"), dtype=dtype,
+                          init="pos"),
+        "pos_embed": spec((1, cfg.n_tokens, d), (None, "seq", "embed"),
+                          dtype=dtype, init="pos"),
         "layers": [_layer_specs(cfg, dtype)] * cfg.n_layers,
         "ln_f": layers.layernorm_specs(d, dtype),
-        "head": layers.dense_specs(d, cfg.n_classes, dtype=dtype, bias=True),
+        "head": layers.dense_specs(d, cfg.n_classes, in_axis="embed",
+                                   out_axis="vocab", dtype=dtype, bias=True),
     }
     if cfg.distill_token:
-        p["dist_token"] = spec((1, 1, d), dtype=dtype, init="pos")
-        p["head_dist"] = layers.dense_specs(d, cfg.n_classes, dtype=dtype,
+        p["dist_token"] = spec((1, 1, d), (None, None, "embed"), dtype=dtype,
+                               init="pos")
+        p["head_dist"] = layers.dense_specs(d, cfg.n_classes, in_axis="embed",
+                                            out_axis="vocab", dtype=dtype,
                                             bias=True)
     return p
 
@@ -192,7 +201,9 @@ def forward(cfg: ViTConfig, params: dict, images: torch.Tensor, *,
     grid_pos = pos[:, n_extra:, :]
     n_patches = x.shape[1]
     if n_patches != grid_pos.shape[1]:
-        grid_pos = resize_grid(grid_pos, int(round(n_patches ** 0.5)))
+        side = int(round(n_patches ** 0.5))
+        grid_pos = per_shard(lambda g: resize_grid(g, side),
+                             replicated(grid_pos))
     x = x + grid_pos
 
     d = x.shape[-1]
@@ -201,6 +212,7 @@ def forward(cfg: ViTConfig, params: dict, images: torch.Tensor, *,
         toks.append((params["dist_token"].to(cdt)
                      + pos[:, 1:2, :]).expand(b, 1, d))
     x = torch.cat(toks + [x], dim=1)
+    x = with_logical_constraint(x, ("batch", "seq", "embed"))
 
     x = encoder(cfg, params, x, impl)
     logits = layers.dense(params["head"], x[:, 0, :], cdt)
@@ -212,7 +224,7 @@ def forward(cfg: ViTConfig, params: dict, images: torch.Tensor, *,
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lg = logits.to(torch.float32)
-    gold = lg.gather(1, labels[:, None])[:, 0]
+    gold = take_along(lg, labels, 1)
     return (torch.logsumexp(lg, -1) - gold).mean()
 
 

@@ -1,10 +1,13 @@
-"""Parameter spec trees: one source of truth for shapes and init rules.
+"""Parameter spec trees: one source of truth for shapes, axes and init.
 
 Port of ``repro/param.py``.  A model's ``param_specs(cfg)`` is a nested
-dict of :class:`ParamSpec`; :func:`init_params` materialises it with the
-JAX package's rules and :func:`count_params` counts it.  The logical
-sharding axes of the JAX specs are dropped: the port runs on one card
-(sharding is ROADMAP item 14).
+dict (and list) of :class:`ParamSpec`.  From that one tree come:
+
+* :func:`abstract_params` — ``meta`` tensors (the dry run; no memory),
+* :func:`init_params`     — materialised tensors, the JAX package's rules,
+* :func:`param_pspecs`    — a ``PartitionSpec`` tree via the logical-axis
+  rules (``sharding.py``),
+* :func:`count_params`    — the exact parameter count.
 """
 from __future__ import annotations
 
@@ -16,22 +19,32 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding import Rules, divisible_spec, logical_to_spec
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # a logical axis name (or None) a dim
     dtype: torch.dtype = torch.float32
     init: str = "normal"        # normal | zeros | ones | embed | pos
     scale: float = 1.0          # stddev multiplier
     fan_in_axes: Tuple[int, ...] = ()  # dims of the fan-in (default: all
     #                                    but the last)
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} with axes {self.axes}")
 
-def spec(shape: Sequence[int], *, dtype: torch.dtype = torch.float32,
-         init: str = "normal", scale: float = 1.0,
-         fan_in_axes: Tuple[int, ...] = ()) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, init, scale, tuple(fan_in_axes))
+
+def spec(shape: Sequence[int], axes: Optional[Sequence[Optional[str]]] = None,
+         *, dtype: torch.dtype = torch.float32, init: str = "normal",
+         scale: float = 1.0, fan_in_axes: Tuple[int, ...] = ()
+         ) -> ParamSpec:
+    """A leaf spec; ``axes`` None names no axis (replicated everywhere)."""
+    axes = (None,) * len(shape) if axes is None else tuple(axes)
+    return ParamSpec(tuple(shape), axes, dtype, init, scale,
+                     tuple(fan_in_axes))
 
 
 def map_tree(fn: Callable, tree):
@@ -42,6 +55,40 @@ def map_tree(fn: Callable, tree):
     if isinstance(tree, list):
         return [map_tree(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_map_specs(fn: Callable, specs):
+    """``fn`` on every :class:`ParamSpec` of a spec tree, keeping the
+    structure."""
+    return map_tree(fn, specs)
+
+
+def abstract_params(specs):
+    """The tree as ``meta`` tensors of each spec's shape and dtype: the
+    dry run's stand-in for the parameters (``jax.ShapeDtypeStruct``s in
+    the JAX package), which allocates nothing."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+def param_pspecs(specs, rules: Rules, mesh=None):
+    """PartitionSpec tree for the params.
+
+    With ``mesh`` given, mesh axes whose size does not evenly divide the
+    corresponding dim are dropped (input shardings must divide evenly;
+    e.g. 40 heads cannot shard over a 16-way "model" axis — the weight
+    stays replicated while activation constraints may still shard unevenly).
+    """
+    if mesh is None:
+        return map_tree(lambda s: logical_to_spec(s.axes, rules), specs)
+    return map_tree(lambda s: divisible_spec(s.shape, s.axes, rules, mesh),
+                    specs)
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """Every tensor leaf cast to ``dtype`` (other leaves kept)."""
+    return map_tree(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    else x, tree)
 
 
 def from_numpy(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

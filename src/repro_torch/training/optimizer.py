@@ -9,8 +9,8 @@ corrections divide the moments, and the weight decay is added to the step
 (not applied apart afterwards, as ``torch.optim.AdamW`` does, whose bias
 correction also differs).  Leaves are taken in ``jax.tree_util``'s order
 (``param.sorted_leaves``), so the global norm sums in the reference's
-order.  The JAX ``abstract_state`` (shape-only state for the dry run)
-waits for ROADMAP item 14's meta-device dry run.
+order.  :func:`abstract_state` is the dry run's state: ``meta`` tensors,
+which allocate nothing.
 """
 from __future__ import annotations
 
@@ -57,6 +57,16 @@ def init(params) -> dict:
     device = sorted_leaves(params)[0].device
     return {"m": map_tree(zeros32, params), "v": map_tree(zeros32, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_state(abstract_params) -> dict:
+    """The state of :func:`init` as ``meta`` tensors (the dry run's
+    stand-in; ``jax.ShapeDtypeStruct``s in the JAX package)."""
+    def meta32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"m": map_tree(meta32, abstract_params),
+            "v": map_tree(meta32, abstract_params),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def convert_state(state: dict, convert: Callable) -> dict:

@@ -247,9 +247,9 @@ def test_partition_of_no_boxes_is_empty():
 
 
 def test_unported_arch_ids_name_their_item():
-    """``mistral-large-123b`` (246 GB in bf16) waits on item 14 alone, its
-    weights sharded over cards; the MoE ids resolve and build at reduced
-    width."""
+    """``mistral-large-123b`` (246 GB in bf16) resolves, but its full
+    width refuses one card, naming item 17 (its weights sharded over
+    cards); the MoE ids resolve and build at reduced width."""
     from repro_torch import configs
     from repro_torch.configs.reduced import reduce_arch
     from repro_torch.models import transformer
@@ -261,10 +261,13 @@ def test_unported_arch_ids_name_their_item():
         h, aux = transformer.forward(cfg, params,
                                      torch.zeros((1, 64), dtype=torch.long))
         assert h.shape == (1, 64, cfg.d_model) and float(aux) > 0
+    mistral = configs.get("mistral-large-123b")
+    assert mistral.n_layers == 88
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP item 14 \(weights sharded over "
-                             r"cards\)") as err:
-        configs.get("mistral-large-123b")
-    assert "11" not in str(err.value)
+                       match=r"ROADMAP item 17 \(the second half of item "
+                             r"14\)") as err:
+        transformer.init_params(mistral, torch.Generator().manual_seed(0),
+                                "cpu")
+    assert "sharded over cards" in str(err.value)
     for arch in ("vit-b16", "deit-b", "dit-s2", "dit-xl2"):
         assert configs.get(arch).name == arch

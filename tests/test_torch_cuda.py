@@ -17,17 +17,18 @@ from repro_torch.core import gmm
 from repro_torch.core import sequence_packing
 from repro_torch.core.config import ServeConfig
 from repro_torch.core.engine import (InvokerPool, ModelRuntime, ServingEngine,
-                                     make_executor, slo_class, uniform_pool)
+                                     data_devices, make_executor, slo_class,
+                                     uniform_pool)
 from repro_torch.core.invoker import SLOAwareInvoker
 from repro_torch.core.latency import LatencyTable
 from repro_torch.core.models import make_model
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.scheduler import TangramScheduler
-from repro_torch.core.workers import (device_worker_pool, make_placement,
-                                      worker_device)
+from repro_torch.core.workers import device_worker_pool, make_placement
 from repro_torch.core.stitching import build_batch_plan, stitch
 from repro_torch.data import loader
 from repro_torch.kernels.attention import flash as flash_kernels
+from repro_torch.launch.mesh import make_worker_meshes
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.launches import LAUNCHES, reset_launches
 from repro_torch.kernels.gmm import ops as gmm_ops
@@ -1146,7 +1147,8 @@ def test_decode_kernel_at_side_64(cuda, dtype):
 
 @pytest.mark.parametrize("fuse", [False, True])
 def test_two_worker_model_pool_on_card(cuda, fuse):
-    """Two async workers on ``worker_device(i)`` (one card: both on it),
+    """Two async workers on the serve meshes of ``make_worker_meshes(2)``
+    (one card: both on it),
     model placement over two reduced registry models (``vit_s16`` at
     patch 16, ``efficientnet_b7`` at 32) on a two-class trace: kernels and
     plain versions route the same detections and evidence, each model's
@@ -1171,16 +1173,18 @@ def test_two_worker_model_pool_on_card(cuda, fuse):
                                   **(fused_fields(c, pr) if fuse else {}))
                   for n, (c, pr, fn) in builds.items()}
         cfg, params, fn = builds["vit_s16"]
+        meshes = make_worker_meshes(2)
         pool = device_worker_pool(
             2, lambda i: make_executor(
                 "async_device", serve_fn=fn, params=params, canvas_m=128,
-                canvas_n=128, device=worker_device(i), impl=impl,
-                clock=lambda: 0.0, models=models,
+                canvas_n=128, device=data_devices(meshes[i])[0],
+                mesh=meshes[i], impl=impl, clock=lambda: 0.0,
+                models=models,
                 **(fused_kwargs(cfg, params) if fuse else {})),
             placement=make_placement("model"))
         assert [w.device for w in pool.workers] == [
-            torch.device("cuda", i % torch.cuda.device_count())
-            for i in range(2)]
+            data_devices(m)[0] for m in meshes]
+        assert all(w.device.type == "cuda" for w in pool.workers)
         for fid, (px, n) in frames.items():
             pool.add_frame(fid, px, n)
         launched = {}
@@ -1358,3 +1362,62 @@ def test_train_step_on_card_matches_cpu(cuda):
         for g, w in zip(got, want):
             assert float((g - w).abs().max()) <= tol * float(
                 w.abs().max().clamp(min=1e-30))
+
+
+def test_data_parallel_split_over_the_card_twice(cuda):
+    """The reduced detector (canvas 256, bf16) on a data=2 serve mesh laid
+    over the card twice: ``shard_canvases`` splits a 3-canvas batch into
+    two padded chunks on the card, and ``serve_sharded``'s objectness
+    and boxes equal one call on the whole batch within bf16 rounding
+    (the half batch may tile its GEMMs otherwise)."""
+    from repro_torch.core.engine import shard_canvases
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import detector
+    cfg = dataclasses.replace(reduce_arch(get("tangram-detector")),
+                              canvas=256, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = detector.init_params(cfg, torch.Generator().manual_seed(5),
+                                  cuda)
+    x = torch.rand((3, 256, 256, 3),
+                   generator=torch.Generator(device=cuda).manual_seed(5),
+                   device=cuda)
+    fn = detector.serve_fn(cfg)
+    mesh = make_serve_mesh(devices=[cuda, cuda])
+    chunks, sharded = shard_canvases(x, mesh)
+    assert sharded and [c.shape[0] for c in chunks] == [2, 2]
+    assert all(c.device.type == cuda.type for c in chunks)
+    rt = ModelRuntime(fn, params, 256, 256, mesh=mesh)
+    obj, boxes = rt.serve_sharded(chunks, 3, cuda)
+    want_obj, want_boxes = fn(params, x)
+    assert obj.shape == want_obj.shape and boxes.device.type == cuda.type
+    torch.testing.assert_close(obj.float(), want_obj.float(), rtol=0,
+                               atol=2e-2)
+    torch.testing.assert_close(boxes.float(), want_boxes.float(), rtol=2e-2,
+                               atol=1.0)
+
+
+def test_dry_run_flops_equal_a_card_run(cuda):
+    """The reduced detector's serve step planned and counted on the unit
+    mesh (``dryrun.count_metrics``) against ``FlopCounterMode`` over the
+    same step on the card: FLOPs and argument bytes equal."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import api
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_unit_mesh
+    from repro_torch.sharding import ShardingConfig
+    cfg = dataclasses.replace(reduce_arch(get("tangram-detector")),
+                              canvas=256, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    shape = ShapeConfig("serve_c4", "serve", img_res=256, global_batch=4)
+    mesh = make_unit_mesh()
+    plan = api.plan_cell(cfg, shape, mesh, ShardingConfig.make().rules)
+    counted = dryrun.count_metrics(plan, mesh)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    from repro_torch import param as tparam
+    params = tparam.init_params(api.param_specs(cfg), gen, cuda)
+    x = torch.rand((4, 256, 256, 3), generator=gen, device=cuda)
+    with FlopCounterMode(display=False) as fc:
+        plan.step_fn(params, x)
+    assert counted["flops"] == fc.get_total_flops() > 0
+    assert counted["args"] == hlo_analysis.local_bytes((params, x))

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module and
 ``chip_smoke`` pulls in neither JAX nor the JAX package, needs no CUDA
-compiler, and builds no kernel; entry points default to CUDA and never
-fall back to the CPU."""
+compiler, builds no kernel, starts no process group and sets no
+environment variable; entry points default to CUDA and never fall back to
+the CPU."""
 import json
 import os
 import pathlib
@@ -30,15 +31,25 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 names += ["repro_torch.serverless.platform", "repro_torch.core.scheduler",
           "repro_torch.core.baselines", "repro_torch.core.adaptive",
           "repro_torch.core.cost", "repro_torch.models.quantize",
-          "repro_torch.core.workers", "repro_torch.models.efficientnet"]
+          "repro_torch.core.workers", "repro_torch.models.efficientnet",
+          "repro_torch.compat.shardingx", "repro_torch.sharding",
+          "repro_torch.api", "repro_torch.launch.mesh",
+          "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+          "repro_torch.configs.mistral_large_123b"]
+import os
+env = dict(os.environ)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import torch.distributed as dist
 from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({{"modules": len(names), "bad": bad,
-                   "builds": len(_build.BUILDS)}}))
+                   "builds": len(_build.BUILDS),
+                   "process_group": dist.is_initialized(),
+                   "env_changed": sorted(k for k in set(env) | set(os.environ)
+                                         if env.get(k) != os.environ.get(k))}}))
 """
 
 
@@ -52,6 +63,37 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert out["modules"] >= 25
     assert out["bad"] == []
     assert out["builds"] == 0          # nothing compiled at import
+    # the mesh, sharding and dry-run modules start no process group (the
+    # dry run's fake group starts on first use) and set no environment
+    # variable (the JAX dry run sets XLA_FLAGS at import)
+    assert out["process_group"] is False
+    assert out["env_changed"] == []
+
+
+_SERVE_PROBE = """
+import json, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import chip_smoke
+from repro_torch.launch import serve, train
+from repro_torch.models import (attention, detector, dit, efficientnet,
+                                moe, transformer, vit)
+from repro_torch.training import elastic, optimizer, train_state
+print(json.dumps([m for m in ("torch.distributed.tensor", "sympy")
+                  if m in sys.modules]))
+"""
+
+
+def test_serving_and_training_import_no_dtensor():
+    """The serve and train paths, the models and ``chip_smoke`` import
+    neither DTensor nor what it pulls in (sympy and some 500 more modules,
+    which every full garbage collection of a host-bound serving, decode or
+    training loop would walk); only the dry run imports it."""
+    code = _SERVE_PROBE.format(src=str(ROOT / "src"), root=str(ROOT))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("path", sorted(

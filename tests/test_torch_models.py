@@ -103,8 +103,10 @@ def test_arch_configs_equal_jax():
         jeff.count_params(jeff_b7.ARCH) == 66_585_480
     for f in ("img_res", "patch", "n_layers", "d_model", "n_heads", "d_ff"):
         assert getattr(vit_s16.ARCH, f) == getattr(jvit_s16.ARCH, f)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        configs.get("mistral-large-123b")
+    from repro_torch.models import transformer
+    with pytest.raises(NotImplementedError, match="item 17"):
+        transformer.init_params(configs.get("mistral-large-123b"),
+                                torch.Generator(), "cpu")
 
 
 @pytest.mark.parametrize("name", ["vit_s16", "efficientnet_b7",

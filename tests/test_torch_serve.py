@@ -564,3 +564,180 @@ def test_fused_executor_refuses_a_model_without_fused_fields():
     assert ex._runtime("unmapped") is ex.runtime
     with pytest.raises(ValueError, match="default runtime is missing"):
         DeviceExecutor(fn, params, CANVAS, CANVAS, device="cpu", fuse=True)
+
+
+# ------------------------------------------- the data-parallel canvas batch ----
+
+def _lines(out: str, prefix: str, violations: bool = True):
+    """The lines starting with ``prefix``, wall time blanked (and the SLO
+    violations, which follow each host's timing, unless ``violations``)."""
+    lines = [re.sub(r"[\d.]+s wall", "-s wall", line)
+             for line in out.splitlines() if line.startswith(prefix)]
+    if not violations:
+        lines = [re.sub(r"\d+ SLO violations", "- SLO violations", line)
+                 for line in lines]
+    return lines
+
+
+@pytest.mark.parametrize("fuse", [[], ["--fuse"]])
+def test_serve_cli_mesh_and_summary_lines_equal_jax_driver(
+        fuse, jax_weights, pinned_tables, capsys):
+    """On one device the ``serve mesh:`` line and the whole summary line,
+    ``0 data-parallel over data=1`` included, equal the JAX driver's
+    apart from wall time (pinned tables and step clocks fix the
+    violations too)."""
+    args = ["--frames", "16", "--canvas", "128", "--slo", "5.0"] + fuse
+    jserve.main(args)
+    want = capsys.readouterr().out
+    tserve.main(["--device", "cpu"] + args)
+    got = capsys.readouterr().out
+    for prefix in ("serve mesh:", "served "):
+        assert _lines(got, prefix) == _lines(want, prefix), prefix
+    assert "0 data-parallel over data=1)" in _lines(got, "served ")[0]
+    assert "serve mesh: 1 worker(s) x data=1 model=1 (1 devices each)" in got
+
+
+def _perturbed(params):
+    """The JAX driver's weights moved by a seeded normal (0.3), so that
+    its detector routes detections (the raw init routes none)."""
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    rng = np.random.default_rng(0)
+    return jax.tree_util.tree_unflatten(tree, [
+        x + jnp.asarray(rng.normal(size=x.shape) * 0.3, x.dtype)
+        for x in leaves])
+
+
+_PERTURBED_DRIVER = """
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.launch import serve
+build = serve.build_detector
+
+
+def perturbed(params):
+{body}
+
+
+def build_perturbed(canvas=256, quantize=False):
+    cfg, params, fn, rules = build(canvas, quantize=quantize)
+    return cfg, perturbed(params), fn, rules
+
+
+serve.build_detector = build_perturbed
+serve.main(sys.argv[1:])
+"""
+
+
+def _jax_driver_on_8_devices(args):
+    """The JAX driver on eight fake host devices, in a subprocess (jax
+    fixes its device count at start), serving :func:`_perturbed`
+    weights."""
+    import inspect
+    import os
+    import subprocess
+    import sys
+    body = inspect.getsource(_perturbed).split('"""')[-1]
+    code = _PERTURBED_DRIVER.format(body=body.rstrip())
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    r = subprocess.run([sys.executable, "-c", code, *args],
+                       capture_output=True, text=True, env=env, timeout=900)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+
+
+@pytest.fixture
+def perturbed_weights(monkeypatch):
+    """The port's driver serves :func:`_perturbed` JAX driver weights."""
+    def build(canvas=256, quantize=False, device=None):
+        cfg, params, _, _ = jserve.build_detector(canvas, quantize=quantize)
+        tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
+                                 dataclasses.fields(DetectorConfig)})
+        tparams = tdet.convert_params(
+            jax.tree_util.tree_map(np.asarray, _perturbed(params)), tcfg,
+            torch.device("cpu"))
+        return tcfg, tparams, tdet.serve_fn(tcfg)
+    monkeypatch.setattr(tserve, "build_detector", build)
+
+
+def test_serve_cli_data_parallel_on_8_devices_equals_jax_driver(
+        perturbed_weights, capsys):
+    """The port on eight CPU devices (in process) against the JAX driver
+    on eight fake host devices (a subprocess), on the JAX driver's
+    weights: the ``serve mesh:`` and summary lines equal apart from wall
+    time and SLO violations (the JAX subprocess's own timing, its
+    compiles included, decides those); every invocation split its batch
+    over data=8; patches and detections equal the one-device run's
+    (sharding changes no result).  SLO 120 s: batching follows the memory
+    bound and the final flush alone, never this host's timing."""
+    args = ["--frames", "16", "--canvas", "128", "--slo", "120"]
+    want = _jax_driver_on_8_devices(args)
+    tserve.main(["--device", "cpu"] + args,
+                devices=[torch.device("cpu")] * 8)
+    got = capsys.readouterr().out
+    for prefix in ("serve mesh:", "served "):
+        assert _lines(got, prefix, violations=False) == \
+            _lines(want, prefix, violations=False), prefix
+    assert "serve mesh: 1 worker(s) x data=8" in got
+    served = _lines(got, "served ")[0]
+    assert "data-parallel over data=8" in served
+    assert "(0 data-parallel" not in served
+    tserve.main(["--device", "cpu"] + args)
+    one = capsys.readouterr().out
+    assert _summary(one)[:3:2] == _summary(got)[:3:2]
+    assert _summary(got)[0] > 0 and _summary(got)[2] > 0
+
+
+def test_serve_cli_worker_pool_slices_8_devices_like_jax_driver(
+        perturbed_weights, capsys):
+    """``--workers 2`` over eight CPU devices: two data=4 slices, every
+    patch served data-parallel within its slice, the pool's shared frame
+    store drained; the JAX driver on eight fake devices prints the same
+    mesh line."""
+    args = ["--frames", "16", "--canvas", "128", "--slo", "120",
+            "--workers", "2", "--placement", "least", "--online-latency"]
+    want = _jax_driver_on_8_devices(args)
+    tserve.main(["--device", "cpu"] + args,
+                devices=[torch.device("cpu")] * 8)
+    got = capsys.readouterr().out
+    assert _lines(got, "serve mesh:") == _lines(want, "serve mesh:")
+    assert "serve mesh: 2 worker(s) x data=4" in got
+    served = _lines(got, "served ")[0]
+    assert "data-parallel over data=4" in served
+    assert "(0 data-parallel" not in served
+    assert "0 frames still held" in served
+    assert _summary(got)[:3:2] == _summary(want)[:3:2]
+    workers = [line for line in got.splitlines()
+               if line.strip().startswith("worker ")]
+    assert len(workers) == 2 and all("drift" in w for w in workers)
+
+
+def test_shard_canvases_pads_splits_and_serves_like_one_device():
+    """``shard_canvases`` pads the batch to a multiple of data with zero
+    canvases and splits it a chunk a device; ``serve_sharded`` on the
+    chunks equals ``serve_fn`` on the whole batch, pad rows dropped."""
+    from repro_torch.core.engine import ModelRuntime, shard_canvases
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg = DetectorConfig(name="d", canvas=64, patch=32, n_layers=1,
+                         d_model=16, n_heads=2, d_ff=32,
+                         param_dtype="float32", compute_dtype="float32")
+    params = tdet.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    fn = tdet.serve_fn(cfg)
+    x = torch.rand(3, 64, 64, 3)
+    mesh = make_serve_mesh(devices=[torch.device("cpu")] * 4)
+    chunks, sharded = shard_canvases(x, mesh)
+    assert sharded and [tuple(c.shape) for c in chunks] == [(1, 64, 64, 3)] * 4
+    assert torch.equal(torch.cat(chunks)[:3], x)
+    assert not torch.cat(chunks)[3:].any()
+    rt = ModelRuntime(fn, params, 64, 64, mesh=mesh)
+    assert len(rt.replicas) == 4 and rt.replicas[1] is rt.replicas[0]
+    obj, boxes = rt.serve_sharded(chunks, 3, torch.device("cpu"))
+    want_obj, want_boxes = fn(params, x)
+    torch.testing.assert_close(obj, want_obj, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(boxes, want_boxes, rtol=1e-5, atol=1e-4)
+    one = make_serve_mesh(devices=[torch.device("cpu")])
+    chunks, sharded = shard_canvases(x, one)
+    assert not sharded and len(chunks) == 1 and chunks[0] is x
+    assert ModelRuntime(fn, params, 64, 64, mesh=one).replicas[0] is not \
+        params

@@ -240,8 +240,8 @@ def test_unported_features_raise_naming_their_item():
     mcfg = dataclasses.replace(tcfg, moe=MoEConfig(n_experts=4, top_k=2))
     assert "moe" in ttr.param_specs(mcfg)["layers"]["layer_0"]
     assert get("deepseek-moe-16b").moe.top_k == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        get("mistral-large-123b")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        ttr.init_params(get("mistral-large-123b"), torch.Generator(), "cpu")
     with pytest.raises(KeyError):
         get("gpt-2")
     assert get("tangram-detector").canvas == 1024

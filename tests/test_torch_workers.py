@@ -40,6 +40,7 @@ from repro_torch.core.partitioning import Patch
 from repro_torch.data.video import Arrival
 from repro_torch.serverless.platform import Platform, PlatformConfig
 from repro_torch.serverless.platform import split_platform
+from repro_torch.launch.mesh import make_worker_meshes
 
 #: (weight_bytes, load_s) of three models
 MODELS = {"a": (4e6, 0.4), "b": (3e6, 0.3), "c": (6e6, 0.6)}
@@ -386,15 +387,18 @@ def _tiny_serve_fn(params, x):
 
 
 def test_device_pool_shares_one_frame_store_on_cpu():
-    """``device_worker_pool`` on the CPU: workers on ``worker_device(i)``
-    (the CPU stays the CPU), one frame store, every frame released
-    whichever worker routed its patches."""
-    assert tw.worker_device(3, "cpu") == torch.device("cpu")
+    """``device_worker_pool`` on the CPU: workers on the serve meshes of
+    ``make_worker_meshes`` over the CPU (one device, both workers on it),
+    one frame store, every frame released whichever worker routed its
+    patches."""
+    meshes = make_worker_meshes(2, devices=[torch.device("cpu")])
     pool = tw.device_worker_pool(
         2, lambda i: AsyncDeviceExecutor(
-            _tiny_serve_fn, None, 64, 64, device=tw.worker_device(i, "cpu"),
+            _tiny_serve_fn, None, 64, 64, device="cpu", mesh=meshes[i],
             max_inflight=2, clock=lambda: 0.0),
         placement=tw.make_placement("round"))
+    assert [w.mesh for w in pool.workers] == meshes
+    assert all(w.device == torch.device("cpu") for w in pool.workers)
     assert pool.workers[0].store is pool.workers[1].store
     assert pool.max_inflight == 4
     patches = [Patch(0, 0, 32, 32, frame_id=i // 2, t_gen=0.05 * i,
@@ -407,3 +411,33 @@ def test_device_pool_shares_one_frame_store_on_cpu():
     assert len(pool.frames) == 0
     assert [w["invocations"] for w in pool.worker_stats()] == [4, 4]
     assert pool.n_invocations == 8 and pool.evidence_bytes > 0
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_device_pool_sums_data_parallel_invocations(n_data):
+    """Each worker executor on its own serve-mesh slice of CPU devices
+    (``make_worker_meshes``, as the JAX driver slices its mesh): an
+    invocation whose canvas batch the slice's data axis split counts in
+    the worker's ``n_sharded``, and the pool sums them, as the JAX pool's
+    ``n_sharded`` does (``WorkerPoolExecutor._sum``)."""
+    from repro_torch.launch.mesh import make_worker_meshes
+    meshes = make_worker_meshes(2, [torch.device("cpu")] * (2 * n_data))
+    assert [m.shape["data"] for m in meshes] == [n_data, n_data]
+    pool = tw.device_worker_pool(
+        2, lambda i: AsyncDeviceExecutor(
+            _tiny_serve_fn, None, 64, 64, device="cpu", max_inflight=2,
+            clock=lambda: 0.0, mesh=meshes[i]),
+        placement=tw.make_placement("round"))
+    patches = [Patch(0, 0, 32, 32, frame_id=i // 2, t_gen=0.05 * i,
+                     slo=1e-6) for i in range(8)]
+    for f in range(4):
+        pool.add_frame(f, np.zeros((64, 64, 3), np.float32), 2)
+    eng = ServingEngine(uniform_pool(64, 64, LatencyTable(dict(TABLE))),
+                        pool)
+    eng.run([Arrival(p.t_gen, p, 0.0) for p in patches])
+    assert pool.n_invocations == 8 and len(pool.frames) == 0
+    per = [w.n_sharded for w in pool.workers]
+    assert pool.n_sharded == sum(per)
+    assert per == ([4, 4] if n_data > 1 else [0, 0])
+    assert jw.WorkerPoolExecutor.n_sharded.fget.__code__.co_names == \
+        tw.WorkerPoolExecutor.n_sharded.fget.__code__.co_names
