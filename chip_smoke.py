@@ -229,11 +229,29 @@ Phases (any failure raises, so the exit code is non-zero):
    (``dryrun.cut_depth``: widths, microbatches and sampler steps as the
    cells have them; the full depth is the CLI's): all 40 cells must
    plan and count (rows in ``build/dryrun_production.json``);
+12. the hillclimb (``launch/hillclimb.py``) and the masked KV-cache
+   write: (a) the K4 tile search (``run_kernel_blocks``) at the K4 rows'
+   geometries (1024^2 canvases; ``tangram`` patch 32 d 768, ``vit_s16``
+   patch 16 d 384, ``efficientnet_b7`` patch 32 d 512): every tile of
+   ``K4_TILES`` bit-equal to the default tile and within 2e-2 of the
+   plain version, each tile's host-clock and CUDA-graph times, and
+   ``pick_tile``'s answer; (b) phase 8's full-width ``minitron-4b`` (its
+   weights kept in host memory since phase 8b, no second draw) fills a
+   cache with 32 teacher-forced steps, then 16 steps through K7 with
+   ``cache_update="masked"`` from a copy of it against the same 16 with
+   ``"dus"``: logits and caches bit-equal, the masked run's input cache
+   untouched, K7 once a layer a step, one step's time each beside its
+   byte bound; (c) meanwhile, in worker processes, the hillclimb's 23
+   variants and ``detector_stitch`` on the 16 x 16 production mesh, every
+   model cut to ``DRYRUN_DEPTH`` layers, direct counts (rows in
+   ``build/hillclimb.json``; their ``t_*`` are the plan priced on the
+   H100 data sheet, not measurements);
 9. print one JSON line of kernels (K1-K7, the K4/K3 rows of phase 5f's
    models, named ``kernel[model]``, phase 8c's ``K6[vit-b16]`` and
    ``K6[dit-xl2]`` and phase 8d's ``K6[deepseek-moe-16b]`` and
    ``K7[deepseek-moe-16b]``; ``launches_by_path`` has phase 10's
-   ``train`` counts, all 0, and phase 11's serve runs) and, last,
+   ``train`` counts, all 0, phase 11's serve runs and phase 12's tile
+   search and decode runs) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -503,6 +521,13 @@ DP_DATA = 2
 DRYRUN_CELLS = ("serve_c1", "serve_c8")
 DRYRUN_SEED = 24
 DRYRUN_DEPTH = 2
+#: phase 12(a): the K4 rows' geometries at canvas 1024 (registry model,
+#: patch, d: the detectors' trunks)
+K4_GEOMETRIES = (("tangram", PATCH, D_MODEL), ("vit_s16", 16, 384),
+                 ("efficientnet_b7", PATCH, 512))
+#: phase 12(b): teacher-forced steps that fill the cache, then the steps
+#: run with each cache write
+MASKED_PREFIX, MASKED_STEPS = 32, 16
 
 
 def log(msg: str) -> None:
@@ -4708,6 +4733,193 @@ def mesh_phase(device, by_path: dict, card: str) -> None:
         raise AssertionError(f"dry run: {len(failures)} cells failed")
 
 
+# --------------------------------------------------------------- phase 12 ----
+
+def hillclimb_production() -> tuple:
+    """Phase 12(c): the hillclimb's 23 variants and ``detector_stitch``
+    on the 16 x 16 production mesh, every model cut to ``DRYRUN_DEPTH``
+    layers, direct counts only (``--quick``), in worker processes (one a
+    host CPU, each with its own fake process group; no card memory).
+    Returns (rows, failures, seconds)."""
+    from repro_torch.launch import hillclimb
+    t0 = time.perf_counter()
+    jobs = hillclimb.jobs_for(list(hillclimb.CELLS) + ["detector_stitch"],
+                              quick=True, depth=DRYRUN_DEPTH)
+    rows, failures = hillclimb.run_jobs(jobs, echo=False)
+    return rows, failures, time.perf_counter() - t0
+
+
+def kernel_blocks_phase(by_path: dict, out: str) -> list:
+    """Phase 12(a): ``hillclimb.run_kernel_blocks`` at each of
+    ``K4_GEOMETRIES``: every tile of ``K4_TILES`` bit-equal to the default
+    tile and within K4's tolerance of the plain version; the rows go to
+    ``out``; ``pick_tile``'s answer for each geometry."""
+    from repro_torch.launch import hillclimb
+    reset_launches()
+    rows = []
+    for model, patch, d in K4_GEOMETRIES:
+        log(f"  {model}: {CANVAS}^2 canvases, patch {patch}, d {d}")
+        got = hillclimb.run_kernel_blocks(CANVAS, CANVAS, patch, d)
+        for r in got:
+            if not (r["bit_equal_default"] and r["close"]):
+                raise AssertionError(
+                    f"K4 tile {r['tile']} at patch {patch}, d {d}: "
+                    f"bit-equal to the default {r['bit_equal_default']}, "
+                    f"max abs err {r['max_abs_err']} against plain "
+                    f"(tol {hillclimb.K4_TOL})")
+        rows += got
+    by_path["hillclimb_kernel_blocks"] = dict(LAUNCHES)
+    check_launches({"launches": LAUNCHES}, ("stitch_embed",),
+                   "phase 12(a) tile search")
+    hillclimb.write_rows(rows, out)
+    for model, patch, d in K4_GEOMETRIES:
+        log(f"  pick_tile({CANVAS}, {CANVAS}, {patch}, {d}) [{model}]: "
+            f"{hillclimb.pick_tile(CANVAS, CANVAS, patch, d, out=out)}")
+    return rows
+
+
+def clone_cache(cache: dict) -> dict:
+    return {name: {k: v.clone() for k, v in layer.items()}
+            for name, layer in cache.items()}
+
+
+def masked_decode_phase(lm: dict, device, by_path: dict) -> None:
+    """Phase 12(b): phase 8's full-width minitron-4b (its weights back on
+    the card) fills a cache with ``MASKED_PREFIX`` teacher-forced steps;
+    from a copy of it, ``MASKED_STEPS`` steps through K7 with
+    ``cache_update="dus"`` and from another with ``"masked"``: logits and
+    caches bit-equal (K7 sees the same cache), the masked run's input
+    cache untouched, K7 once a layer a step; one step's time each beside
+    its byte bound."""
+    cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
+    end = MASKED_PREFIX + MASKED_STEPS
+    base = transformer.init_cache(cfg, LM_BATCH, LM_SEQ, device)
+    dus_cfg = dataclasses.replace(cfg, cache_update="dus")
+    for pos in range(MASKED_PREFIX):
+        _, base = transformer.decode_step(dus_cfg, params,
+                                          tokens[:, pos:pos + 1], base, pos)
+    runs = {}
+    for update in ("dus", "masked"):
+        ucfg = dataclasses.replace(cfg, cache_update=update)
+        given = clone_cache(base)
+        cache = given
+        logits = []
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(MASKED_PREFIX, end):
+            out, cache = transformer.decode_step(
+                ucfg, params, tokens[:, pos:pos + 1], cache, pos)
+            logits.append(out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[f"hillclimb_decode_{update}"] = dict(LAUNCHES)
+        check_launches({"launches": LAUNCHES}, ("flash_decode",),
+                       f"phase 12(b) {update}")
+        if LAUNCHES["flash_decode"] != MASKED_STEPS * cfg.n_layers:
+            raise AssertionError(f"{update}: K7 launched "
+                                 f"{LAUNCHES['flash_decode']} times, "
+                                 f"expected {MASKED_STEPS * cfg.n_layers}")
+        if (cache is given) != (update == "dus"):
+            raise AssertionError(f"{update}: decode_step returned the "
+                                 f"input cache: {cache is given}")
+        if update == "masked" and not all(
+                torch.equal(v, base[name][k])
+                for name, layer in given.items() for k, v in layer.items()):
+            raise AssertionError("the masked write changed its input cache")
+        runs[update] = {"logits": torch.cat(logits, 1), "cache": cache,
+                        "wall": wall, "cfg": ucfg}
+    same_logits = torch.equal(runs["dus"]["logits"], runs["masked"]["logits"])
+    same_cache = all(torch.equal(v, runs["masked"]["cache"][name][k])
+                     for name, layer in runs["dus"]["cache"].items()
+                     for k, v in layer.items())
+    if not (same_logits and same_cache):
+        raise AssertionError(f"masked vs dus: logits equal {same_logits}, "
+                             f"caches equal {same_cache}")
+    for r in runs.values():     # after the check: "dus" writes pos `end`
+        def step(r=r):
+            return transformer.decode_step(r["cfg"], params,
+                                           tokens[:, end:end + 1],
+                                           r["cache"], end)
+        r["step_ms"] = time_ms(step, iters=10)
+        r["device_ms"] = graph_ms(step, iters=3)
+    weights = sum(t.numel() * t.element_size()
+                  for name, sub in params.items() if name != "embed"
+                  for t in param.leaves(sub))
+    row = 2 * LM_BATCH * cfg.n_kv_heads * cfg.head_dim * 2 * cfg.n_layers
+    read = row * (end + 1)                 # K7 reads the cache to pos
+    blend = 2 * row * LM_SEQ               # the blend reads and writes all
+    log(f"  {MASKED_STEPS} steps at pos {MASKED_PREFIX}-{end - 1} of a "
+        f"{LM_SEQ} cache: logits and caches bit-equal, masked vs dus; the "
+        f"masked run's input cache untouched; K7 "
+        f"{MASKED_STEPS * cfg.n_layers} launches each")
+    for update, extra in (("dus", 0), ("masked", blend)):
+        r = runs[update]
+        bound = (weights + read + extra) / H100.hbm_bw * 1e3
+        log(f"  {update}: {r['wall'] * 1e3 / MASKED_STEPS:.3f} ms a step "
+            f"(host clock over the run), one step at pos {end} "
+            f"{r['step_ms']:.3f} ms (CUDA events), device "
+            f"{r['device_ms']:.3f} ms (CUDA graph) vs byte bound "
+            f"{bound:.3f} ms ({weights / 1e9:.2f} GB weights + "
+            f"{read / 1e6:.1f} MB cache read"
+            + (f" + {extra / 1e6:.1f} MB blend read and write" if extra
+               else "") + ")")
+    log(f"  the masked write's device cost a step: "
+        f"{runs['masked']['device_ms'] - runs['dus']['device_ms']:.3f} ms "
+        f"against the blend's byte bound {blend / H100.hbm_bw * 1e3:.3f} ms")
+    del runs, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hillclimb_phase(lm: dict, device, by_path: dict) -> None:
+    """Phase 12: the hillclimb's production variants start in a thread
+    (their cells in worker processes), (a) and (b) run meanwhile, then (c)
+    is read; every row goes to ``build/hillclimb.json``."""
+    from repro_torch.launch import hillclimb
+    out = str(ROOT / "build" / "hillclimb.json")
+    if os.path.exists(out):
+        os.remove(out)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        full = pool.submit(hillclimb_production)
+        log(f"phase 12a: the K4 tile search (hillclimb kernel_blocks), "
+            f"tiles {list(fused_embed.K4_TILES)}")
+        kernel_blocks_phase(by_path, out)
+        log(f"phase 12b: {LM_ARCH} at full width, {MASKED_STEPS} decode "
+            f"steps with the masked cache write against the in-place one")
+        t0 = time.perf_counter()
+        lm["params"] = param.map_tree(lambda t: t.to(device), lm["params"])
+        torch.cuda.synchronize()
+        log(f"  phase 8's weights back on the card in "
+            f"{time.perf_counter() - t0:.1f}s")
+        masked_decode_phase(lm, device, by_path)
+        rows, failures, seconds = full.result()
+    hillclimb.write_rows(rows, out)
+    log(f"phase 12c: hillclimb, {sum(len(c['variants']) for c in hillclimb.CELLS.values())} "
+        f"variants and detector_stitch on the 16x16 production mesh, every "
+        f"model cut to {DRYRUN_DEPTH} layers, --quick: {len(rows)} rows, "
+        f"{len(failures)} failed in {seconds:.1f}s "
+        f"({len(os.sched_getaffinity(0))} worker processes; rows in "
+        f"build/hillclimb.json; t_* priced on the H100 data sheet)")
+    for r in rows:
+        if r["cell"] == "detector_stitch":
+            log(f"  detector_stitch  {r['variant']:24s} "
+                f"bytes/dev={r['bytes']:.3e} args={r['arg_bytes'] / 2**20:.0f}"
+                f"MiB t_mem={r['t_memory']:.3e}")
+        else:
+            log(f"  {r['cell']:16s} {r['variant']:28s} "
+                f"t_comp={r['t_compute']:.3e} t_mem={r['t_memory']:.3e} "
+                f"t_coll={r['t_collective']:.3e} [{r['bottleneck']}] "
+                f"frac={r['frac']:.3f} hbm={r['hbm_gib']:.2f}GiB "
+                f"fits={r['fits']}")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    want = sum(len(c["variants"]) for c in hillclimb.CELLS.values()) + 2
+    if failures or len(rows) != want:
+        raise AssertionError(f"hillclimb: {len(failures)} variants failed, "
+                             f"{len(rows)} rows of {want}")
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -4908,7 +5120,8 @@ def main() -> None:
     log(f"phase 8b: {LM_ARCH} with int8 weights and an int8 KV cache: "
         f"prefill B={LM_BATCH} S={LM_INT8_SEQ}, {LM_INT8_STEPS} decode steps")
     lm_int8_phase(lm, device, by_path)
-    del lm
+    # phase 12(b) decodes with these weights again: they wait in host memory
+    lm["params"] = param.map_tree(lambda t: t.to("cpu"), lm["params"])
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 8c: the vision and diffusion zoo at full width (ViT-B/16, "
@@ -4926,6 +5139,12 @@ def main() -> None:
     t11 = time.perf_counter()
     mesh_phase(device, by_path, card)
     log(f"phase 11: {time.perf_counter() - t11:.1f}s")
+    t12 = time.perf_counter()
+    hillclimb_phase(lm, device, by_path)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t12:.1f}s")
     for row in rows:
         if "launches_by_path" not in row:      # phase 5f's rows have theirs
             row["launches_by_path"] = {path: counts[row["name"]]

@@ -28,6 +28,10 @@ class MoEConfig:
     group_size: int = 512        # tokens per dispatch group (GShard grouping)
 
 
+#: the decode step's KV-cache writes (``TransformerConfig.cache_update``)
+CACHE_UPDATES = ("auto", "dus", "masked")
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Decoder-only LM (dense or MoE): the JAX package's fields that the
@@ -40,12 +44,15 @@ class TransformerConfig:
     KV cache int8 with a float32 scale per position and KV head.  With
     ``remat`` each layer's activations are recomputed in the backward pass
     (``models/remat.py``): ``remat_policy="dots"`` keeps the weight
-    products, ``"minimal"`` keeps only the layer's input.  The JAX
-    ``scan_layers``, the TPU kernel's blocks (``flash_block_q`` /
-    ``flash_block_kv``) and the sharded cache's write (``cache_update``)
-    are left out: the port loops over its layers, its kernels pick their
-    own tiles, and its decode writes the cache in place (the masked write
-    of a sequence-sharded cache is ROADMAP item 17).
+    products, ``"minimal"`` keeps only the layer's input.
+    ``cache_update`` picks the decode step's KV-cache write
+    (``attention.decode_attention``): ``"dus"`` writes the new row in
+    place, ``"masked"`` blends it into a new cache (a one-hot select
+    over the sequence), ``"auto"`` blends when the ambient rules shard the
+    cache's sequence axis and writes in place otherwise.  The JAX
+    ``scan_layers`` and the TPU kernel's blocks (``flash_block_q`` /
+    ``flash_block_kv``) are left out: the port loops over its layers and
+    its kernels pick their own tiles.
     """
 
     name: str
@@ -64,6 +71,7 @@ class TransformerConfig:
     compute_dtype: str = "bfloat16"
     remat: bool = True
     remat_policy: str = "dots"
+    cache_update: str = "auto"
     fused_qkv: bool = False
     quant_weights: bool = False
     quant_kv: bool = False
@@ -74,6 +82,10 @@ class TransformerConfig:
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not "
                              f"a multiple of n_kv_heads {self.n_kv_heads}")
+        if self.cache_update not in CACHE_UPDATES:
+            raise ValueError(f"{self.name}: cache_update "
+                             f"{self.cache_update!r} is not one of "
+                             f"{CACHE_UPDATES}")
 
     def _attn_params(self) -> int:
         d = self.d_model

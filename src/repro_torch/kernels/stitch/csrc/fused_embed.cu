@@ -26,7 +26,10 @@
 // an implicit GEMM instead, and no canvas is written anywhere.  bf16
 // weights (the main path): one block per (192 columns of d, 128 tokens of
 // one canvas, canvas), 96 blocks at B = 3 and 128 at B = 4, one wave on
-// the 132 SMs.  Before the K loop the block resolves its records once into
+// the 132 SMs.  The column tile is a template parameter: 192 is the
+// default, 128 and 64 the narrower tiles launch/hillclimb.py times (at d
+// 384 or 512 the default leaves 48 blocks on 132 SMs); every tile gives
+// the same bits.  Before the K loop the block resolves its records once into
 // a segment table: for each of its tokens and each of the token's `patch`
 // canvas row segments, up to two runs (a left and a right slot segment,
 // since a canvas row segment inside a placement is one contiguous slot
@@ -252,25 +255,28 @@ stitch_embed_fma_kernel(const float* __restrict__ slots,
 
 constexpr int kWgThreads = 384;  // 2 consumer warpgroups + 1 producer
 constexpr int kWgBM = 128;       // tokens a block (64 a consumer), one canvas
-constexpr int kWgBN = 192;       // columns of d a block
 constexpr int kWgBK = 64;        // K step: one 128-byte swizzled row
 constexpr int kWgStages = 3;     // weight ring depth
 constexpr int kARows = 16;       // A rows a consumer thread gathers a step
 constexpr int kAHalf = 64 * kWgBK * 2;          // a consumer's A tile
 constexpr int kBBox = kWgBK * 64 * 2;           // one 64-column weight box
-constexpr int kBBytes = (kWgBN / 64) * kBBox;   // one weight stage
 constexpr int kMultiRun = -1;  // split_hi of a segment cut into 3+ runs
 
-// Shared memory of one bf16 K4 block (offsets from a 1024-byte aligned
-// base): the A tile (kWgBM x kWgBK bf16), the weight ring, the segment
-// table (kWgBM * patch int4), the block's live records, the barriers and
-// the live count.
+// The block's columns of d (the tile's BN, the wgmma's N) are a template
+// parameter: 192 (the default tile), 128 or 64, the column tiles the
+// wrapper's K4_TILES names.  A tile of BN columns is BN / 64 weight boxes.
+__host__ __device__ constexpr int b_bytes(int bn) { return (bn / 64) * kBBox; }
+
+// Shared memory of one bf16 K4 block of `bn` columns (offsets from a
+// 1024-byte aligned base): the A tile (kWgBM x kWgBK bf16), the weight
+// ring, the segment table (kWgBM * patch int4), the block's live records,
+// the barriers and the live count.
 struct WgLayout {
   int a_off, b_off, seg_off, live_off, bar_off, bytes;
-  __host__ __device__ WgLayout(int patch, int k) {
+  __host__ __device__ WgLayout(int patch, int k, int bn) {
     a_off = 0;
     b_off = a_off + 2 * kAHalf;
-    seg_off = b_off + kWgStages * kBBytes;
+    seg_off = b_off + kWgStages * b_bytes(bn);
     live_off = seg_off + kWgBM * patch * 16;
     bar_off = (live_off + k * (int)sizeof(Rec) + 7) / 8 * 8;
     // full and empty per stage; the live count; alignment slack
@@ -367,10 +373,28 @@ __device__ __forceinline__ void gather_store(
   }
 }
 
-// One block per (192 columns of d, 128 tokens of one canvas, canvas).
+// D (64 x BN) += A (64 x 16) * B (16 x BN), B MN-major.
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 192) {
+    hopper::wgmma_ss_n192<1>(acc, da, db, 1);
+  } else if constexpr (BN == 128) {
+    hopper::wgmma_ss_n128<1>(acc, da, db, 1);
+  } else {
+    static_assert(BN == 64, "K4 column tiles are 192, 128 or 64");
+    hopper::wgmma_ss_n64<1>(acc, da, db, 1);
+  }
+}
+
+// One block per (BN columns of d, 128 tokens of one canvas, canvas).
 // Token t of the canvas is (ty, tx) = (t / side_n, t % side_n); its K index
 // kk = py * pc + xoff (pc = patch * c) reads canvas row ty * patch + py at
-// element tx * pc + xoff of that row.
+// element tx * pc + xoff of that row.  The column tile changes which
+// columns a block owns, not the order in which any output sums over K (the
+// K rotation below depends on the token tiles alone), so every tile gives
+// the same bits.
+template <int BN>
 __global__ void __launch_bounds__(kWgThreads, 1)
 stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                           const float* __restrict__ slots,
@@ -381,7 +405,8 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                           int kdim, int d) {
   extern __shared__ unsigned char k4_raw[];
   unsigned char* smem = hopper::align_1024(k4_raw);
-  const WgLayout lay(patch, k);
+  constexpr int kBBytes = b_bytes(BN);
+  const WgLayout lay(patch, k, BN);
   unsigned char* a_buf = smem + lay.a_off;
   unsigned char* b_ring = smem + lay.b_off;
   int4* seg4 = reinterpret_cast<int4*>(smem + lay.seg_off);
@@ -391,7 +416,7 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   int* n_live = reinterpret_cast<int*>(empty + kWgStages);
 
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kWgBN;
+  const int n0 = blockIdx.x * BN;
   const int tok0 = blockIdx.y * kWgBM;
   const int b = blockIdx.z;
   const int seq = side_m * side_n;
@@ -479,7 +504,7 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         const int ks = (s + rot) % n_steps;
         hopper::mbar_wait(&empty[st], ((s / kWgStages) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[st], kBBytes);
-        for (int j = 0; j < kWgBN / 64; ++j) {
+        for (int j = 0; j < BN / 64; ++j) {
           hopper::tma_load_2d(b_ring + st * kBBytes + j * kBBox, &wmap,
                               &full[st], n0 + 64 * j, ks * kWgBK);
         }
@@ -487,15 +512,15 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     }
   } else {
     // ---- consumers: each gathers its own 64 A rows a step and keeps 64
-    // tokens x 192 columns in registers.
+    // tokens x BN columns in registers.
     hopper::reg_alloc<240>();
     const int wg = tid / 128;
     const int wq = (tid % 128) / 32;
     const int lane = tid % 32;
     const int bar_id = 1 + wg;           // named barrier of this warpgroup
-    float acc[kWgBN / 2];
+    float acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < kWgBN / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
     // this warpgroup's rows of the A tile: the wgmma that read them last
     // has finished (waited at the end of each step) before they are stored
     unsigned char* a_tile = a_buf + wg * kAHalf;
@@ -526,7 +551,7 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
             hopper::smem_desc(a_tile + k16 * 32, 16, 1024, 128);
         const uint64_t db =
             hopper::smem_desc(b_st + k16 * 16 * 128, kBBox, 1024, 128);
-        hopper::wgmma_ss_n192<1>(acc, da, db, 1);
+        wgmma_tile<BN>(acc, da, db);
       }
       hopper::wgmma_commit();
       // the next step's loads fly while the tensor cores work
@@ -546,7 +571,7 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     // epilogue from registers: bias in float32, one rounding
     const int m_a = wg * 64 + wq * 16 + lane / 4;
 #pragma unroll
-    for (int i = 0; i < kWgBN / 2; i += 2) {
+    for (int i = 0; i < BN / 2; i += 2) {
       const int m = (i & 2) ? m_a + 8 : m_a;
       const int col = n0 + 8 * (i / 4) + 2 * (lane % 4);
       if (m >= ntok || col >= d) continue;
@@ -559,6 +584,7 @@ stitch_embed_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
+template <int BN>
 int launch_stitch_embed_wgmma(const float* slots, const int* records,
                               const void* wk, const void* bias, void* out,
                               int hmax, int wmax, int c, int b, int k, int m,
@@ -573,14 +599,14 @@ int launch_stitch_embed_wgmma(const float* slots, const int* records,
   const cuuint32_t box[2] = {64, (cuuint32_t)kWgBK};
   int rc = hopper::encode_bf16_map(&wmap, wk, 2, dims, strides, box, 128);
   if (rc != 0) return rc;
-  const WgLayout lay(patch, k);
+  const WgLayout lay(patch, k, BN);
   cudaError_t err = cudaFuncSetAttribute(
-      stitch_embed_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      lay.bytes);
+      stitch_embed_wgmma_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
   const int seq = side_m * side_n;
-  dim3 grid((d + kWgBN - 1) / kWgBN, (seq + kWgBM - 1) / kWgBM, b);
-  stitch_embed_wgmma_kernel<<<grid, kWgThreads, lay.bytes, stream>>>(
+  dim3 grid((d + BN - 1) / BN, (seq + kWgBM - 1) / kWgBM, b);
+  stitch_embed_wgmma_kernel<BN><<<grid, kWgThreads, lay.bytes, stream>>>(
       wmap, slots, records, static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(out), hmax, wmax, c, k, patch, side_m,
       side_n, kdim, d);
@@ -726,17 +752,34 @@ int launch_unstitch_decode(const void* raw, const int* records, float* out,
 
 // Both entry points launch on `stream`, never synchronise, allocate nothing
 // and return a CUDA error code (0 on success).  `bf16` selects the weight
-// (K4) or raw head (K3) type: 1 bfloat16, 0 float32.
+// (K4) or raw head (K3) type: 1 bfloat16, 0 float32.  `tile_n` is the bf16
+// K4's column tile (192, 128 or 64; cudaErrorInvalidValue otherwise); the
+// float32 K4 has one tile and ignores it.
 extern "C" int tangram_stitch_embed(const void* slots, const int* records,
                                     const void* kernel, const void* bias,
                                     void* tokens, int hmax, int wmax, int c,
                                     int b, int k, int m, int n, int patch,
-                                    int d, int bf16, void* stream) {
+                                    int d, int bf16, int tile_n,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* px = static_cast<const float*>(slots);
   if (bf16) {
-    return launch_stitch_embed_wgmma(px, records, kernel, bias, tokens, hmax,
-                                     wmax, c, b, k, m, n, patch, d, s);
+    switch (tile_n) {
+      case 192:
+        return launch_stitch_embed_wgmma<192>(px, records, kernel, bias,
+                                              tokens, hmax, wmax, c, b, k, m,
+                                              n, patch, d, s);
+      case 128:
+        return launch_stitch_embed_wgmma<128>(px, records, kernel, bias,
+                                              tokens, hmax, wmax, c, b, k, m,
+                                              n, patch, d, s);
+      case 64:
+        return launch_stitch_embed_wgmma<64>(px, records, kernel, bias,
+                                             tokens, hmax, wmax, c, b, k, m,
+                                             n, patch, d, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   return launch_stitch_embed<float>(stitch_embed_fma_kernel, px, records,
                                     kernel, bias, tokens, hmax, wmax, c, b,

@@ -32,9 +32,15 @@ LIBRARY = "tangram_fused"
 _MAX_GRID_YZ = 65535
 _SEGMENT = 32       # tokens of a token row per f32 K4 block (kBM)
 _SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block can have
-#: the bf16 K4 kernel's tiles (kWgBM, kWgBN, kWgBK, kWgStages in the
-#: source): tokens and columns of d a block, K step, weight ring depth
+#: the bf16 K4 kernel's tiles (kWgBM, the default BN, kWgBK, kWgStages in
+#: the source): tokens and columns of d a block, K step, weight ring depth
 WG_TOKENS, WG_COLS, WG_K, WG_STAGES = 128, 192, 64, 3
+#: the bf16 K4's block tiles, (tokens, columns of d): the template instances
+#: of the source's kernel.  The first is the default, the main path's tile;
+#: ``launch/hillclimb.py`` times them all.  Every tile keeps 128 tokens, the
+#: two 64-row consumer warpgroups' share, and with them the K order of
+#: every sum, so every tile gives the default's bits.
+K4_TILES = ((WG_TOKENS, WG_COLS), (WG_TOKENS, 128), (WG_TOKENS, 64))
 _REC_BYTES = 20     # a live record in shared memory (slot, x, y, w, h)
 _DEC_TILE = 256     # cells a K3 block writes (kDecTile in the source)
 #: weight / raw-head dtypes the kernels take -> the C interface's bf16 flag
@@ -46,7 +52,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load_library(LIBRARY, [SOURCE])
     if not getattr(lib, "_typed", False):
         lib.tangram_stitch_embed.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.tangram_unstitch_decode.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         for fn in (lib.tangram_stitch_embed, lib.tangram_unstitch_decode):
@@ -55,25 +61,38 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def wgmma_plan(b: int, seq: int, d: int, k: int, patch: int):
-    """Grid and dynamic shared-memory bytes of the bf16 K4 launch, as the
-    source's ``WgLayout`` lays a block out: the A tile (``WG_TOKENS`` x
-    ``WG_K`` bf16), the weight ring (``WG_STAGES`` x ``WG_K`` x ``WG_COLS``
-    bf16), the segment table (``WG_TOKENS * patch`` int4), ``k`` live
-    records, 2 barriers a stage, the live count and 1024 bytes of alignment
-    slack."""
-    ring = (WG_TOKENS * WG_K + WG_STAGES * WG_K * WG_COLS) * 2
-    live_end = ring + WG_TOKENS * patch * 16 + k * _REC_BYTES
+def k4_tile(tile=None) -> tuple:
+    """The bf16 K4's block tile: ``None`` is the default (the first of
+    :data:`K4_TILES`); any other tile must be one of them."""
+    if tile is None:
+        return K4_TILES[0]
+    tile = tuple(tile)
+    if tile not in K4_TILES:
+        raise ValueError(f"K4 tile {tile} is not one of {K4_TILES}")
+    return tile
+
+
+def wgmma_plan(b: int, seq: int, d: int, k: int, patch: int, tile=None):
+    """Grid and dynamic shared-memory bytes of the bf16 K4 launch at
+    ``tile`` (:func:`k4_tile`: (tokens, columns) a block), as the source's
+    ``WgLayout`` lays a block out: the A tile (``WG_TOKENS`` x ``WG_K``
+    bf16), the weight ring (``WG_STAGES`` x ``WG_K`` x columns bf16), the
+    segment table (``WG_TOKENS * patch`` int4), ``k`` live records, 2
+    barriers a stage, the live count and 1024 bytes of alignment slack."""
+    tokens, cols = k4_tile(tile)
+    ring = (tokens * WG_K + WG_STAGES * WG_K * cols) * 2
+    live_end = ring + tokens * patch * 16 + k * _REC_BYTES
     smem = -(-live_end // 8) * 8 + 2 * WG_STAGES * 8 + 8 + 1024
-    grid = (-(-d // WG_COLS), -(-seq // WG_TOKENS), b)
+    grid = (-(-d // cols), -(-seq // tokens), b)
     return grid, smem
 
 
 def check_wgmma_shape(name: str, b: int, seq: int, kdim: int, d: int, k: int,
-                      patch: int, slot_elems: int) -> None:
-    """Raise on what the bf16 K4 kernel does not take: K in steps of 64
-    (``patch**2 * C``), weight rows a multiple of 16 bytes (TMA), slot
-    offsets in int32, and a block within the card's shared memory."""
+                      patch: int, slot_elems: int, tile=None) -> None:
+    """Raise on what the bf16 K4 kernel does not take: a tile outside
+    :data:`K4_TILES`, K in steps of 64 (``patch**2 * C``), weight rows a
+    multiple of 16 bytes (TMA), slot offsets in int32, and a block within
+    the card's shared memory."""
     if kdim % WG_K:
         raise ValueError(f"{name}: the bf16 kernel takes K = patch^2 * C in "
                          f"steps of {WG_K}, got {kdim}")
@@ -83,7 +102,7 @@ def check_wgmma_shape(name: str, b: int, seq: int, kdim: int, d: int, k: int,
     if slot_elems >= 2**31:
         raise ValueError(f"{name}: {slot_elems} slot elements exceed int32 "
                          f"offsets")
-    _, smem = wgmma_plan(b, seq, d, k, patch)
+    _, smem = wgmma_plan(b, seq, d, k, patch, tile)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: {k} records per canvas at patch {patch} "
                          f"need {smem} bytes of shared memory, more than "
@@ -147,15 +166,18 @@ def _run(fn, device: torch.device, *args) -> None:
 
 def stitch_embed_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
                       kernel: torch.Tensor, bias: torch.Tensor,
-                      m: int, n: int, patch: int) -> torch.Tensor:
+                      m: int, n: int, patch: int, tile=None) -> torch.Tensor:
     """K4: slots (P, Hmax, Wmax, C) f32 + records (B, K, 6) + kernel
     (patch*patch*C, d) + bias (d,) -> tokens (B, seq, d) in the kernel's
     dtype (float32 or bfloat16), without a canvas in device memory.
+    ``tile``: the bf16 kernel's block tile (:func:`k4_tile`; ``None`` is
+    the default); the float32 kernel has one tile and takes only ``None``.
 
     The valid records must keep the kernels' contract (inside the canvas,
     within the slot, slot index below P), which the kernel does not
     re-check: :func:`repro_torch.kernels.stitch.ops.check_records`."""
     name = "stitch_embed"
+    _, cols = k4_tile(tile)
     device = _cuda_device(name, patch_pixels)
     _check_tensor(name, "slots", patch_pixels, device, 4, (torch.float32,))
     _check_records(name, records, device)
@@ -176,9 +198,12 @@ def stitch_embed_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
     side_m, side_n = m // patch, n // patch
     if side_m * -(-side_n // _SEGMENT) > _MAX_GRID_YZ:
         raise ValueError(f"{name}: {side_m}x{side_n} token grid too large")
+    if kernel.dtype != torch.bfloat16 and tile is not None:
+        raise ValueError(f"{name}: the float32 kernel has one tile; got "
+                         f"tile {tile}")
     if kernel.dtype == torch.bfloat16:
         check_wgmma_shape(name, b, side_m * side_n, kernel.shape[0], d, k,
-                          patch, patch_pixels.numel())
+                          patch, patch_pixels.numel(), tile)
         if kernel.data_ptr() % 16:
             raise ValueError(f"{name}: kernel is not 16-byte aligned (TMA)")
     if b == 0 or k == 0 or p == 0:
@@ -189,7 +214,7 @@ def stitch_embed_cuda(patch_pixels: torch.Tensor, records: torch.Tensor,
     _run(library().tangram_stitch_embed, device, patch_pixels.data_ptr(),
          records.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
          out.data_ptr(), hmax, wmax, c, b, k, m, n, patch, d,
-         _BF16_FLAG[kernel.dtype])
+         _BF16_FLAG[kernel.dtype], cols)
     count_launch("stitch_embed")
     return out
 

@@ -18,7 +18,8 @@ import torch
 from repro_torch.core.partitioning import Patch
 from repro_torch.core.stitching import BatchPlan
 from repro_torch.kernels.launches import refuse_grad
-from repro_torch.kernels.stitch.fused_embed import (stitch_embed_cuda,
+from repro_torch.kernels.stitch.fused_embed import (k4_tile,
+                                                    stitch_embed_cuda,
                                                     unstitch_decode_cuda)
 from repro_torch.kernels.stitch.ref import (stitch_embed_reference,
                                             stitch_reference,
@@ -61,13 +62,18 @@ def unstitch_patches(canvases: torch.Tensor, records: torch.Tensor,
 
 def stitch_embed(patch_pixels: torch.Tensor, records: torch.Tensor,
                  kernel: torch.Tensor, bias: torch.Tensor, m: int, n: int,
-                 patch: int, impl: Optional[str] = None) -> torch.Tensor:
+                 patch: int, impl: Optional[str] = None,
+                 tile=None) -> torch.Tensor:
     """Fused stitch -> patchify -> patch embed: slots to (B, seq, d)
-    tokens without a canvas batch in device memory."""
+    tokens without a canvas batch in device memory.  ``tile``: the bf16
+    kernel's block tile (``fused_embed.K4_TILES``; ``None`` is the
+    default; another raises on any device); the plain version has no
+    tile."""
+    k4_tile(tile)
     if resolve_impl(impl, patch_pixels) == "cuda":
         refuse_grad("stitch_embed", patch_pixels, kernel, bias)
         return stitch_embed_cuda(patch_pixels, records, kernel, bias, m, n,
-                                 patch)
+                                 patch, tile=tile)
     return stitch_embed_reference(patch_pixels, records, kernel, bias, m, n,
                                   patch)
 

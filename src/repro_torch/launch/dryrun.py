@@ -22,6 +22,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --quick
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh test --quick \\
       --arch vit-s16 --shape serve_b128
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --quick --depth 2 \\
+      --arch mistral-large-123b --shape train_4k
+
+``--depth`` cuts every model to that many layers (:func:`cut_depth`):
+each op of a cell still plans and counts, in a fraction of the time.
 """
 from __future__ import annotations
 
@@ -306,6 +311,8 @@ def main(argv=None):
     p.add_argument("--quick", action="store_true",
                    help="the direct count only (skip the secant runs at "
                         "depths 1 and 2)")
+    p.add_argument("--depth", type=int,
+                   help="cut every model to this many layers (cut_depth)")
     args = p.parse_args(argv)
     _quiet()
 
@@ -321,7 +328,7 @@ def main(argv=None):
 
     jobs = [(arch_id, shape.name, args.mesh,
              multi if args.both_meshes else args.multi_pod, mesh_name,
-             args.quick)
+             args.quick, args.depth)
             for multi, (mesh, mesh_name) in zip((False, True), meshes)
             for arch_id, shape in cells]
     results, failures = run_jobs(jobs, None if args.all else 1, echo=True)

@@ -33,6 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.compat import shardingx
+from repro_torch.config import CACHE_UPDATES
 from repro_torch.kernels.attention import ops as flash_ops
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.param import spec
@@ -311,53 +313,87 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def resolve_cache_update(cache_update: str) -> str:
+    """``"dus"`` or ``"masked"``: ``"auto"`` is ``"masked"`` when the
+    ambient rules (``compat.shardingx.use_mesh``) shard the cache's
+    sequence axis (``kv_seq``), as the JAX ``rules.get("kv_seq")``, and
+    ``"dus"`` otherwise."""
+    if cache_update not in CACHE_UPDATES:
+        raise ValueError(f"cache_update {cache_update!r} is not one of "
+                         f"{CACHE_UPDATES}")
+    if cache_update != "auto":
+        return cache_update
+    rules = shardingx.get_rules()
+    return "masked" if rules and rules.get("kv_seq") else "dus"
+
+
 def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
                      *, n_heads: int, n_kv_heads: int, rope_theta: float,
-                     compute_dtype: torch.dtype, impl: Optional[str] = None
+                     compute_dtype: torch.dtype, impl: Optional[str] = None,
+                     cache_update: str = "auto"
                      ) -> Tuple[torch.Tensor, dict]:
     """One-token decode.  x: (B, 1, d); cache k / v: (B, Smax, Kv, Dh);
     ``pos``: the current position, a Python int.  Returns (out, cache).
 
-    The new K/V row is written into the cache tensors in place, and the
-    returned dict is ``cache`` itself: the JAX function returns a new cache
-    (its ``"dus"`` update; the ``"masked"`` one serves a cache sharded on
-    the sequence axis, which is ROADMAP item 17), so a decode loop
-    here moves no cache bytes but the new row.  An int8 cache (``k_scale``
-    in ``cache``) takes the new row quantized, values and scales written in
-    place at ``pos``; the whole cache is then dequantized to the compute
-    dtype for attention, as the JAX package does before its decode kernel.
-    Attention is K7 on a CUDA tensor (``impl`` as in the module
-    docstring).
+    ``cache_update`` (:func:`resolve_cache_update`) picks the write of the
+    new K/V row.  ``"dus"`` writes it into the cache tensors in place and
+    returns ``cache`` itself, so a decode loop moves no cache bytes but
+    the row (the JAX ``dynamic_update_slice`` returns a new cache).
+    ``"masked"`` is the JAX one-hot blend: ``torch.where`` of
+    ``arange(Smax) == pos`` against the cache gives a new cache dict and
+    leaves the input's tensors as they were; it reads and writes the whole
+    cache.  On a DTensor cache both keep the cache's placements and move
+    only the row, laid out as the cache with its one position replicated:
+    each device writes or blends its own shard.  An int8 cache
+    (``k_scale`` in ``cache``) takes the new row quantized, values and
+    scales written the same way; the whole cache is then dequantized to the
+    compute dtype for attention, as the JAX package does before its decode
+    kernel.  The JAX ``"auto"`` blends every int8 cache; the port's blends
+    one only where ``kv_seq`` is sharded, and writes it in place
+    otherwise (one card).  Attention is K7 on a CUDA tensor (``impl`` as in
+    the module docstring).
     """
     if isinstance(pos, torch.Tensor):
         raise TypeError("decode_attention: pos must be a Python int (a "
                         "device scalar would sync the host every step)")
+    update = resolve_cache_update(cache_update)
     b = x.shape[0]
     q, k_new, v_new = _qkv(params, x, n_kv_heads, compute_dtype)
     positions = torch.full((b, 1), pos, device=x.device)
     q = apply_rope(q, positions, rope_theta)
     k_new = apply_rope(k_new, positions, rope_theta)
-    if "k_scale" in cache:
-        for name, new in (("k", k_new), ("v", v_new)):
-            qv, scale = _quantize_kv(new)
-            _write_row(cache[name], qv, pos)
-            _write_row(cache[f"{name}_scale"], scale, pos)
-        k, v = (with_logical_constraint(cache[name], CACHE_AXES).to(
-                    compute_dtype)
-                * cache[f"{name}_scale"].to(compute_dtype)[..., None]
-                for name in ("k", "v"))
+    quant_kv = "k_scale" in cache
+    rows = {}
+    for name, new in (("k", k_new), ("v", v_new)):
+        if quant_kv:
+            rows[name], rows[f"{name}_scale"] = _quantize_kv(new)
+        else:
+            rows[name] = new.to(cache[name].dtype)
+    if update == "dus":
+        for name, row in rows.items():
+            _write_row(cache[name], row, pos)
+        new_cache = cache
     else:
-        _write_row(cache["k"], k_new.to(cache["k"].dtype), pos)
-        _write_row(cache["v"], v_new.to(cache["v"].dtype), pos)
-        k, v = (with_logical_constraint(cache[name], CACHE_AXES).to(
-            compute_dtype) for name in ("k", "v"))
+        new_cache = {name: _blend_row(cache[name], rows[name], pos)
+                     for name in cache}
+    k, v = (with_logical_constraint(new_cache[name], CACHE_AXES)
+            for name in ("k", "v"))
+    if update == "masked":
+        new_cache.update(k=k, v=v)
+    if quant_kv:
+        k = k.to(compute_dtype) * new_cache["k_scale"].to(
+            compute_dtype)[..., None]
+        v = v.to(compute_dtype) * new_cache["v_scale"].to(
+            compute_dtype)[..., None]
+    else:
+        k, v = k.to(compute_dtype), v.to(compute_dtype)
     if _seq_dims(k):
         ctx = _seq_sharded_decode(q, k, v, pos)
     else:
         ctx = _per_head_group(
             lambda q, k, v: flash_ops.flash_decode(q, k, v, pos, impl=impl),
             q, k, v)
-    return _out(params, ctx, compute_dtype), cache
+    return _out(params, ctx, compute_dtype), new_cache
 
 
 # ----------------------------------------------------- on a device mesh ----
@@ -484,6 +520,26 @@ def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     at = pos - (_seq_offset(cache) if _seq_dims(cache) else 0)
     if 0 <= at < local.shape[1]:
         local[:, at] = row[:, 0]
+
+
+def _blend_row(cache: torch.Tensor, new: torch.Tensor,
+               pos: int) -> torch.Tensor:
+    """A new tensor: ``cache`` with position ``pos`` (dim 1) replaced by
+    ``new[:, 0]``, as a select of ``arange(Smax) == pos`` against the
+    cache (the JAX masked update).  A DTensor cache keeps its placements:
+    the row is laid out as :func:`_write_row` lays it out, and each device
+    blends its own shard, so no cache bytes move between shards."""
+    def blend(c, r, start):
+        sel = torch.arange(start, start + c.shape[1], device=c.device) == pos
+        return torch.where(sel.view((1, -1) + (1,) * (c.dim() - 2)), r, c)
+    if not is_dtensor(cache):
+        return blend(cache, new, 0)
+    from torch.distributed.tensor import Replicate, Shard
+    want = tuple(Replicate() if pl == Shard(1) else pl
+                 for pl in cache.placements)
+    start = _seq_offset(cache) if _seq_dims(cache) else 0
+    return per_device(lambda c, r: blend(c, r, start), cache.placements,
+                      (cache.placements, want), cache.device_mesh)(cache, new)
 
 
 def _seq_sharded_decode(q, k, v, pos: int):

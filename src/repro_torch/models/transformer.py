@@ -246,20 +246,25 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
                 cache: dict, pos: int, *, impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens: (B, 1) -> (logits (B, 1, V), cache).  ``pos``: a Python int.
-    The cache is updated in place and returned (see
-    ``attention.decode_attention``)."""
+    The cache is written as ``cfg.cache_update`` says (see
+    ``attention.decode_attention``): in place under ``"dus"``, where the
+    returned tree is ``cache`` itself, and into a new tree of new tensors
+    under ``"masked"``, the input's tensors left as they were."""
     cdt = dtype_of(cfg.compute_dtype)
     x = layers.embed_lookup(params["embed"], tokens, cdt)
     x = with_logical_constraint(x, ("decode_batch", None, "embed"))
+    new_cache = {}
     for i in range(cfg.n_layers):
         lp = params["layers"][f"layer_{i}"]
         h = layers.rmsnorm(lp["ln_attn"], x, cfg.norm_eps, cdt)
-        h, _ = attn.decode_attention(
+        h, new_cache[f"layer_{i}"] = attn.decode_attention(
             lp["attn"], h, cache[f"layer_{i}"], pos, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, rope_theta=cfg.rope_theta,
-            compute_dtype=cdt, impl=impl)
+            compute_dtype=cdt, impl=impl, cache_update=cfg.cache_update)
         x = x + h
         h = layers.rmsnorm(lp["ln_mlp"], x, cfg.norm_eps, cdt)
         x = x + _mlp(cfg, lp, h, cdt)[0]
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps, cdt)
-    return logits(cfg, params, x), cache
+    if all(new_cache[name] is cache[name] for name in new_cache):
+        new_cache = cache
+    return logits(cfg, params, x), new_cache

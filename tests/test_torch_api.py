@@ -338,10 +338,13 @@ def test_dryrun_cli_secant_note_without_quick():
 
 def test_dryrun_mistral_train_on_the_production_mesh(tmp_path):
     """The 123B model's train step (4 microbatches of 64 x 4096, FSDP,
-    sequence-sharded activations, 88 layers) on the 16 x 16 mesh."""
+    sequence-sharded activations) on the 16 x 16 mesh, its 88 layers cut
+    to 2 (``--depth 2``, ``dryrun.cut_depth``, as ``chip_smoke.py`` phase
+    11(c) runs it): every op of the cell still plans and counts, where
+    the full depth takes over 100 s on one free core."""
     out = tmp_path / "r.json"
-    r = _dryrun("--quick", "--arch", "mistral-large-123b", "--shape",
-                "train_4k", "--json", str(out), timeout=900)
+    r = _dryrun("--quick", "--depth", "2", "--arch", "mistral-large-123b",
+                "--shape", "train_4k", "--json", str(out), timeout=900)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "1 cells OK, 0 failed" in r.stdout
     row = json.load(open(out))["results"][0]

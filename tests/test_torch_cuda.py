@@ -728,6 +728,69 @@ def test_stitch_embed_wgmma_edges_against_plain(cuda, b, m, n):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("tile", fused_embed.K4_TILES[1:])
+@pytest.mark.parametrize("b,m,n,d", [(3, 256, 320, 768), (4, 96, 160, 768),
+                                     (3, 256, 256, 384), (2, 256, 256, 512)])
+def test_stitch_embed_wgmma_tiles_against_plain_and_default(cuda, tile, b,
+                                                            m, n, d):
+    """Every other tile of ``K4_TILES`` within K4's 2e-2 of the plain
+    version and bit for bit the default tile's output (the tile moves the
+    columns a block owns, not the K order of any sum), at the edge cases
+    above and at the registry's widths d 768 / 384 / 512."""
+    patch = 32
+    rng = np.random.default_rng(18)
+    records, (p, hmax, wmax) = _scattered_records(rng, b, m, n)
+    slots = torch.from_numpy(rng.normal(size=(p, hmax, wmax, 3)).astype(
+        np.float32)).to(cuda)
+    rec = torch.from_numpy(records).to(cuda)
+    kernel = torch.from_numpy(
+        rng.normal(size=(patch * patch * 3, d)).astype(np.float32)
+        / np.sqrt(patch * patch * 3)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    default = ops.stitch_embed(slots, rec, kernel, bias, m, n, patch)
+    before = kernels.LAUNCHES["stitch_embed"]
+    got = ops.stitch_embed(slots, rec, kernel, bias, m, n, patch, tile=tile)
+    assert kernels.LAUNCHES["stitch_embed"] == before + 1
+    want = ops.stitch_embed(slots, rec, kernel, bias, m, n, patch,
+                            impl="torch")
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(got, default)
+
+
+def test_masked_decode_on_card_equals_in_place(cuda):
+    """The reduced minitron-4b on the card, 8 decode steps through K7 with
+    ``cache_update="masked"`` and with ``"dus"``: logits and caches
+    bit-equal (K7 sees the same cache), the masked run's input caches
+    untouched, K7 once a layer a step in each."""
+    cfg = reduce_arch(get("minitron-4b"))
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, size=(2, 8))).to(cuda)
+    caches = {u: transformer.init_cache(cfg, 2, 128, cuda)
+              for u in ("dus", "masked")}
+    before = kernels.LAUNCHES["flash_decode"]
+    for pos in range(8):
+        out = {}
+        for u in ("dus", "masked"):
+            c = dataclasses.replace(cfg, cache_update=u)
+            old = {k: v.clone() for k, v in caches[u]["layer_0"].items()}
+            out[u], new = transformer.decode_step(c, params,
+                                                  tok[:, pos:pos + 1],
+                                                  caches[u], pos)
+            if u == "masked":
+                for k, v in caches[u]["layer_0"].items():
+                    assert torch.equal(v, old[k])
+            caches[u] = new
+        assert torch.equal(out["dus"], out["masked"])
+    assert kernels.LAUNCHES["flash_decode"] == before + 2 * 8 * cfg.n_layers
+    for name, layer in caches["dus"].items():
+        for k, v in layer.items():
+            assert torch.equal(v, caches["masked"][name][k])
+
+
 def test_stitch_embed_wgmma_wrapper_rejects_what_it_does_not_take(cuda):
     """Shapes the bf16 K4 kernel does not take raise before any launch:
     K = patch^2 * C not in steps of 64, d not a multiple of 8, weights off

@@ -35,6 +35,7 @@ names += ["repro_torch.serverless.platform", "repro_torch.core.scheduler",
           "repro_torch.compat.shardingx", "repro_torch.sharding",
           "repro_torch.api", "repro_torch.launch.mesh",
           "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+          "repro_torch.launch.hillclimb",
           "repro_torch.configs.mistral_large_123b"]
 import os
 env = dict(os.environ)

@@ -70,10 +70,10 @@ def test_stitch_plan_rejects_rows_past_shared_memory():
     assert stitch_kernels.stitch_plan(1, 4, 100_000, 3, 4)[0] == 1
 
 
-def _k4_smem(k, patch):
+def _k4_smem(k, patch, cols=192):
     stages = 3
     a_tile = 128 * 64 * 2                 # 128 x 64 bf16
-    weights = stages * 64 * 192 * 2       # 64 x 192 bf16 a stage
+    weights = stages * 64 * cols * 2      # 64 x cols bf16 a stage
     table = 128 * patch * 16              # an int4 per token row segment
     records = k * 20
     end = a_tile + weights + table + records
@@ -105,6 +105,53 @@ def test_stitch_embed_wgmma_plan_main_path_numbers():
     grid, smem = fused_embed.wgmma_plan(3, 1024, 768, 64, 32)
     assert grid == (4, 8, 3)
     assert smem == 16384 + 3 * 24576 + 65536 + 1280 + 48 + 8 + 1024
+
+
+@pytest.mark.parametrize("tile", fused_embed.K4_TILES)
+@pytest.mark.parametrize("seq,d,patch", [(1024, 768, 32), (4096, 384, 16),
+                                         (1024, 512, 32)])
+@pytest.mark.parametrize("k", [64, 2048])
+def test_stitch_embed_wgmma_plan_every_tile(tile, seq, d, patch, k):
+    """Each tile of ``K4_TILES`` at the registry's three geometries
+    (``tangram``, ``vit_s16``, ``efficientnet_b7``), up to 2,048 records a
+    canvas: the grid covers every token and column once, the shared
+    memory is the sum of its parts (a narrower tile a shorter weight
+    ring) and fits the card, and the shape checks pass."""
+    tokens, cols = tile
+    grid, smem = fused_embed.wgmma_plan(4, seq, d, k, patch, tile)
+    assert grid == (-(-d // cols), seq // tokens, 4)
+    assert (grid[0] - 1) * cols < d <= grid[0] * cols
+    assert smem == _k4_smem(k, patch, cols) <= SMEM_LIMIT
+    fused_embed.check_wgmma_shape("stitch_embed", 4, seq, patch * patch * 3,
+                                  d, k, patch, 100, tile)
+
+
+def test_k4_tiles_default_and_refusal():
+    """The default tile is today's 128 x 192 (the main path's launch is
+    unchanged); the two narrower column tiles are there; any other tile
+    raises, in the plan, the shape check and the dispatcher, on any
+    device."""
+    assert fused_embed.K4_TILES[0] == (128, 192)
+    assert {(128, 128), (128, 64)} <= set(fused_embed.K4_TILES)
+    assert fused_embed.k4_tile(None) == (128, 192)
+    assert fused_embed.k4_tile([128, 64]) == (128, 64)
+    assert fused_embed.wgmma_plan(3, 1024, 768, 64, 32) == \
+        fused_embed.wgmma_plan(3, 1024, 768, 64, 32, (128, 192))
+    for bad in ((64, 192), (128, 96), (128, 256)):
+        with pytest.raises(ValueError, match="K4 tile"):
+            fused_embed.wgmma_plan(3, 1024, 768, 64, 32, bad)
+        with pytest.raises(ValueError, match="K4 tile"):
+            fused_embed.check_wgmma_shape("stitch_embed", 3, 1024, 3072,
+                                          768, 64, 32, 100, bad)
+    from repro_torch.kernels.stitch import ops
+    x = torch.zeros((1, 32, 32, 3))
+    rec = torch.zeros((1, 1, 6), dtype=torch.int32)
+    w = torch.zeros((3072, 64), dtype=torch.bfloat16)
+    b = torch.zeros((64,), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K4 tile"):
+        ops.stitch_embed(x, rec, w, b, 32, 32, 32, tile=(128, 96))
+    assert ops.stitch_embed(x, rec, w, b, 32, 32, 32,
+                            tile=(128, 64)).shape == (1, 1, 64)
 
 
 @pytest.mark.parametrize("kdim,d,slot_elems,k,match", [

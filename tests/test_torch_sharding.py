@@ -294,6 +294,12 @@ def _gloo_cases():
             ("lm_prefill", lm, "prefill_32k", dict()),
             ("lm_train", lm, "train_4k", dict(fsdp=True, act_seq=True)),
             ("lm_decode", lm, "decode_32k", dict(sequence_parallel=True)),
+            ("lm_decode_dus", dc.replace(lm, cache_update="dus"),
+             "decode_32k", dict(sequence_parallel=True)),
+            ("lm_decode_masked", dc.replace(lm, cache_update="masked"),
+             "decode_32k", dict(sequence_parallel=True)),
+            ("lm_decode_int8", dc.replace(lm, quant_kv=True), "decode_32k",
+             dict(sequence_parallel=True)),
             ("moe_train", moe, "train_4k", dict(fsdp=True, act_seq=True)),
             ("vit_cls", reduce_arch(tconfigs.get("deit-b")), "cls_224",
              dict()),
@@ -313,7 +319,8 @@ def _gloo_cases():
 def _real_args(plan, seed):
     """The plan's arguments as numbers from a seed (equal on every
     process): uniform floats in [0, 0.1) (an optimizer's second moment
-    must not be negative), ids in range, ``valid`` a coin."""
+    must not be negative), ids in range, int8 over its range, ``valid`` a
+    coin."""
     gen = torch.Generator().manual_seed(seed)
 
     def leaf(t):
@@ -321,6 +328,9 @@ def _real_args(plan, seed):
             return torch.rand(t.shape, generator=gen) < 0.5
         if t.dtype in (torch.int32, torch.int64):
             return torch.randint(0, 16, t.shape, generator=gen,
+                                 dtype=t.dtype)
+        if t.dtype == torch.int8:     # an int8 KV cache's values
+            return torch.randint(-127, 128, t.shape, generator=gen,
                                  dtype=t.dtype)
         return torch.rand(t.shape, generator=gen, dtype=t.dtype) * 0.1
     return tuple(tparam.map_tree(leaf, a) for a in plan.args)
@@ -388,14 +398,17 @@ def _free_port():
 @pytest.mark.parametrize("names", [
     ("lm_prefill", "lm_train", "lm_decode"), ("moe_train",),
     ("vit_cls", "det_train"),
-    ("effnet_cls", "dit_gen")])
+    ("effnet_cls", "dit_gen"),
+    ("lm_decode_dus", "lm_decode_masked", "lm_decode_int8")])
 def test_sharded_steps_equal_plain_on_four_processes(names):
     """Reduced cells on a (2, 2) mesh of four gloo processes: the LM's
     prefill (heads, vocabulary and the embedding sharded over "model"),
     train step under FSDP and sequence-sharded activations (gradients,
-    AdamW and the loss) and decode step over a sequence-sharded cache (the
-    new row written on the shard that holds it, the softmax reduced
-    across the shards), the MoE train step (expert-sharded einsums),
+    AdamW and the loss) and decode step over a sequence-sharded cache
+    (written in place on the shard that holds the new row under
+    ``"dus"``, blended shard by shard under ``"masked"`` and ``"auto"``,
+    int8 values and scales too; the softmax reduced across the shards),
+    the MoE train step (expert-sharded einsums),
     DeiT's classification step (a vocabulary-sharded gather), the
     detector's train step (the target scatter on each device's canvases),
     EfficientNet's step over data x model (batch-norm statistics across

@@ -81,8 +81,7 @@ def _close(got, want, dtype):
 
 def _read_fields(jcfg, tcfg):
     """The JAX config's fields that the port's config has (the port leaves
-    out ``scan_layers`` and the TPU-block and sharded-cache fields it never
-    reads)."""
+    out ``scan_layers`` and the TPU-block fields it never reads)."""
     t = dataclasses.asdict(tcfg)
     return {k: v for k, v in dataclasses.asdict(jcfg).items() if k in t}, t
 
@@ -94,7 +93,7 @@ def test_reduced_and_full_configs_match_the_reference():
     j, t = _read_fields(full_j, full_t)
     assert t == j
     assert set(dataclasses.asdict(full_j)) - set(t) == {
-        "scan_layers", "cache_update", "flash_block_q", "flash_block_kv"}
+        "scan_layers", "flash_block_q", "flash_block_kv"}
     assert full_t.n_params == full_j.n_params
     assert tparam.count_params(ttr.param_specs(full_t)) == \
         jparam.count_params(jtr.param_specs(full_j))
@@ -135,6 +134,123 @@ def test_decode_steps_match_jax(dtype, jimpl):
     # the cache holds what the JAX cache holds (the port writes in place)
     _close(tcache["layer_1"]["k"], np.asarray(jcache["k"][1]), dtype)
     _close(tcache["layer_0"]["v"], np.asarray(jcache["v"][0]), dtype)
+
+
+def _clone_cache(tree):
+    return {name: {k: v.clone() for k, v in layer.items()}
+            for name, layer in tree.items()}
+
+
+@pytest.mark.parametrize("quant_kv", [False, True], ids=["fp", "int8"])
+def test_masked_decode_matches_jax_masked(quant_kv):
+    """``cache_update="masked"`` in both packages over 8 float32 decode
+    steps: logits within 1e-4; each step's new cache equal to the JAX
+    one's (float32 within 1e-4; an int8 cache's values within one step
+    where the K projection's last ulp moves a rounding, as
+    ``tests/test_torch_quantize.py`` holds the in-place write, and its
+    scales within 1e-4), every position but ``pos`` carried over bit for
+    bit, and the input cache's tensors untouched."""
+    jcfg, tcfg, jparams, tparams = _pair(cache_update="masked",
+                                         quant_kv=quant_kv)
+    tok = _tokens(seed=6)
+    jcache = jtr.init_cache(jcfg, B, SMAX)
+    tcache = ttr.init_cache(tcfg, B, SMAX, CPU)
+    for pos in range(STEPS):
+        t = tok[:, pos:pos + 1]
+        before = _clone_cache(tcache)
+        jl, jcache = jtr.decode_step(jcfg, jparams, jnp.asarray(t), jcache,
+                                     pos, RULES, impl="xla")
+        tl, new = ttr.decode_step(tcfg, tparams, torch.from_numpy(t),
+                                  tcache, pos)
+        _close(tl, jl, "float32")
+        assert new is not tcache
+        for name, layer in tcache.items():
+            for key, leaf in layer.items():
+                assert torch.equal(leaf, before[name][key])
+                assert new[name][key] is not leaf
+                keep = torch.arange(SMAX) != pos
+                assert torch.equal(new[name][key][:, keep],
+                                   leaf[:, keep])
+        tcache = new
+    for i in range(tcfg.n_layers):
+        for key in tcache["layer_0"]:
+            got = tcache[f"layer_{i}"][key].numpy()
+            want = np.asarray(jcache[key][i])
+            if got.dtype == np.int8:
+                assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+                assert (got != want).mean() < 0.01
+            else:
+                np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("quant_kv", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_write_equals_dus_bit_for_bit(dtype, quant_kv):
+    """The port's two writes over 8 decode steps: logits and caches
+    bit-equal (attention sees the same cache either way); ``"dus"``
+    returns the input tree itself, ``"masked"`` a new tree."""
+    _, tcfg, _, tparams = _pair(dtype, quant_kv=quant_kv)
+    tok = torch.from_numpy(_tokens(seed=7))
+    caches = {u: ttr.init_cache(tcfg, B, SMAX, CPU) for u in ("dus",
+                                                             "masked")}
+    for pos in range(STEPS):
+        out = {}
+        for u in caches:
+            cfg = dataclasses.replace(tcfg, cache_update=u)
+            out[u], new = ttr.decode_step(cfg, tparams,
+                                          tok[:, pos:pos + 1], caches[u],
+                                          pos)
+            assert (new is caches[u]) == (u == "dus")
+            caches[u] = new
+        assert torch.equal(out["dus"], out["masked"])
+    for name, layer in caches["dus"].items():
+        for key, leaf in layer.items():
+            assert torch.equal(leaf, caches["masked"][name][key])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+def test_blend_row_is_the_jax_one_hot_select(dtype):
+    """``attention._blend_row`` on the JAX masked update's inputs: the same
+    bits as ``jnp.where(arange(Smax) == pos, row, cache)``, values (B, S,
+    Kv, D) and int8 scales (B, S, Kv)."""
+    rng = np.random.default_rng(8)
+    for shape in ((B, SMAX, 2, 32), (B, SMAX, 2)):
+        cache = (rng.normal(size=shape) * 50).astype(dtype)
+        row = (rng.normal(size=(B, 1) + shape[2:]) * 50).astype(dtype)
+        for pos in (0, 17, SMAX - 1):
+            sel = (jnp.arange(SMAX) == pos).reshape(
+                (1, SMAX) + (1,) * (len(shape) - 2))
+            want = np.asarray(jnp.where(sel, row, cache))
+            got = tattn._blend_row(torch.from_numpy(cache),
+                                   torch.from_numpy(row), pos)
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cache_update_resolution():
+    """``"auto"`` is ``"masked"`` where the ambient rules shard
+    ``kv_seq`` (the sequence-parallel overlay) and ``"dus"`` off a mesh
+    or where they do not; the config and the function refuse other
+    names."""
+    from repro_torch.compat import shardingx
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import ShardingConfig as TShardingConfig
+    resolve = tattn.resolve_cache_update
+    assert resolve("auto") == "dus"
+    assert (resolve("dus"), resolve("masked")) == ("dus", "masked")
+    mesh = make_test_mesh()
+    with shardingx.use_mesh(mesh, TShardingConfig.make(
+            sequence_parallel=True).rules):
+        assert resolve("auto") == "masked"
+        assert resolve("dus") == "dus"
+    with shardingx.use_mesh(mesh, TShardingConfig.make(fsdp=True).rules):
+        assert resolve("auto") == "dus"
+    with shardingx.use_mesh(mesh):
+        assert resolve("auto") == "dus"
+    with pytest.raises(ValueError, match="cache_update"):
+        resolve("scatter")
+    with pytest.raises(ValueError, match="cache_update"):
+        _cfgs(cache_update="scatter")
+    assert get("minitron-4b").cache_update == jarch.ARCH.cache_update
 
 
 @pytest.mark.parametrize("variant", [{}, {"fused_qkv": True},
