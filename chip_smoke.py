@@ -162,11 +162,11 @@ Phases (any failure raises, so the exit code is non-zero):
    (B=16, 512^2, 1,024 latent tokens, 4 DDIM steps) the same way: the
    first step's eps within DIT_EPS_TOL of its RMS, final latents
    correlating above DIT_LATENT_CORR; DiT-XL/2 at gen_1024 (B=4, 4,096
-   tokens, heads of 72 on K6's mma.sync kernel): one forward both ways,
-   then 50 DDIM steps through K6 alone, timed a step; EfficientNet-B7 at
-   600^2, B=8: serve time and peak memory, K1-K7 launched 0 times; then
-   K6 timed at ViT-B/16's and DiT-XL/2's layer shapes against its plain
-   version, SDPA and its bound;
+   tokens, heads of 72 on K6's wgmma kernel, laid out at 80): one forward
+   both ways, then 50 DDIM steps through K6 alone, timed a step;
+   EfficientNet-B7 at 600^2, B=8: serve time and peak memory, K1-K7
+   launched 0 times; then K6 timed at ViT-B/16's and DiT-XL/2's layer
+   shapes against its plain version, SDPA and its bound;
 8d. the MoE LM at full width: ``deepseek-moe-16b`` (16.88 B parameters,
    bf16, random weights drawn on the card from a seed; 64 routed experts
    top-6 and 2 shared, GShard dispatch in groups of 512 at capacity
@@ -3641,10 +3641,11 @@ def dit_zoo(device, by_path: dict) -> dict:
 def zoo_k6_rows(device, by_path: dict, forward_ms: dict) -> list:
     """K6 at ViT-B/16's serve_b128 layer (B=128, 197 tokens, 12 heads of
     64: the wgmma kernel) and DiT-XL/2's gen_1024 layer (B=4, 4,096
-    tokens, 16 heads of 72: the mma.sync kernel), non-causal, against the
-    plain version, SDPA (``is_causal=False``; the port never calls it) and
-    the bound: 4*B*S^2*H*D operations at the bf16 peak, or q, k, v and the
-    output once each at the HBM rate, whichever is longer."""
+    tokens, 16 heads of 72: the wgmma kernel, laid out at 80), non-causal,
+    against the plain version, SDPA (``is_causal=False``; the port never
+    calls it) and the bound: 4*B*S^2*H*D operations (the real D) at the
+    bf16 peak, or q, k, v and the output once each at the HBM rate,
+    whichever is longer."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(ZOO_SEED)

@@ -50,7 +50,7 @@
 // and stored from registers.  Tiles are 128-byte swizzled (64-byte at
 // D = 32), in D / 64 column blocks of 64.  Shared memory at D = 128: Q
 // 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB of the 227 KB, one block
-// an SM.  D in {32, 64, 128} on this path.  Each step waits for its own
+// an SM.  Other head dims: below.  Each step waits for its own
 // products, so a consumer's tensor work and its softmax (64 exp2 a thread
 // a tile on the special-function unit) alternate, and only the other
 // consumer fills the gaps.  Later work: explicit ping-pong of the two
@@ -66,20 +66,20 @@
 //
 // K6 at the other head dims.  The Pallas kernel's blocks span the full
 // head dim (flash.py:129-131), so it takes any D: DiT-XL/2 has 16 heads of
-// 72, the reduced configs heads of 16.  bf16 at a D outside {32, 64, 128}
-// runs a separate kernel on mma.sync m16n8k16 (bf16 in, float32 out), the
-// tile layout K7 already uses: one block of 4 warps per (64 query rows,
-// head, batch); 64-position K/V tiles in two cp.async stages; Q, K and V
-// rows padded to Dp = D rounded up to 16 in shared memory, the columns
-// past D zero-filled by the copies themselves (no bytes read), so they add
-// nothing to a score and the output stores only D columns; each row a
-// further 16 bytes long, an odd multiple of 16, so ldmatrix reads eight
-// rows at one column without bank conflicts.  Masks, base-2 online softmax
-// and the bf16 rounding of p are the wgmma kernel's.  Bound at DiT-XL/2's
-// gen_1024 (B = 4, S = 4096, H = 16, D = 72, non-causal): operations,
-// 4*B*S^2*H*D = 309 GFLOP, 0.31 ms at 989 TFLOP/s; mma.sync reaches only
-// part of the wgmma rate (a later PR's work, as is padding Dp into the
-// wgmma kernel instead).  float32 at any D runs the FMA kernel at Dp.
+// 72, the reduced configs heads of 16.  bf16 at a d outside {32, 64, 128}
+// runs the same wgmma kernel on a padded layout: Q, K and V are laid out
+// at Dp = d rounded up to 16 (80 for 72), in Dp / 16 column blocks of 16
+// (rows x 32 bytes, 32-byte swizzled, which spreads the eight rows of a
+// 16-byte column over eight bank groups as the wider swizzles do).  The
+// tensor maps' innermost dim is the real d with a box of 16 columns, so
+// TMA writes the columns past d as zeros and reads no byte past d; they
+// add nothing to a score and the output stores only d columns, rows d
+// apart.  Q.K^T takes Dp / 16 k-steps, one column block each; P.V one
+// m64nDpk16 wgmma a k-step, V MN-major with its column blocks a tile's
+// height apart.  Shared memory at Dp = 80: 100 KB.  The pad adds Dp / d of
+// tensor work (11% at 72: 343 GFLOP at DiT-XL/2's gen_1024, B = 4,
+// S = 4096, H = 16, non-causal, against a 309 GFLOP bound, 0.31 ms at
+// 989 TFLOP/s).  float32 at any D runs the FMA kernel at Dp.
 //
 // K7 bound on an H100: bytes.  A step reads the cache up to pos once,
 // 2*B*(pos+1)*Kv*D*sizeof(T): 33.6 MB at B = 2, pos = 4095 (0.010 ms at
@@ -117,8 +117,8 @@
 // path).
 //
 // Contract (checked by the wrappers in flash.py): contiguous tensors on one
-// device, 16-byte aligned; K6: D a multiple of 8 up to 128 (bf16 at 32,
-// 64, 128 on wgmma, other bf16 D on mma.sync, float32 on the FMA kernel),
+// device, 16-byte aligned; K6: D a multiple of 8 up to 128 (bf16 on wgmma,
+// padded to a multiple of 16 outside 32, 64, 128; float32 on the FMA kernel),
 // causal or segment ids need Sq == Skv; K7: D in {32, 64, 128},
 // 0 <= pos < Smax.
 
@@ -179,14 +179,16 @@ constexpr int kWgStages = 2;      // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one bf16 K6 block (offsets from a 1024-byte aligned
-// base): Q, then the K stages, then the V stages, then the barriers.  Each
-// tile is D / kCols column blocks of (rows x kSw bytes), 128-byte swizzled
-// (64-byte at D = 32).
-template <int D>
+// base): Q, then the K stages, then the V stages, then the barriers.  D is
+// the head dim as laid out; each tile is D / kCols column blocks of (rows x
+// kSw bytes), kSw-byte swizzled: 128 at d = 64 and 128, 64 at d = 32, and
+// 32 (16-column blocks) at every other d, which is laid out at D = d
+// rounded up to 16 with the columns past d zero-filled by TMA.
+template <int D, int kSw>
 struct WgLayout {
-  static constexpr int kSw = D * 2 >= 128 ? 128 : D * 2;  // bytes a row
   static constexpr int kCols = kSw / 2;                   // bf16 a block
   static constexpr int kBlocks = D / kCols;
+  static_assert(D % kCols == 0, "whole column blocks");
   static constexpr int q_block = kWgBQ * kSw;             // bytes
   static constexpr int kv_block = kWgBKV * kSw;
   static constexpr int q_bytes = kBlocks * q_block;
@@ -216,22 +218,34 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (D == 128) {
     hopper::wgmma_rs_n128<1>(o, a, b, 1);
+  } else if constexpr (D == 112) {
+    hopper::wgmma_rs_n112<1>(o, a, b, 1);
+  } else if constexpr (D == 96) {
+    hopper::wgmma_rs_n96<1>(o, a, b, 1);
+  } else if constexpr (D == 80) {
+    hopper::wgmma_rs_n80<1>(o, a, b, 1);
   } else if constexpr (D == 64) {
     hopper::wgmma_rs_n64<1>(o, a, b, 1);
-  } else {
+  } else if constexpr (D == 48) {
+    hopper::wgmma_rs_n48<1>(o, a, b, 1);
+  } else if constexpr (D == 32) {
     hopper::wgmma_rs_n32<1>(o, a, b, 1);
+  } else {
+    static_assert(D == 16, "D a multiple of 16 up to 128");
+    hopper::wgmma_rs_n16<1>(o, a, b, 1);
   }
 }
 
-template <int D>
+template <int D, int kSw>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              const int* __restrict__ seg,
                              __nv_bfloat16* __restrict__ out, int sq, int skv,
-                             int h, int kvh, int causal, float scale_log2) {
-  using L = WgLayout<D>;
+                             int h, int kvh, int d, int causal,
+                             float scale_log2) {
+  using L = WgLayout<D, kSw>;
   extern __shared__ unsigned char k6_raw[];
   unsigned char* smem = hopper::align_1024(k6_raw);
   unsigned char* qs = smem;
@@ -321,10 +335,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         const int c = kk / (L::kCols / 16);
         const int off = (kk % (L::kCols / 16)) * 32;
         const uint64_t da = hopper::smem_desc(
-            qs + c * L::q_block + wg * 64 * L::kSw + off, 16, 8 * L::kSw,
-            L::kSw);
+            qs + c * L::q_block + wg * 64 * kSw + off, 16, 8 * kSw, kSw);
         const uint64_t db = hopper::smem_desc(kt + c * L::kv_block + off, 16,
-                                              8 * L::kSw, L::kSw);
+                                              8 * kSw, kSw);
         hopper::wgmma_ss_n128<0>(s, da, db, kk > 0);
       }
       hopper::wgmma_commit();
@@ -394,15 +407,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
 
-      // O += P . V, V MN-major: 16 positions a k-step
+      // O += P . V, V MN-major: 16 positions a k-step, one m64nDk16 over
+      // the D / kCols column blocks kv_block apart
       const unsigned char* vt = vs + st * L::kv_bytes;
       hopper::wgmma_fence();
       hopper::fence_regs(o);
 #pragma unroll
       for (int kk = 0; kk < kWgBKV / 16; ++kk) {
-        const uint64_t db = hopper::smem_desc(vt + kk * 16 * L::kSw,
-                                              L::kv_block, 8 * L::kSw,
-                                              L::kSw);
+        const uint64_t db = hopper::smem_desc(vt + kk * 16 * kSw,
+                                              L::kv_block, 8 * kSw, kSw);
         wgmma_pv<D>(o, pa[kk], db);
       }
       hopper::wgmma_commit();
@@ -417,52 +430,58 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
     const float safe_a = l_a == 0.0f ? 1.0f : l_a;
     const float safe_b = l_b == 0.0f ? 1.0f : l_b;
+    // rows of d columns; the padded layout's columns past d (zeros in V,
+    // so zeros here) are not stored.  d is a multiple of 8, so a pair of
+    // columns is all in or all out.
+    const int ld = kSw == 32 ? d : D;
 #pragma unroll
     for (int i = 0; i < D / 2; i += 2) {
       const int row = (i & 2) ? row_b : row_a;
-      if (row >= sq) continue;
-      const float safe = (i & 2) ? safe_b : safe_a;
       const int col = 8 * (i / 4) + 2 * (lane % 4);
+      if (row >= sq || col >= ld) continue;
+      const float safe = (i & 2) ? safe_b : safe_a;
       *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * sq + row) * h + head) * D + col) =
+          out + (((int64_t)b * sq + row) * h + head) * ld + col) =
           __floats2bfloat162_rn(o[i] / safe, o[i + 1] / safe);
     }
   }
 }
 
-// The (B, S, heads, D) bf16 tensor as a 4-D TMA map whose box is
-// (one column block, one head, `rows` positions, one batch).
-template <int D>
+// The (B, S, heads, d) bf16 tensor as a 4-D TMA map whose box is (one
+// column block of kCols, one head, `rows` positions, one batch).  The map's
+// innermost dim is the real d (rows d * 2 bytes apart, a multiple of 16 as
+// TMA needs), so a box's columns past d come in as zeros and no byte past
+// d is read.
+template <int kSw>
 int encode_qkv_map(CUtensorMap* map, const void* base, int b, int s,
-                   int heads, int rows) {
-  using L = WgLayout<D>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                   int heads, int d, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)s * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::kCols, 1, (cuuint32_t)rows, 1};
-  return hopper::encode_bf16_map(map, base, 4, dims, strides, box, L::kSw);
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kSw / 2, 1, (cuuint32_t)rows, 1};
+  return hopper::encode_bf16_map(map, base, 4, dims, strides, box, kSw);
 }
 
-template <int D>
+template <int D, int kSw>
 int launch_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                  const int* seg, void* out, int b, int sq,
-                                 int skv, int h, int kvh, int causal,
+                                 int skv, int h, int kvh, int d, int causal,
                                  float sm_scale, cudaStream_t stream) {
-  using L = WgLayout<D>;
+  using L = WgLayout<D, kSw>;
   CUtensorMap qmap, kmap, vmap;
-  int rc = encode_qkv_map<D>(&qmap, q, b, sq, h, kWgBQ);
-  if (rc == 0) rc = encode_qkv_map<D>(&kmap, k, b, skv, kvh, kWgBKV);
-  if (rc == 0) rc = encode_qkv_map<D>(&vmap, v, b, skv, kvh, kWgBKV);
+  int rc = encode_qkv_map<kSw>(&qmap, q, b, sq, h, d, kWgBQ);
+  if (rc == 0) rc = encode_qkv_map<kSw>(&kmap, k, b, skv, kvh, d, kWgBKV);
+  if (rc == 0) rc = encode_qkv_map<kSw>(&vmap, v, b, skv, kvh, d, kWgBKV);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_wgmma_kernel<D>;
+  auto kernel = flash_attention_wgmma_kernel<D, kSw>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + kWgBQ - 1) / kWgBQ, h, b);
   kernel<<<grid, kWgThreads, L::bytes, stream>>>(
       qmap, kmap, vmap, seg, static_cast<__nv_bfloat16*>(out), sq, skv, h,
-      kvh, causal, sm_scale * kLog2e);
+      kvh, d, causal, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -691,7 +710,25 @@ int launch_flash_attention_fma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// -------------------------------- cp.async, ldmatrix, mma.sync (K6, K7) ----
+// K6 at a head dim d laid out at D = d rounded up to 16, zeros past d:
+// the wgmma kernel on 32-byte swizzled column blocks (bf16) or the FMA
+// kernel (float32).
+template <int D>
+int launch_flash_attention_padded(int bf16, const void* q, const void* k,
+                                  const void* v, const int* seg, void* out,
+                                  int b, int sq, int skv, int h, int kvh,
+                                  int d, int causal, float sm_scale,
+                                  cudaStream_t stream) {
+  if (bf16) {
+    return launch_flash_attention_wgmma<D, 32>(q, k, v, seg, out, b, sq, skv,
+                                               h, kvh, d, causal, sm_scale,
+                                               stream);
+  }
+  return launch_flash_attention_fma<D>(q, k, v, seg, out, b, sq, skv, h, kvh,
+                                       d, causal, sm_scale, stream);
+}
+
+// ------------------------------------- cp.async, ldmatrix, mma.sync (K7) ----
 
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             int src_bytes) {
@@ -736,299 +773,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ------------------------------------------- K6, bf16 mma.sync, any D ----
-
-constexpr int kMmaThreads = 128;   // 4 warps of 16 query rows
-constexpr int kMmaBQ = 64;         // query rows a block
-constexpr int kMmaBKV = 64;        // positions a KV tile
-
-// Shared memory of one bf16 mma.sync K6 block: Q, two K stages, two V
-// stages, each 64 rows of D bf16 (the head dim d rounded up to 16, zeros
-// past d) and a 16-byte pad.  A row is then an odd multiple of 16 bytes,
-// so the eight rows one ldmatrix reads at one column land on eight
-// different 16-byte bank groups, with no swizzle to compute.
-template <int D>
-struct MmaLayout {
-  static constexpr int row_bytes = D * 2 + 16;
-  static constexpr int tile_bytes = kMmaBQ * row_bytes;
-  static constexpr int k_off = tile_bytes;
-  static constexpr int v_off = k_off + 2 * tile_bytes;
-  static constexpr int bytes = v_off + 2 * tile_bytes;
-  static_assert(kMmaBQ == kMmaBKV, "Q, K and V tiles share one layout");
-};
-
-// Rows [first, first + 64) of a bf16 sequence whose row r starts at
-// src + r * stride, d columns a row, into a tile: 16-byte cp.async copies,
-// zero-filled (no bytes read) past d and past `limit`.  The caller
-// commits the group.
-template <int D>
-__device__ __forceinline__ void mma_load_tile(unsigned char* dst,
-                                              const __nv_bfloat16* src,
-                                              int64_t stride, int first,
-                                              int limit, int d) {
-  using L = MmaLayout<D>;
-  constexpr int chunks = D / 8;
-  const int real = d / 8;
-  for (int e = threadIdx.x; e < kMmaBQ * chunks; e += kMmaThreads) {
-    const int r = e / chunks;
-    const int c = e - r * chunks;
-    const bool ok = first + r < limit && c < real;
-    const __nv_bfloat16* from =
-        src + (ok ? (first + r) * stride + c * 8 : first * stride);
-    cp_async_16(dst + r * L::row_bytes + c * 16, from, ok ? 16 : 0);
-  }
-}
-
-// K6 in bf16 for head dims the wgmma kernel does not take (DiT-XL/2's 72,
-// the reduced configs' 16, any multiple of 8 up to 128).  One block of 4
-// warps per (64 query rows, query head, batch), the heaviest causal tiles
-// first; the block streams 64-position K/V tiles through two cp.async
-// stages while each warp runs its 16 rows on the tensor cores (mma.sync
-// m16n8k16, bf16 in, float32 out): S = Q.K^T over D / 16 k-steps, the
-// masks and the online softmax on the score fragments in registers (the
-// same masking and base-2 arithmetic as the wgmma kernel), p rounded to
-// bf16 as the A fragments of P.V.  The columns past d are zeros in Q and
-// K, so they add nothing to a score, and are never stored.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const int* __restrict__ seg,
-                           __nv_bfloat16* __restrict__ out, int sq, int skv,
-                           int h, int kvh, int d, int causal,
-                           float scale_log2) {
-  using L = MmaLayout<D>;
-  extern __shared__ __align__(128) unsigned char k6m_smem[];
-  unsigned char* qs = k6m_smem;
-  unsigned char* ks = k6m_smem + L::k_off;
-  unsigned char* vs = k6m_smem + L::v_off;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int quad = lane % 4;
-  // the heaviest causal query tiles (the last) start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kv_head = head / (h / kvh);
-  const int64_t q_stride = (int64_t)h * d;
-  const int64_t kv_stride = (int64_t)kvh * d;
-  const __nv_bfloat16* qb = q + ((int64_t)b * sq * h + head) * d;
-  const __nv_bfloat16* kb = k + ((int64_t)b * skv * kvh + kv_head) * d;
-  const __nv_bfloat16* vb = v + ((int64_t)b * skv * kvh + kv_head) * d;
-  // causal: KV tiles past the diagonal are skipped (flash.py:81-85)
-  const int kv_end = causal ? min(skv, q0 + kMmaBQ) : skv;
-  const int n_tiles = (kv_end + kMmaBKV - 1) / kMmaBKV;
-
-  // this thread's two rows of the warp's 16
-  const int row_a = q0 + warp * 16 + lane / 4;
-  const int row_b = row_a + 8;
-  const int use_seg = seg != nullptr;
-  const int* segb = use_seg ? seg + (int64_t)b * skv : nullptr;
-  const int qseg_a = use_seg && row_a < sq ? segb[row_a] : 0;
-  const int qseg_b = use_seg && row_b < sq ? segb[row_b] : 0;
-  // ldmatrix rows this lane addresses: matrix lane / 8, its row lane % 8
-  const int mat = lane / 8, mrow = lane % 8;
-
-  // Q with the first K/V tile: one commit group
-  mma_load_tile<D>(qs, qb, q_stride, q0, sq, d);
-  mma_load_tile<D>(ks, kb, kv_stride, 0, skv, d);
-  mma_load_tile<D>(vs, vb, kv_stride, 0, skv, d);
-  cp_async_commit();
-
-  uint32_t qa[D / 16][4];
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    const int j0 = t * kMmaBKV;
-    if (t + 1 < n_tiles) {
-      mma_load_tile<D>(ks + (st ^ 1) * L::tile_bytes, kb, kv_stride,
-                       j0 + kMmaBKV, skv, d);
-      mma_load_tile<D>(vs + (st ^ 1) * L::tile_bytes, vb, kv_stride,
-                       j0 + kMmaBKV, skv, d);
-    }
-    cp_async_commit();   // empty on the last tile: the wait counts groups
-    cp_async_wait<1>();  // tile t (and Q) have landed, this thread's
-    __syncthreads();     // ... and every thread's
-    if (t == 0) {
-      // Q as the A fragments: matrices (rows 0-7 | 8-15) x (k lo | hi)
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        ldmatrix_x4(qa[kk], qs + (warp * 16 + (mat % 2) * 8 + mrow) *
-                                     L::row_bytes +
-                                 (2 * kk + mat / 2) * 16);
-      }
-    }
-    const unsigned char* kt = ks + st * L::tile_bytes;
-    const unsigned char* vt = vs + st * L::tile_bytes;
-
-    // S = Q . K^T: per 16 positions, matrices (positions 0-7 | 8-15) x
-    // (dims lo | hi)
-    float s[kMmaBKV / 8][4];
-#pragma unroll
-    for (int n = 0; n < kMmaBKV / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-    }
-#pragma unroll
-    for (int np = 0; np < kMmaBKV / 16; ++np) {
-      const int kr = np * 16 + (mat / 2) * 8 + mrow;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kt + kr * L::row_bytes + (2 * kk + mat % 2) * 16);
-        mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
-      }
-    }
-
-    // masks, scale to base 2, row max over the quad: element e of n-tile n
-    // is row (e < 2 ? a : b), column j0 + 8 n + 2 quad + (e & 1)
-    const bool edge = j0 + kMmaBKV > skv;
-    const bool diag = causal && j0 + kMmaBKV - 1 > q0 + warp * 16;
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < kMmaBKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (edge || diag || use_seg) {
-          const int col = j0 + n * 8 + 2 * quad + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= skv) {
-            x = -INFINITY;   // not a score: p = 0, out of the max
-          } else if ((causal && col > row) ||
-                     (use_seg && segb[col] != (e < 2 ? qseg_a : qseg_b))) {
-            x = kNegInf;
-          }
-        }
-        s[n][e] = x;
-        if (e < 2) {
-          mx_a = fmaxf(mx_a, x);
-        } else {
-          mx_b = fmaxf(mx_b, x);
-        }
-      }
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = fast_exp2(m_a - mn_a);
-    const float alpha_b = fast_exp2(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.0f, sum_b = 0.0f;
-#pragma unroll
-    for (int n = 0; n < kMmaBKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[n][e] - (e < 2 ? mn_a : mn_b));
-        s[n][e] = p;
-        if (e < 2) {
-          sum_a += p;
-        } else {
-          sum_b += p;
-        }
-      }
-    }
-    // each thread keeps its share of l; the quad sums it at the end
-    l_a = l_a * alpha_a + sum_a;
-    l_b = l_b * alpha_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha_a;
-      o[n][1] *= alpha_a;
-      o[n][2] *= alpha_b;
-      o[n][3] *= alpha_b;
-    }
-
-    // O += P . V: p rounded to bf16, the score fragments of positions
-    // 16 kk .. 16 kk + 15 the A fragment of k-step kk; V transposed,
-    // matrices (positions 0-7 | 8-15) x (dims n | n + 8)
-#pragma unroll
-    for (int kk = 0; kk < kMmaBKV / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int vr = kk * 16 + (mat % 2) * 8 + mrow;
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vt + vr * L::row_bytes + (n + mat / 2) * 16);
-        mma_bf16(o[n], pa, bf[0], bf[1]);
-        mma_bf16(o[n + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();   // the stage is free for the copy issued next
-  }
-  cp_async_wait<0>();
-
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float safe_a = l_a == 0.0f ? 1.0f : l_a;
-  const float safe_b = l_b == 0.0f ? 1.0f : l_b;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * quad;
-    if (col >= d) continue;
-    if (row_a < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * sq + row_a) * h + head) * d + col) =
-          __floats2bfloat162_rn(o[n][0] / safe_a, o[n][1] / safe_a);
-    }
-    if (row_b < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * sq + row_b) * h + head) * d + col) =
-          __floats2bfloat162_rn(o[n][2] / safe_b, o[n][3] / safe_b);
-    }
-  }
-}
-
-template <int D>
-int launch_flash_attention_mma(const void* q, const void* k, const void* v,
-                               const int* seg, void* out, int b, int sq,
-                               int skv, int h, int kvh, int d, int causal,
-                               float sm_scale, cudaStream_t stream) {
-  using L = MmaLayout<D>;
-  auto kernel = flash_attention_mma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, h, b);
-  kernel<<<grid, kMmaThreads, L::bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), seg,
-      static_cast<__nv_bfloat16*>(out), sq, skv, h, kvh, d, causal,
-      sm_scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-// K6 at a head dim d padded to D: the mma.sync kernel (bf16) or the FMA
-// kernel (float32).
-template <int D>
-int launch_flash_attention_padded(int bf16, const void* q, const void* k,
-                                  const void* v, const int* seg, void* out,
-                                  int b, int sq, int skv, int h, int kvh,
-                                  int d, int causal, float sm_scale,
-                                  cudaStream_t stream) {
-  if (bf16) {
-    return launch_flash_attention_mma<D>(q, k, v, seg, out, b, sq, skv, h,
-                                         kvh, d, causal, sm_scale, stream);
-  }
-  return launch_flash_attention_fma<D>(q, k, v, seg, out, b, sq, skv, h, kvh,
-                                       d, causal, sm_scale, stream);
 }
 
 // ------------------------------------------------------------------ K7 ----
@@ -1554,8 +1298,10 @@ int dispatch_flash_decode(int d, const void* q, const void* k, const void* v,
 // float32 (q, k, v and out share the type).
 
 // K6.  seg: (B, S) int32 segment ids or null.  d: a multiple of 8 up to
-// 128; bf16 at 32, 64 and 128 takes the wgmma kernel, bf16 at any other d
-// the mma.sync kernel, float32 the FMA kernel (both at d rounded up to 16).
+// 128.  bf16 takes the wgmma kernel: at 32, 64 and 128 on 64- or 128-byte
+// swizzled column blocks, at any other d on 16-column, 32-byte swizzled
+// blocks of d rounded up to 16.  float32 takes the FMA kernel at d rounded
+// up to 16.
 extern "C" int tangram_flash_attention(const void* q, const void* k,
                                        const void* v, const int* seg,
                                        void* out, int b, int sq, int skv,
@@ -1567,17 +1313,17 @@ extern "C" int tangram_flash_attention(const void* q, const void* k,
   if (bf16) {
     switch (d) {
       case 32:
-        return launch_flash_attention_wgmma<32>(q, k, v, seg, out, b, sq,
-                                                skv, h, kvh, causal, sm_scale,
-                                                s);
+        return launch_flash_attention_wgmma<32, 64>(q, k, v, seg, out, b, sq,
+                                                    skv, h, kvh, d, causal,
+                                                    sm_scale, s);
       case 64:
-        return launch_flash_attention_wgmma<64>(q, k, v, seg, out, b, sq,
-                                                skv, h, kvh, causal, sm_scale,
-                                                s);
+        return launch_flash_attention_wgmma<64, 128>(q, k, v, seg, out, b,
+                                                     sq, skv, h, kvh, d,
+                                                     causal, sm_scale, s);
       case 128:
-        return launch_flash_attention_wgmma<128>(q, k, v, seg, out, b, sq,
-                                                 skv, h, kvh, causal,
-                                                 sm_scale, s);
+        return launch_flash_attention_wgmma<128, 128>(q, k, v, seg, out, b,
+                                                      sq, skv, h, kvh, d,
+                                                      causal, sm_scale, s);
       default:
         break;
     }

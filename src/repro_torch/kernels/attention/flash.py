@@ -7,9 +7,10 @@ checks every argument, allocates the outputs, launches on PyTorch's
 current stream, and counts launches under ``"flash_attention"`` and
 ``"flash_decode"`` in :data:`repro_torch.kernels.launches.LAUNCHES`.
 
-K6 takes any head dim that is a multiple of 8 up to 128: bf16 at 32, 64
-and 128 runs the wgmma kernel (:func:`wgmma_plan`), bf16 at the others
-(DiT-XL/2's 72) a mma.sync kernel (:func:`mma_plan`), float32 an FMA
+K6 takes any head dim that is a multiple of 8 up to 128: bf16 runs the
+wgmma kernel (:func:`wgmma_plan`), at 32, 64 and 128 on 64- or 128-byte
+swizzled column blocks, at the others (DiT-XL/2's 72) on 16-column
+blocks of the head dim padded to a multiple of 16; float32 runs an FMA
 kernel; :func:`k6_kernel` names the one a launch takes.
 
 K7 is one launch a call and needs no scratch: each block streams its
@@ -46,11 +47,9 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash.cu"
 LIBRARY = "tangram_flash"
 
 #: head dims K6 takes: any multiple of 8 up to 128, as the Pallas kernel
-#: (whose blocks span the full head dim) takes any; bf16 at
-#: ``WGMMA_HEAD_DIMS`` runs the wgmma kernel, bf16 at the others the
-#: mma.sync kernel, float32 the FMA kernel
+#: (whose blocks span the full head dim) takes any; bf16 runs the wgmma
+#: kernel at every one, float32 the FMA kernel
 HEAD_DIMS = tuple(range(8, 129, 8))
-WGMMA_HEAD_DIMS = (32, 64, 128)
 #: head dims K7 is instantiated for
 DECODE_HEAD_DIMS = (32, 64, 128)
 #: q / k / v dtypes the kernels take -> the C interface's bf16 flag
@@ -59,9 +58,6 @@ _MAX_GRID_YZ = 65535
 #: the bf16 K6 kernel's tiles (kWgBQ, kWgBKV, kWgStages in the source):
 #: query rows a block, positions a KV tile, K/V ring stages
 WG_ROWS, WG_TILE, WG_STAGES = 128, 128, 2
-#: the bf16 mma.sync K6 kernel's tiles (kMmaBQ, kMmaBKV): query rows a
-#: block, positions a KV tile (two stages)
-MMA_ROWS, MMA_TILE = 64, 64
 #: K7's block (kDecWarps, kDecTile, kDecStages, kDecHeads in the source):
 #: warps a block, positions a warp's ring stage, stages a warp's ring,
 #: query heads a block; a block's pass over the chunk takes
@@ -89,39 +85,29 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the K6 kernels lay out: d rounded up to 16 (one k-step
+    of the tensor cores), zeros past d."""
+    return -(-d // 16) * 16
+
+
 def wgmma_plan(b: int, sq: int, h: int, d: int):
     """Grid and dynamic shared-memory bytes of the bf16 K6 launch, as the
-    source's ``WgLayout`` lays a block out: Q (``WG_ROWS`` x D bf16), the
-    K and V rings, 1 + 2 per stage barriers and 1024 bytes of alignment
-    slack.  Blocks run the last query tile first (the heaviest when
-    causal): block x takes query rows from ``(grid[0] - 1 - x) * WG_ROWS``."""
-    smem = (WG_ROWS * d * 2 + 2 * WG_STAGES * WG_TILE * d * 2
+    source's ``WgLayout`` lays a block out: Q (``WG_ROWS`` rows of the
+    padded head dim in bf16), the K and V rings, 1 + 2 per stage barriers
+    and 1024 bytes of alignment slack.  Blocks run the last query tile
+    first (the heaviest when causal): block x takes query rows from
+    ``(grid[0] - 1 - x) * WG_ROWS``."""
+    dp = padded_head_dim(d)
+    smem = (WG_ROWS * dp * 2 + 2 * WG_STAGES * WG_TILE * dp * 2
             + 8 * (1 + 2 * WG_STAGES) + 1024)
     return (-(-sq // WG_ROWS), h, b), smem
 
 
-def padded_head_dim(d: int) -> int:
-    """The head dim the mma.sync and FMA K6 kernels lay out: d rounded up
-    to 16 (one k-step of mma.sync), zeros past d."""
-    return -(-d // 16) * 16
-
-
-def mma_plan(b: int, sq: int, h: int, d: int):
-    """Grid and dynamic shared-memory bytes of the bf16 mma.sync K6 launch,
-    as the source's ``MmaLayout`` lays a block out: Q, two K and two V
-    stages, each ``MMA_ROWS`` rows of the padded head dim in bf16 plus 16
-    bytes.  Block x takes query rows from ``(grid[0] - 1 - x) *
-    MMA_ROWS``, the heaviest causal tile first."""
-    row = padded_head_dim(d) * 2 + 16
-    return (-(-sq // MMA_ROWS), h, b), 5 * MMA_ROWS * row
-
-
 def k6_kernel(dtype: torch.dtype, d: int) -> str:
-    """Which K6 kernel a launch at this dtype and head dim runs: "wgmma",
-    "mma" (bf16 at the other head dims) or "fma" (float32)."""
-    if dtype != torch.bfloat16:
-        return "fma"
-    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
+    """Which K6 kernel a launch at this dtype runs: "wgmma" (bf16, any
+    head dim) or "fma" (float32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -188,10 +174,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.device}, got {segment_ids.dtype} "
                              f"{tuple(segment_ids.shape)} on "
                              f"{segment_ids.device}")
-    kernel = k6_kernel(q.dtype, d)
-    if kernel != "fma":
-        _, smem = (wgmma_plan if kernel == "wgmma" else mma_plan)(b, sq, h,
-                                                                  d)
+    if k6_kernel(q.dtype, d) == "wgmma":
+        _, smem = wgmma_plan(b, sq, h, d)
         if smem > _SMEM_LIMIT:
             raise ValueError(f"{name}: head dim {d} needs {smem} bytes of "
                              f"shared memory, more than {_SMEM_LIMIT}")

@@ -10,9 +10,9 @@ dispatches and the local ops come back to the mode) and counts, per
 device:
 
 * FLOPs: ``torch.utils.flop_counter``'s formulas (those of
-  ``FlopCounterMode``) on each local op's shapes (the ops DTensor runs on
-  fake tensors to infer a layout's shapes are not the device's, and are
-  left out);
+  ``FlopCounterMode``) on each local op's shapes (the ops DTensor runs to
+  plan, on fake tensors to infer a layout's shapes or inside its sharding
+  propagation, are not the device's, and are left out);
 * bytes: the local input and output bytes of every op that is not a view
   and not a collective (each input read once, each output written once);
 * collectives: the output bytes of each functional collective
@@ -30,6 +30,7 @@ the analytic terms are what compare.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict
 
 import torch
@@ -76,6 +77,28 @@ def _nbytes(x) -> int:
         else 0
 
 
+#: DTensor's sharding propagation.  For an op with no strategy of its own
+#: it runs the op's decomposition once for each candidate placement, on
+#: ``meta`` tensors it allocates for the purpose (and on a fake mesh it
+#: builds once).  That is planning, not the device's work; and how many
+#: candidates it tries before one gives up depends on the order of a ``set``
+#: of placements (``Partial`` hashes its reduce op's name), so counting them
+#: made a cell's bytes depend on the process's string-hash seed.
+_PLANNING = "propagate_op_sharding_non_cached"
+
+
+def _planning() -> bool:
+    """Whether the op being dispatched runs inside DTensor's sharding
+    propagation (a frame of it is on the stack)."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        code = frame.f_code
+        if code.co_name == _PLANNING and "distributed" in code.co_filename:
+            return True
+        frame = frame.f_back
+    return False
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -117,6 +140,8 @@ class StepCounter(TorchDispatchMode):
         # tensors (global shapes): that is planning, not the device's work
         if any(issubclass(t, FakeTensor) for t in types) or any(
                 isinstance(t, FakeTensor) for t in _tensors(out)):
+            return out
+        if _planning():
             return out
         packet = func._overloadpacket
         ns = packet._qualified_op_name.split("::")[0]

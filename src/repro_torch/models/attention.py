@@ -509,10 +509,10 @@ def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     row on the device whose shard holds ``pos`` (the row laid out as the
     cache is, its one position replicated): each device writes its own
     shard, so nothing but the row moves."""
-    from torch.distributed.tensor import Replicate, Shard
     if not is_dtensor(cache):
         cache[:, pos] = new[:, 0]
         return
+    from torch.distributed.tensor import Replicate, Shard
     want = tuple(Replicate() if pl == Shard(1) else pl
                  for pl in cache.placements)
     row = new.redistribute(cache.device_mesh, want).to_local()

@@ -142,9 +142,9 @@ def _conv(p: dict, x: torch.Tensor, stride: int, cdt: torch.dtype,
     kernel replicated (``local_map``): the data-parallel layout GSPMD
     gives these replicated weights, where DTensor's own convolution
     strategy may reshard the batch onto another mesh dim."""
-    from torch.distributed.tensor import Replicate, Shard
     kernel = p["kernel"].to(cdt)
     if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
         xp = tuple(pl if pl == Shard(0) else Replicate()
                    for pl in x.placements)
         rep = (Replicate(),) * len(xp)

@@ -272,6 +272,43 @@ def test_dryrun_job_counts_a_cell_cut_to_depth():
     assert 0 < f1 < f2 < full == f1 + 11 * (f2 - f1)
 
 
+_SEED_PROBE = """
+import json, sys
+sys.path[:0] = [{src!r}]
+from repro_torch.launch import dryrun
+row, text, fail = dryrun._job({arch!r}, {shape!r}, "production", False,
+                              "16x16", True, 2)
+assert fail is None, text
+print(json.dumps({{k: row[k] for k in ("flops_per_device",
+                  "bytes_per_device", "collective_bytes_per_device",
+                  "arg_bytes")}}))
+"""
+
+
+@pytest.mark.parametrize("arch,shape", [("deit-b", "serve_b1")])
+def test_dryrun_counts_do_not_depend_on_the_hash_seed(arch, shape):
+    """A cell counts the same FLOPs, bytes, collective bytes and argument
+    bytes in processes under string-hash seeds 0 and 7.  DTensor's sharding
+    propagation tries candidate placements in the order of a ``set`` (so
+    of the seed) and allocates ``meta`` tensors for each; the counter
+    leaves that planning out (``hlo_analysis._planning``), where it once
+    counted 117,495,918 bytes a device under seed 0 and 115,671,150 under
+    seed 7 here."""
+    code = _SEED_PROBE.format(src=os.path.abspath(SRC), arch=arch,
+                              shape=shape)
+    counts = []
+    for seed in ("0", "7"):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONHASHSEED"] = seed
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, env=env,
+                              timeout=240)
+        assert proc.returncode == 0, proc.stderr
+        counts.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert counts[0] == counts[1]
+    assert counts[0]["bytes_per_device"] > 0
+
+
 def test_reduced_mistral_prefill_equals_jax():
     """``mistral-large-123b`` resolves in the port; its reduced config's
     prefill equals JAX's on the JAX weights at 1e-4."""

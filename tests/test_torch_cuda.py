@@ -862,10 +862,10 @@ K6_OTHER_SEQS = [1, 63, 64, 65, 197, 1024, 1025]
 @pytest.mark.parametrize("d", [16, 72, 80, 96])
 @pytest.mark.parametrize("s", K6_OTHER_SEQS)
 def test_flash_attention_other_head_dims_against_plain(cuda, s, d, dtype):
-    """K6 at head dims outside the wgmma set (the reduced configs' 16,
-    DiT-XL/2's 72, and 80 / 96), bf16 on the mma.sync kernel within 2e-2
-    and float32 on the FMA kernel within 1e-4 of ``mha_reference``:
-    S from 1 to 1025 around the 64-row tiles, causal, non-causal and with
+    """K6 at head dims outside 32 / 64 / 128 (the reduced configs' 16,
+    DiT-XL/2's 72, and 80 / 96), bf16 on the wgmma kernel's padded
+    layout within 2e-2 and float32 on the FMA kernel within 1e-4 of
+    ``mha_reference``: S from 1 to 1025, causal, non-causal and with
     packed segment ids (the mode and G turn with S)."""
     i = K6_OTHER_SEQS.index(s)
     mode = ("plain", "causal", "segments")[(i + d // 8) % 3]
@@ -886,6 +886,49 @@ def test_flash_attention_other_head_dims_against_plain(cuda, s, d, dtype):
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("d", flash_kernels.HEAD_DIMS)
+def test_flash_attention_every_bf16_head_dim_on_wgmma(cuda, d):
+    """bf16 K6 at every head dim it takes (multiples of 8 up to 128) runs
+    the wgmma kernel, within 2e-2 of ``mha_reference``: S = 255 (a full
+    and a ragged 128-row tile), G = 2, causal with packed segment ids,
+    then non-causal over a longer KV (S = 129 queries, 383 positions)."""
+    assert flash_kernels.k6_kernel(torch.bfloat16, d) == "wgmma"
+    rng = np.random.default_rng(300 + d)
+    q, k, v = _qkv(rng, [(2, 255, 4, d), (2, 255, 2, d), (2, 255, 2, d)],
+                   torch.bfloat16, cuda)
+    seg = torch.from_numpy(_block_segments(rng, 2, 255)).to(cuda)
+    cases = [(q, k, v, True, seg)]
+    q, k, v = _qkv(rng, [(1, 129, 2, d), (1, 383, 2, d), (1, 383, 2, d)],
+                   torch.bfloat16, cuda)
+    cases.append((q, k, v, False, None))
+    for q, k, v, causal, seg in cases:
+        before = kernels.LAUNCHES["flash_attention"]
+        got = attn_ops.flash_attention(q, k, v, causal=causal,
+                                       segment_ids=seg)
+        assert kernels.LAUNCHES["flash_attention"] == before + 1
+        want = attn_ops.flash_attention(q, k, v, causal=causal,
+                                        segment_ids=seg, impl="torch")
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_flash_attention_dit_xl2_gen_1024_shape_against_plain(cuda):
+    """K6 at one DiT-XL/2 layer of gen_1024 (B=4, 4,096 latent tokens, 16
+    heads of 72 on the wgmma kernel's layout padded to 80, non-causal),
+    bf16 within 2e-2 of its plain version."""
+    assert flash_kernels.k6_kernel(torch.bfloat16, 72) == "wgmma"
+    rng = np.random.default_rng(48)
+    q, k, v = _qkv(rng, [(4, 4096, 16, 72)] * 3, torch.bfloat16, cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = attn_ops.flash_attention(q, k, v, causal=False)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attn_ops.flash_attention(q, k, v, causal=False, impl="torch")
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_attention_dit_xl2_shape_against_plain(cuda):

@@ -97,6 +97,57 @@ def test_serving_and_training_import_no_dtensor():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_STEP_PROBE = """
+import json, sys
+sys.path[:0] = [{src!r}]
+import torch
+from repro_torch import configs
+from repro_torch.configs.reduced import reduce_arch
+from repro_torch.models import dit, efficientnet, transformer, vit
+g = torch.Generator().manual_seed(0)
+cfg = reduce_arch(configs.get({arch!r}))
+if {arch!r} in ("minitron-4b", "deepseek-moe-16b"):
+    import dataclasses
+    cfg = dataclasses.replace(cfg, cache_update="dus")
+    params = transformer.init_params(cfg, g, "cpu")
+    cache = transformer.init_cache(cfg, 2, 8, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 1), generator=g)
+    logits = transformer.decode_step(cfg, params, tokens, cache, 0)[0]
+elif {arch!r} == "efficientnet-b7":
+    params = efficientnet.init_params(cfg, g, "cpu")
+    logits = efficientnet.forward(cfg, params, torch.rand(2, 64, 64, 3))
+elif {arch!r} == "vit-b16":
+    params = vit.init_params(cfg, g, "cpu")
+    logits = vit.forward(cfg, params, torch.rand(2, 64, 64, 3),
+                         impl="flash")[0]
+else:
+    params = dit.init_params(cfg, g, "cpu")
+    side = cfg.img_res // cfg.vae_factor
+    logits = dit.forward(cfg, params,
+                         torch.randn(2, side, side, cfg.latent_channels),
+                         torch.tensor([3, 500]), torch.tensor([1, 2]),
+                         impl="flash")
+assert torch.isfinite(logits.float()).all()
+print(json.dumps([m for m in ("torch.distributed.tensor", "sympy")
+                  if m in sys.modules]))
+"""
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "deepseek-moe-16b",
+                                  "efficientnet-b7", "vit-b16", "dit-xl2"])
+def test_one_step_off_a_mesh_loads_no_dtensor(arch):
+    """One CPU decode step of a reduced LM (in-place cache write) and one
+    forward of a reduced vision or diffusion model load neither DTensor
+    nor sympy: a placement is imported only on a DTensor's branch.
+    Importing the modules (above) runs none of that code."""
+    code = _STEP_PROBE.format(src=str(ROOT / "src"), arch=arch)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
     + [ROOT / "chip_smoke.py"]))

@@ -205,15 +205,22 @@ def test_unstitch_decode_plan(p, side, want):
         fused_embed.decode_plan(1, 4096, 4097)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48, 64, 72, 80, 96, 104,
+                               120, 128])
 @pytest.mark.parametrize("b,sq,h", [(2, 4096, 24), (4, 197, 12), (1, 1, 3),
-                                    (1, 4095, 24)])
+                                    (1, 4095, 24), (4, 4096, 16),
+                                    (16, 1024, 16), (2, 64, 4), (3, 65, 6)])
 def test_flash_attention_wgmma_plan(b, sq, h, d):
+    """A block a (128 query rows, head, batch); shared memory Q and two
+    stages of a K and a V tile of 128 rows of the head dim rounded up to
+    16 (d itself at 32 / 64 / 128), in bf16, the barriers and 1024 bytes
+    of alignment slack."""
     grid, smem = flash.wgmma_plan(b, sq, h, d)
     assert grid[1:] == (h, b)
     assert (grid[0] - 1) * 128 < sq <= grid[0] * 128
-    q_tile = 128 * d * 2
-    kv_stage = 2 * 128 * d * 2               # a K and a V tile
+    dp = -(-d // 16) * 16
+    q_tile = 128 * dp * 2
+    kv_stage = 2 * 128 * dp * 2              # a K and a V tile
     assert smem == q_tile + 2 * kv_stage + 8 * 5 + 1024 <= SMEM_LIMIT
 
 
@@ -228,46 +235,33 @@ def test_flash_attention_heaviest_query_tile_first():
 
 def test_k6_takes_every_head_dim_the_configs_use():
     """K6 takes any multiple of 8 up to 128, as the Pallas kernel takes any
-    D; bf16 at 32 / 64 / 128 keeps the wgmma kernel, bf16 elsewhere (the
-    reduced configs' 16, DiT-XL/2's 72) the mma.sync kernel, float32 the
-    FMA kernel.  K7 stays at 32 / 64 / 128."""
+    D; bf16 runs the wgmma kernel at every one (the reduced configs' 16,
+    DiT-XL/2's 72 padded to 80), float32 the FMA kernel.  K7 stays at
+    32 / 64 / 128."""
     assert flash.HEAD_DIMS == tuple(range(8, 129, 8))
     assert flash.DECODE_HEAD_DIMS == (32, 64, 128)
     for d in (16, 32, 64, 72, 128):
         assert d in flash.HEAD_DIMS
     assert [flash.k6_kernel(torch.bfloat16, d) for d in (16, 32, 64, 72,
                                                          128)] == [
-        "mma", "wgmma", "wgmma", "mma", "wgmma"]
+        "wgmma", "wgmma", "wgmma", "wgmma", "wgmma"]
+    assert {flash.k6_kernel(torch.bfloat16, d)
+            for d in flash.HEAD_DIMS} == {"wgmma"}
     assert {flash.k6_kernel(torch.float32, d)
             for d in flash.HEAD_DIMS} == {"fma"}
     assert [flash.padded_head_dim(d) for d in (8, 16, 24, 72, 120, 128)] == [
         16, 16, 32, 80, 128, 128]
 
 
-@pytest.mark.parametrize("d", [8, 16, 24, 40, 48, 72, 80, 96, 104, 120,
-                               128])
-@pytest.mark.parametrize("b,sq,h", [(4, 4096, 16), (16, 1024, 16),
-                                    (2, 64, 4), (1, 1, 3), (3, 65, 6)])
-def test_flash_attention_mma_plan(b, sq, h, d):
-    """A block a (64 query rows, head, batch); shared memory Q, two K and
-    two V stages of 64 rows of the head dim rounded up to 16, in bf16, plus
-    16 bytes a row."""
-    grid, smem = flash.mma_plan(b, sq, h, d)
-    assert grid[1:] == (h, b)
-    assert (grid[0] - 1) * 64 < sq <= grid[0] * 64
-    dp = -(-d // 16) * 16
-    assert smem == 5 * 64 * (dp * 2 + 16) <= SMEM_LIMIT
-    # every row an odd multiple of 16 bytes: ldmatrix without conflicts
-    assert ((dp * 2 + 16) // 16) % 2 == 1
-
-
-def test_flash_attention_mma_plan_main_path_numbers():
-    """DiT-XL/2 at gen_1024 (B=4, 4,096 tokens, 16 heads of 72): 64 x 16 x
-    4 blocks of 5 x 64 rows of 176 bytes (56,320 bytes, two blocks an
-    SM); at gen_fast (B=16, 1,024 tokens) 16 x 16 x 16 blocks."""
-    assert flash.mma_plan(4, 4096, 16, 72) == ((64, 16, 4), 56320)
-    assert flash.mma_plan(16, 1024, 16, 72)[0] == (16, 16, 16)
-    assert 2 * (56320 + 1024) <= 233472
+def test_flash_attention_wgmma_plan_main_path_numbers():
+    """DiT-XL/2 at gen_1024 (B=4, 4,096 tokens, 16 heads of 72 laid out at
+    80): 32 x 16 x 4 blocks of Q plus two K / V stages, 5 x 128 rows of 160
+    bytes (102,400 bytes) with 40 bytes of barriers and 1024 of slack; at
+    gen_fast (B=16, 1,024 tokens) 8 x 16 x 16 blocks."""
+    assert flash.wgmma_plan(4, 4096, 16, 72) == ((32, 16, 4), 103464)
+    assert flash.wgmma_plan(16, 1024, 16, 72)[0] == (8, 16, 16)
+    # the LM's D = 128 layout is what it was
+    assert flash.wgmma_plan(2, 4096, 24, 128) == ((32, 24, 2), 164904)
 
 
 def _k7_smem(d, dtype):

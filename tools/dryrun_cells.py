@@ -11,10 +11,13 @@ For each checkout (``--root``, default: this repository) every cell of
 the 16 x 16 production mesh by that checkout's own
 ``launch/dryrun._job``, direct counts, every model cut to ``--depth``
 layers, in a process of its own (``--jobs`` at once), ``--repeats``
-times.  Some cells' byte counts differ from one process to the next (a
-few of the serve and generation cells, by up to 4%, in one checkout), so
-each cell is counted in several fresh processes, and
-a cell moved between two checkouts only where no count of one equals a
+times.  A cell's counts are the same in every process of a checkout
+since the counter leaves DTensor's sharding propagation out
+(``hlo_analysis._planning``: the meta tensors it allocates for each
+candidate placement, tried in the order of a ``set``, so of the
+process's string-hash seed, once moved a few serve and generation
+cells' bytes by up to 4%); the repeats check that it stays so, and a
+cell moved between two checkouts only where no count of one equals a
 count of the other.  Prints one JSON line a checkout (each cell's
 distinct counts of FLOPs, bytes, collective and argument bytes a
 device), a line a cell whose counts vary within a checkout, and, given
