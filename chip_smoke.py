@@ -125,11 +125,13 @@ Phases (any failure raises, so the exit code is non-zero):
    64, 511, 512 and 4095 (one chunk a pair to eight), at G 1, 8 and 24
    with D 32, 64 and 128, at G = 1 and D 128 (deepseek-moe-16b's cache,
    pos 79 and 4095), at B=64 (one chunk), in float32,
-   on a one-card decode_32k slice (B=8, 32768 positions), and called back
-   to back at positions whose plans differ; then plant four faults through
-   the kernels themselves (K6 and K7 skipping one KV tile, K7 one chunk of
-   its split, K7's merge one chunk's partial) and require the check to
-   reject each;
+   on a one-card decode_32k slice (B=8, 32768 positions), at pos 5 of
+   32768 (seven empty blocks a cluster), and called back to back at
+   positions whose live chunks differ; every K7 case also at ``pos`` a 0-d
+   int32 on the card, bit-equal to the host-int launch; then plant four
+   faults through the kernels themselves (K6 and K7 skipping one KV tile,
+   K7 one chunk of its split, K7's merge one chunk's partial) and require
+   the check to reject each;
 8. the LM path at full width: ``minitron-4b`` (5.10 B parameters, bf16,
    random weights drawn on the card from a seed) prefills B=2 x 4096
    tokens and decodes 256 teacher-forced then 32 greedy steps from an
@@ -141,9 +143,19 @@ Phases (any failure raises, so the exit code is non-zero):
    there, within LOGIT_TOL, equal greedy ids wherever the
    plain top-2 margin is at least LOGIT_TOL, and K6 32 / K7 288 x 32
    launches in the kernel runs and none in the plain ones; time K6 and K7
-   against the plain versions, SDPA and their bounds, and print the
-   prefill's split, a decode step against its byte bound and the peak
-   device memory;
+   against the plain versions, SDPA and their bounds (K7 at a device pos
+   too), and print the prefill's split, a decode step against its byte
+   bound and the peak device memory;
+8a. one decode step captured in a CUDA graph: on static tokens, ``pos`` a
+   0-d int32 on the card and phase 8's kernel cache written in place
+   (``cache_update="auto"``), replayed at 32 consecutive positions after
+   the 288 decoded, the greedy token and ``pos + 1`` written on the card
+   between replays; each replay's logits, and the cache, bit-equal to
+   the eager step at the host int on a copy of the cache (or within
+   LOGIT_TOL), K7 32 launches at capture and none counted by a replay;
+   print the replay's and the eager step's times and the byte bound;
+   phase 8d does the same for deepseek-moe-16b (positions 80-111), held
+   by its routing agreement and logit statistics;
 8b. quantize phase 8's weights on the card (int8 layer and ``lm_head``
    kernels) and run minitron-4b with an int8 KV cache: prefill B=2 x 2048
    through K6 (kernels vs plain within LOGIT_TOL, logits correlating with
@@ -521,6 +533,8 @@ DP_DATA = 2
 DRYRUN_CELLS = ("serve_c1", "serve_c8")
 DRYRUN_SEED = 24
 DRYRUN_DEPTH = 2
+#: phase 8a: consecutive positions one captured decode step is replayed at
+CAPTURE_STEPS = 32
 #: phase 12(a): the K4 rows' geometries at canvas 1024 (registry model,
 #: patch, d: the detectors' trunks)
 K4_GEOMETRIES = (("tangram", PATCH, D_MODEL), ("vit_s16", 16, 384),
@@ -1044,8 +1058,15 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> dict:
 
 
 def device_keys(t: dict, suffix: str = "") -> dict:
-    """The keys a kernel row adds for one timing."""
-    return {f"{key}{suffix}": value for key, value in t.items()}
+    """The keys a kernel row adds for one timing; a nested timing (K7's at
+    a device pos, ``"tensor_pos"``) as ``{key}_tensor_pos{suffix}``."""
+    out = {}
+    for key, value in t.items():
+        if isinstance(value, dict):
+            out.update(device_keys(value, f"_{key}{suffix}"))
+        else:
+            out[f"{key}{suffix}"] = value
+    return out
 
 
 def fmt_times(t: dict) -> str:
@@ -2694,8 +2715,9 @@ def attention_cases():
     """(name, kind, shapes and options) of phase 7; K6 on minitron-4b's
     per-layer shape, packed rows, the ViT-B/16 encoder's 197 tokens, a
     ragged causal length, float32 and deepseek-moe-16b's layer (G = 1); K7
-    on the decode cache, deepseek-moe-16b's (G = 1, D 128) and a one-card
-    decode_32k slice."""
+    on the decode cache, deepseek-moe-16b's (G = 1, D 128), a one-card
+    decode_32k slice and a position far below its cache, each at the host
+    int and at a device pos."""
     h, kvh, d = 24, 8, 128
     cases = [("K6 causal", "k6", dict(b=2, s=LM_SEQ, h=h, kvh=kvh, d=d,
                                       causal=True)),
@@ -2734,7 +2756,10 @@ def attention_cases():
                                   dtype=torch.float32)),
         ("K7 decode_32k slice", "k7", dict(b=8, smax=8 * LM_SEQ, h=h,
                                            kvh=kvh, d=d,
-                                           pos=8 * LM_SEQ - 1))]
+                                           pos=8 * LM_SEQ - 1)),
+        # far below Smax: one live chunk, seven empty blocks a cluster
+        (f"K7 pos 5 of {8 * LM_SEQ}", "k7", dict(b=2, smax=8 * LM_SEQ, h=h,
+                                                 kvh=kvh, d=d, pos=5))]
     return cases
 
 
@@ -2780,14 +2805,24 @@ def check_attention(device) -> dict:
                                         (b, smax, c["kvh"], c["d"])], dtype,
                                   device)
             got = attn_ops.flash_decode(q, k, v, c["pos"], impl="cuda")
+            on_card = attn_ops.flash_decode(
+                q, k, v, torch.tensor(c["pos"], dtype=torch.int32,
+                                      device=device), impl="cuda")
             want = attn_ops.flash_decode(q, k, v, c["pos"], impl="torch")
             plan = flash_kernels.decode_plan(
-                b, smax, c["h"], c["kvh"], c["d"], c["pos"], dtype,
+                b, smax, c["h"], c["kvh"], c["d"], dtype,
                 torch.cuda.get_device_properties(device)
                 .multi_processor_count)
+            chunk = flash_kernels.decode_chunk(c["pos"], plan.grid[0])
+            same = torch.equal(on_card, got)
             shape = (f"B={b} Smax={smax} pos={c['pos']} "
-                     f"H={c['h']}/{c['kvh']} D={c['d']}, {plan.grid[0]} "
-                     f"chunk(s) of {plan.chunk}")
+                     f"H={c['h']}/{c['kvh']} D={c['d']}, "
+                     f"{c['pos'] // chunk + 1} of {plan.grid[0]} chunk(s) "
+                     f"of {chunk} live; device pos "
+                     f"{'bit-equal' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{name}: K7 at a device pos differs "
+                                     f"from the host-int launch")
         torch.cuda.synchronize()
         ok, err, scaled = attn_close(got, want, kind, dtype)
         key = f"{kind}_{str(dtype).split('.')[-1]}"
@@ -2809,9 +2844,10 @@ def check_attention(device) -> dict:
 
 
 def back_to_back(device, worst: dict) -> None:
-    """K7 called back to back on one cache at positions whose plans differ
-    (1 to 8 chunks a pair and back), all launched before any is checked,
-    as a decode run calls it: no state a call leaves behind may reach the
+    """K7 called back to back on one cache at positions whose live chunks
+    differ (1 to 8 a pair and back), at host ints and at one device pos
+    written between launches, all launched before any is checked, as a
+    decode run calls it: no state a call leaves behind may reach the
     next."""
     rng = np.random.default_rng(10)
     dt = torch.bfloat16
@@ -2820,8 +2856,16 @@ def back_to_back(device, worst: dict) -> None:
                                 (LM_BATCH, LM_SEQ, 8, 128)], dt, device)
     order = (LM_SEQ - 1, 0, 300, 64, LM_SEQ - 1, 1, LM_SEQ // 2 - 1, 511)
     got = [attn_ops.flash_decode(q, k, v, pos, impl="cuda") for pos in order]
+    dev = torch.zeros((), dtype=torch.int32, device=device)
+    on_card = []
+    for pos in order:           # one device pos, written between launches
+        dev.fill_(pos)
+        on_card.append(attn_ops.flash_decode(q, k, v, dev, impl="cuda"))
     torch.cuda.synchronize()
-    for pos, out in zip(order, got):
+    for pos, out, out_dev in zip(order, got, on_card):
+        if not torch.equal(out_dev, out):
+            raise AssertionError(f"K7 back to back at device pos {pos} "
+                                 f"differs from the host-int launch")
         want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
         ok, err, scaled = attn_close(out, want, "k7", dt)
         worst["k7_bfloat16"] = max(worst["k7_bfloat16"], err)
@@ -2831,7 +2875,8 @@ def back_to_back(device, worst: dict) -> None:
             raise AssertionError(f"K7 back to back at pos {pos} differs: "
                                  f"max abs err {err}, row-scaled {scaled}")
     log(f"  K7 back to back at pos {list(order)}: every call within "
-        f"its limits")
+        f"its limits, and each at one device pos written between launches "
+        f"bit-equal to it")
 
 
 def _cut(x: torch.Tensor, start: int, n: int) -> torch.Tensor:
@@ -2858,12 +2903,13 @@ def planted_faults(device) -> None:
                           (LM_BATCH, LM_SEQ, "the merge of one chunk's "
                                              "partial")):
         pos = smax - 1
-        plan = flash_kernels.decode_plan(b, smax, h, kvh, d, pos, dt, sms)
+        plan = flash_kernels.decode_plan(b, smax, h, kvh, d, dt, sms)
+        chunk = flash_kernels.decode_chunk(pos, plan.grid[0])
         if what == "one tile":
             start, n = LM_SEQ // 2, flash_kernels.DEC_WARPS * \
                 flash_kernels.DEC_TILE
         else:
-            start, n = (plan.grid[0] // 2) * plan.chunk, plan.chunk
+            start, n = ((pos // chunk + 1) // 2) * chunk, chunk
         q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
                                     (b, smax, kvh, d)], dt, device)
         want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
@@ -2945,14 +2991,19 @@ def k6_timing(rng, device, b, s, h, kvh, d, plain: bool):
 
 
 def k7_timing(rng, device, b, smax, pos, h, kvh, d):
-    """K7 at (B, Smax, pos, H / Kv, D): (its times, the plain version's
-    ms, SDPA's times over the cache up to pos, bound ms, bound_by)."""
+    """K7 at (B, Smax, pos, H / Kv, D): (its times at the host int, with
+    its times at ``pos`` a 0-d int32 on the card under ``"tensor_pos"``,
+    the plain version's ms, SDPA's times over the cache up to pos, bound
+    ms, bound_by)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = attn_inputs(rng, [(b, 1, h, d), (b, smax, kvh, d),
                                 (b, smax, kvh, d)], torch.bfloat16, device)
     kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
     qt = q.transpose(1, 2).contiguous()
     kern = timed(lambda: attn_ops.flash_decode(q, k, v, pos, impl="cuda"))
+    dev = torch.tensor(pos, dtype=torch.int32, device=device)
+    kern["tensor_pos"] = timed(lambda: attn_ops.flash_decode(q, k, v, dev,
+                                                             impl="cuda"))
     plain_ms = time_ms(lambda: attn_ops.flash_decode(q, k, v, pos,
                                                      impl="torch"),
                        iters=10)
@@ -3048,7 +3099,8 @@ def attention_rows(device, launches: dict, worst: dict) -> list:
             f"{t[1]:.4f} ms, SDPA {fmt_times(t[2])}, bound {t[3]:.4f} ms, "
             f"{t[3] / t[0]['ms_device']:.1%} of the bound's speed on the "
             f"device; host time of a call "
-            f"{t[0]['ms_call'] - t[0]['ms_device']:.4f} ms)")
+            f"{t[0]['ms_call'] - t[0]['ms_device']:.4f} ms); at a device "
+            f"pos {fmt_times(t[0]['tensor_pos'])}")
     return rows
 
 
@@ -3060,7 +3112,10 @@ def lm_decode(cfg, params, tokens, impl, forced_steps: int = LM_FORCED,
     """Teacher-forced decode over the prompts' first ``forced_steps``
     tokens, then ``greedy_steps`` greedy steps, from an empty ``smax``
     cache; launches counted from 0 just before, read just after; then one
-    more step timed (CUDA events) unless ``time_step`` is false."""
+    more step timed (CUDA events) unless ``time_step`` is false.  The
+    cache comes back under ``"cache"``: rows 0..forced + greedy - 1
+    written (row forced + greedy too when timed, by the last greedy
+    choice, the next step's input)."""
     cache = transformer.init_cache(cfg, tokens.shape[0], smax, tokens.device)
     reset_launches()
     torch.cuda.synchronize()
@@ -3091,7 +3146,8 @@ def lm_decode(cfg, params, tokens, impl, forced_steps: int = LM_FORCED,
     LAUNCHES.update(launches)
     return {"forced": torch.stack(forced, 1), "ids": torch.stack(chosen, 1),
             "margin": torch.stack(top2, 1), "launches": launches,
-            "forced_s": t1 - t0, "greedy_s": t2 - t1, "step_ms": step_ms}
+            "forced_s": t1 - t0, "greedy_s": t2 - t1, "step_ms": step_ms,
+            "cache": cache}
 
 
 def greedy_agreement(kern: dict, plain: dict) -> list:
@@ -3206,11 +3262,172 @@ def lm_phase(device, by_path: dict) -> dict:
     for row in range(LM_BATCH):
         if not torch.isfinite(dec["kernels"]["forced"][row]).all():
             raise AssertionError("non-finite decode logits")
+    del dec["plain"]["cache"]
     return {"cfg": cfg, "params": params, "tokens": tokens, "diffs": diffs,
+            # phase 8a decodes on from the kernel run's cache
+            "decode_cache": dec["kernels"].pop("cache"),
+            "next_ids": dec["kernels"]["ids"][:, -1:],
             "prefill_wall": {k: r["wall"] for k, r in runs.items()},
             "decode": {k: {x: d[x] for x in ("forced_s", "greedy_s",
                                              "step_ms")}
                        for k, d in dec.items()}}
+
+
+def decode_bytes(cfg, params, pos: int) -> tuple:
+    """(weights, cache): the bytes a decode step at ``pos`` must read, the
+    layer and lm_head weights (every expert: the dense dispatch reads them
+    all) and the bf16 K / V cache up to pos."""
+    weights = sum(t.numel() * t.element_size()
+                  for name, sub in params.items() if name != "embed"
+                  for t in param.leaves(sub))
+    cache = 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads * cfg.head_dim * 2 \
+        * cfg.n_layers
+    return weights, cache
+
+
+def capture(fn):
+    """``fn`` run once on a side stream (the warm-up a capture needs), then,
+    with the launch counters set to 0, captured in a CUDA graph: (the
+    graph, the captured call's output, whose tensors each replay
+    rewrites)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    reset_launches()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def captured_decode(cfg, params, cache: dict, ids, start: int,
+                    by_path: dict, key: str) -> dict:
+    """Phase 8a: one decode step captured in a CUDA graph, on static
+    tokens (``ids``, the last greedy choice), ``pos`` a 0-d int32 on the
+    card (``start``) and ``cache`` written in place, then replayed at
+    ``CAPTURE_STEPS`` consecutive positions, the greedy token and ``pos +
+    1`` written on the card between replays; beside each replay the eager
+    step at the host int on a copy of the cache, fed the same token.
+    Capture launches K7 once a layer (the host counters, read into
+    ``by_path[key]``); a replay launches it without moving them.  Each
+    step's routing decisions are recorded in both runs (an MoE model's;
+    in the graph too: its top-k indices are rewritten at each replay).
+    Returns both runs' logits and routes, whether logits and caches came
+    out bit-equal, the replay's time a step (CUDA events around
+    back-to-back replays with the token and pos update: the card's time,
+    the host only launching graphs), the device's busy time in one
+    (``torch.profiler``; None if it records nothing), the eager step's
+    time, and the step's byte bound at ``start``."""
+    device = ids.device
+    eager = clone_cache(cache)
+    tok = ids.clone()
+    pos = torch.tensor(start, dtype=torch.int32, device=device)
+    before = dict(LAUNCHES)
+    routes = []
+
+    def step():     # the warm-up writes row `start` as replay 0 does
+        routes.clear()
+        with recorded_routes(routes):
+            return transformer.decode_step(cfg, params, tok, cache, pos)
+    graph, (logits, out) = capture(step)
+    by_path[key] = dict(LAUNCHES)
+    check_launches({"launches": LAUNCHES}, ("flash_decode",),
+                   f"{key}: capture")
+    if LAUNCHES["flash_decode"] != cfg.n_layers or out is not cache:
+        raise AssertionError(f"{key}: capture launched K7 "
+                             f"{LAUNCHES['flash_decode']} times (expected "
+                             f"{cfg.n_layers}), in place {out is cache}")
+    run = {"replay": [], "eager": [], "replay_routes": [],
+           "eager_routes": []}
+    for i in range(CAPTURE_STEPS):
+        eager_routes = []
+        with recorded_routes(eager_routes):
+            want, eager = transformer.decode_step(cfg, params, tok, eager,
+                                                  start + i)
+        counts = dict(LAUNCHES)
+        graph.replay()
+        if LAUNCHES != counts:
+            raise AssertionError(f"{key}: a replay moved the launch "
+                                 f"counters")
+        run["replay"].append(logits[:, 0].clone())
+        run["eager"].append(want[:, 0])
+        run["replay_routes"].append([r.clone() for r in routes])
+        run["eager_routes"].append(eager_routes)
+        tok.copy_(logits[:, 0].float().argmax(-1, keepdim=True))
+        pos.add_(1)
+    torch.cuda.synchronize()
+    if int(pos) != start + CAPTURE_STEPS:
+        raise AssertionError(f"{key}: pos {int(pos)} after the replays")
+    run["replay"] = torch.stack(run["replay"], 1)
+    run["eager"] = torch.stack(run["eager"], 1)
+    run["same_logits"] = torch.equal(run["replay"], run["eager"])
+    run["same_cache"] = all(torch.equal(v, eager[name][k])
+                            for name, layer in cache.items()
+                            for k, v in layer.items())
+    if not torch.isfinite(run["replay"].float()).all():
+        raise AssertionError(f"{key}: non-finite replayed logits")
+
+    def serve_step():
+        graph.replay()
+        tok.copy_(logits[:, 0].float().argmax(-1, keepdim=True))
+        pos.add_(1)
+    run["replay_ms"] = time_ms(serve_step, iters=10, warmup=1)
+    busy = device_busy(serve_step)
+    run["busy_ms"] = None if busy is None else busy[0]
+    end = start + CAPTURE_STEPS
+    run["eager_ms"] = time_ms(lambda: transformer.decode_step(
+        cfg, params, tok, eager, end), iters=10, warmup=1)
+    run["bound_ms"] = sum(decode_bytes(cfg, params, start)) / H100.hbm_bw \
+        * 1e3
+    del graph, eager
+    LAUNCHES.update(before)     # the eager comparison's launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def fmt_busy(run: dict) -> str:
+    if run["busy_ms"] is None:
+        return "the profiler recorded no device activity in a replay"
+    return (f"device busy {run['busy_ms']:.3f} ms of it (torch.profiler, "
+            f"idle {1 - run['busy_ms'] / run['replay_ms']:.1%}"
+            + (": negative, the busy sum exceeds the replay's time, so it "
+               "is not a measurement" if run["busy_ms"] > run["replay_ms"]
+               else "") + ")")
+
+
+def captured_phase(lm: dict, by_path: dict) -> None:
+    """Phase 8a for minitron-4b: phase 8's kernel cache (rows 0-288 of
+    LM_SEQ) decoded on from the last greedy choice by one captured step,
+    replayed at positions 288-319; logits and cache bit-equal to the eager
+    step at the host int, or within LOGIT_TOL (the tokens fed stay the
+    replay's either way)."""
+    cfg, params = lm["cfg"], lm["params"]
+    start = LM_FORCED + LM_GREEDY
+    run = captured_decode(cfg, params, lm.pop("decode_cache"),
+                          lm.pop("next_ids"), start, by_path,
+                          "lm_decode_graph_capture")
+    err = max_abs_err(run["replay"], run["eager"])
+    captured = by_path["lm_decode_graph_capture"]["flash_decode"]
+    log(f"  captured once (K7 {captured} launches at capture, "
+        f"{cfg.n_layers} layers; "
+        f"none counted by a replay), replayed at pos {start}-"
+        f"{start + CAPTURE_STEPS - 1}: logits "
+        f"{'bit-equal' if run['same_logits'] else f'max abs err {err:.4f}'}"
+        f" and cache {'bit-equal' if run['same_cache'] else 'DIFFERENT'} "
+        f"to the eager step at the host int")
+    if not run["same_logits"] and not err <= LOGIT_TOL:
+        raise AssertionError(f"captured decode: replayed logits {err} from "
+                             f"eager > LOGIT_TOL")
+    log(f"  a step: replayed {run['replay_ms']:.3f} ms (CUDA events around "
+        f"back-to-back replays with the token and pos update; "
+        f"{fmt_busy(run)}), eager "
+        f"{run['eager_ms']:.3f} ms at pos {start + CAPTURE_STEPS}; byte "
+        f"bound {run['bound_ms']:.3f} ms at pos {start}, the replay "
+        f"{run['bound_ms'] / run['replay_ms']:.1%} of the bound's speed, "
+        f"the eager step {run['eager_ms'] / run['replay_ms']:.2f}x the replay")
 
 
 def lm_int8_phase(lm: dict, device, by_path: dict) -> None:
@@ -3349,12 +3566,8 @@ def lm_split(lm: dict, k6_ms: float) -> None:
         f"({attn / total:.1%}) + rest of the layers {rest:.2f} "
         f"({rest / total:.1%}) + lm_head {head:.3f}; plain prefill "
         f"{lm['prefill_wall']['plain'] * 1e3:.1f} ms wall (one run)")
-    weights = sum(t.numel() * t.element_size()
-                  for name, sub in params.items() if name != "embed"
-                  for t in param.leaves(sub))
     pos = LM_FORCED + LM_GREEDY
-    cache = 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads * cfg.head_dim * 2 \
-        * cfg.n_layers
+    weights, cache = decode_bytes(cfg, params, pos)
     bound = (weights + cache) / H100.hbm_bw * 1e3
     for key, d in lm["decode"].items():
         log(f"  decode step {key}: {d['step_ms']:.3f} ms (CUDA events) vs "
@@ -3917,6 +4130,54 @@ def moe_nodrop(cfg, params, tokens, by_path: dict, fails: list) -> dict:
     return st
 
 
+def moe_captured(cfg, params, dec: dict, by_path: dict,
+                 fails: list) -> None:
+    """Phase 8a for deepseek-moe-16b: the kernel decode's cache (rows
+    0-79) decoded on by one captured step, replayed at positions 80-111
+    against the eager step at the host int, held as phase 8d holds kernels
+    against plain: per layer the routing decisions of the 32 steps
+    (ordered, as sets; each step's differences compound over the layers),
+    and the logits' statistics (``MOE_LIMITS``); bit-equal logits and
+    cache are reported as such."""
+    start = MOE_FORCED + MOE_GREEDY
+    del dec["plain"]["cache"]
+    run = captured_decode(cfg, params, dec["kernels"].pop("cache"),
+                          dec["kernels"]["ids"][:, -1:], start, by_path,
+                          "moe_decode_graph_capture")
+    if any(len(r) != cfg.n_layers for r in
+           run["replay_routes"] + run["eager_routes"]):
+        raise AssertionError("phase 8a: routes not recorded once a layer")
+    agree = [route_agreement(
+        torch.cat([step[i] for step in run["replay_routes"]]),
+        torch.cat([step[i] for step in run["eager_routes"]]))
+        for i in range(cfg.n_layers)]
+    least = min(a for a, _ in agree)
+    sets = min(b for _, b in agree)
+    captured = by_path["moe_decode_graph_capture"]["flash_decode"]
+    log(f"  captured once (K7 {captured} launches at capture, "
+        f"{cfg.n_layers} layers; "
+        f"none counted by a replay), replayed at pos {start}-"
+        f"{start + CAPTURE_STEPS - 1}: logits "
+        f"{'bit-equal' if run['same_logits'] else 'not bit-equal'} and "
+        f"cache {'bit-equal' if run['same_cache'] else 'not bit-equal'} to "
+        f"the eager step at the host int; routing decisions equal, least "
+        f"over the layers {least:.4f} ordered, {sets:.4f} as sets (limit "
+        f"{MOE_ROUTE_SETS})")
+    hold_stats(logit_stats(run["replay"], run["eager"]),
+               f"replayed vs eager decode logits, pos {start}-"
+               f"{start + CAPTURE_STEPS - 1}", "kernels vs plain", fails)
+    if sets < MOE_ROUTE_SETS:
+        fails.append(f"captured decode routing: least as sets {sets}")
+    log(f"  a step: replayed {run['replay_ms']:.3f} ms (CUDA events around "
+        f"back-to-back replays with the token and pos update; each replay "
+        f"also records its {cfg.n_layers} layers' top-k ids; "
+        f"{fmt_busy(run)}), eager "
+        f"{run['eager_ms']:.3f} ms at pos {start + CAPTURE_STEPS}; byte "
+        f"bound {run['bound_ms']:.3f} ms at pos {start}, the replay "
+        f"{run['bound_ms'] / run['replay_ms']:.1%} of the bound's speed, "
+        f"the eager step {run['eager_ms'] / run['replay_ms']:.2f}x the replay")
+
+
 def moe_int8(cfg, params, tokens, by_path: dict, fails: list) -> dict:
     """int8 expert, shared, attention and lm_head kernels quantized on the
     card by the port's quantizer (expert scales over the middle axis);
@@ -3990,13 +4251,17 @@ def moe_attention_rows(device, by_path: dict) -> list:
         attn_ops.flash_attention(q, k, v, causal=True, impl="torch"),
         "k6", dt)
     q1 = q[:, -1:].contiguous()
+    got7 = attn_ops.flash_decode(q1, k, v, LM_SEQ - 1, impl="cuda")
     ok7, err7, sc7 = attn_close(
-        attn_ops.flash_decode(q1, k, v, LM_SEQ - 1, impl="cuda"),
-        attn_ops.flash_decode(q1, k, v, LM_SEQ - 1, impl="torch"), "k7", dt)
+        got7, attn_ops.flash_decode(q1, k, v, LM_SEQ - 1, impl="torch"),
+        "k7", dt)
+    ok7 = ok7 and torch.equal(got7, attn_ops.flash_decode(
+        q1, k, v, torch.tensor(LM_SEQ - 1, dtype=torch.int32, device=device),
+        impl="cuda"))
     if not (ok6 and ok7):
         raise AssertionError(f"K6 / K7 at {MOE_ARCH}'s shapes differ from "
-                             f"their plain versions: {err6}, {sc6}; {err7}, "
-                             f"{sc7}")
+                             f"their plain versions (K7 also from itself at "
+                             f"a device pos): {err6}, {sc6}; {err7}, {sc7}")
     del q, k, v, q1
     k6 = k6_timing(rng, device, LM_BATCH, LM_SEQ, h, kvh, d, plain=True)
     k7 = k7_timing(rng, device, LM_BATCH, LM_SEQ, LM_SEQ - 1, h, kvh, d)
@@ -4052,7 +4317,10 @@ def moe_attention_rows(device, by_path: dict) -> list:
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
             f"{row['bound_ms'] / row['ms_device']:.1%} of the bound's speed "
             f"on the device; max abs err {row['max_abs_err']:.3g}, "
-            f"row-scaled {row['max_row_scaled_err']:.4f})")
+            f"row-scaled {row['max_row_scaled_err']:.4f})"
+            + (f"; at a device pos device {row['ms_device_tensor_pos']:.4f}"
+               f" ms, call {row['ms_call_tensor_pos']:.4f} ms"
+               if "ms_device_tensor_pos" in row else ""))
     return rows
 
 
@@ -4129,11 +4397,8 @@ def moe_split(cfg, params, tokens, k6_ms: float, dec: dict) -> None:
     log(f"    dispatch and combine einsums: {2 * einsum_flop / 1e12:.3f} "
         f"TFLOP a layer, {2 * einsum_flop / 1e9 / pair_ms:.1f} TFLOP/s")
     del disp, comb, e_in, e_out, hm, hn, x
-    weights = sum(t.numel() * t.element_size()
-                  for name, sub in params.items() if name != "embed"
-                  for t in param.leaves(sub))
     pos = MOE_FORCED + MOE_GREEDY
-    cache = 2 * LM_BATCH * (pos + 1) * cfg.n_kv_heads * cfg.head_dim * 2 * L
+    weights, cache = decode_bytes(cfg, params, pos)
     bound = (weights + cache) / H100.hbm_bw * 1e3
     for key, dd in dec.items():
         log(f"  decode step {key}: {dd['step_ms']:.3f} ms (the teacher-"
@@ -4245,6 +4510,10 @@ def moe_phase(device, by_path: dict) -> list:
         f"{moe.capacity(gs, m)}): "
         f"{fmt_stats(published)}")
     del runs
+    log(f"phase 8a for {MOE_ARCH}: one decode step captured in a CUDA "
+        f"graph (pos a 0-d int32 on the card), replayed at {CAPTURE_STEPS} "
+        f"consecutive positions against the eager step")
+    moe_captured(cfg, params, dec, by_path, fails)
     moe_nodrop(cfg, params, tokens, by_path, fails)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5118,6 +5387,10 @@ def main() -> None:
     attn_rows = attention_rows(device, launches, worst_attn)
     lm_split(lm, attn_rows[0]["ms_device"])
     rows += attn_rows
+    log(f"phase 8a: {LM_ARCH} at full width: one decode step captured in a "
+        f"CUDA graph (pos a 0-d int32 on the card), replayed at "
+        f"{CAPTURE_STEPS} consecutive positions against the eager step")
+    captured_phase(lm, by_path)
     log(f"phase 8b: {LM_ARCH} with int8 weights and an int8 KV cache: "
         f"prefill B={LM_BATCH} S={LM_INT8_SEQ}, {LM_INT8_STEPS} decode steps")
     lm_int8_phase(lm, device, by_path)

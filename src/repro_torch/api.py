@@ -210,9 +210,7 @@ def plan_decode(cfg: TransformerConfig, shape: ShapeConfig, mesh,
     pos = _meta((), torch.int32)
 
     def step(params, tokens, cache, pos):
-        # the meta device holds no position: decode at the cache's last
-        # (every position attends over the whole masked cache)
-        return tfm_lib.decode_step(cfg, params, tokens, cache, S - 1,
+        return tfm_lib.decode_step(cfg, params, tokens, cache, pos,
                                    impl="torch")
 
     p_sh = param_lib.param_pspecs(specs, rules, mesh)

@@ -86,10 +86,16 @@
 // 3.35 TB/s), 1.07 GB at B = 8, pos = 32767 (0.321 ms); about 1.5 FMA a
 // cache byte at G = 3.  Design.  The TPU grid (B*Kv, KV blocks) runs its
 // KV axis in order; at B = 2 that is 16 (batch, KV head) pairs, 16 of 132
-// SMs.  So K7 splits the positions 0..pos (a host integer: the grid is
-// sized to it) into chunks of a multiple of 64, one block per (chunk, KV
-// head and group of up to 16 of its query heads, batch), and the chunks of
-// one (batch, KV head, group), at most 8, are one thread-block cluster.
+// SMs.  So K7 splits the positions 0..pos into chunks of a multiple of
+// 64, one block per (chunk, KV head and group of up to 16 of its query
+// heads, batch), and the chunks of one (batch, KV head, group), at most 8,
+// are one thread-block cluster.  `pos` is a host int or an int32 on the
+// device (`pos_ptr`), as the Pallas kernel reads it from SMEM, so one
+// launch, captured in a CUDA graph, serves every position: the grid and
+// the cluster are fixed by Smax, B, Kv and the SM count, and each block
+// derives its chunk from the `pos` it reads (decode_chunk).  Blocks past
+// pos hold the empty state (m = -1e30, l = 0, finite, so the merge weighs
+// them 0) and still meet both cluster barriers.
 // In a block of 4 warps each warp owns every fourth 16-position tile of
 // the chunk and streams its tiles' K and V rows through a ring of its own
 // (3 stages, 16-byte cp.async.cg copies, 8 KB a stage at D = 128 bf16),
@@ -119,8 +125,10 @@
 // Contract (checked by the wrappers in flash.py): contiguous tensors on one
 // device, 16-byte aligned; K6: D a multiple of 8 up to 128 (bf16 on wgmma,
 // padded to a multiple of 16 outside 32, 64, 128; float32 on the FMA kernel),
-// causal or segment ids need Sq == Skv; K7: D in {32, 64, 128},
-// 0 <= pos < Smax.
+// causal or segment ids need Sq == Skv; K7: D in {32, 64, 128}, a host
+// pos in [0, Smax); a device pos is clamped into [0, Smax) by the kernel
+// (no read leaves the cache; XLA's dynamic_update_slice clamps its start
+// the same way).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -818,6 +826,16 @@ __device__ __forceinline__ int decode_chunk_at(int r, int c) {
   }
 }
 
+// Positions a block takes at `pos` with `n_chunks` chunks a (batch, KV
+// head, group): the block passes of 0..pos spread evenly, in whole passes
+// (flash.py's decode_chunk mirrors it).  Chunk c holds [c * chunk,
+// min((c + 1) * chunk, pos + 1)), empty past pos.
+__device__ __forceinline__ int decode_chunk(int pos, int n_chunks) {
+  constexpr int per_pass = kDecWarps * kDecTile;
+  const int passes = pos / per_pass + 1;
+  return (passes + n_chunks - 1) / n_chunks * per_pass;
+}
+
 // Everything one K7 block reads: where its KV head's rows start, which
 // positions are its chunk's, which query heads are its own.
 template <typename T>
@@ -1159,7 +1177,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kDecWarps * 32)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int smax,
-                    int h, int kvh, int groups, int pos, int chunk,
+                    int h, int kvh, int groups,
+                    const int32_t* __restrict__ pos_ptr, int pos_arg,
                     float scale_log2) {
   using L = DecLayout<T, D>;
   namespace cg = cooperative_groups;
@@ -1175,8 +1194,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   blk.stride = (int64_t)kvh * D;
   blk.k = k + ((int64_t)b * smax * kvh + kv_head) * D;
   blk.v = v + ((int64_t)b * smax * kvh + kv_head) * D;
+  // the position from the device when given, clamped into the cache
+  const int pos =
+      min(max(pos_ptr != nullptr ? *pos_ptr : pos_arg, 0), smax - 1);
+  const int chunk = decode_chunk(pos, (int)gridDim.x);
   blk.first = blockIdx.x * chunk;
-  blk.last = min(blk.first + chunk, pos + 1);
+  blk.last = max(blk.first, min(blk.first + chunk, pos + 1));
   blk.gh = min(kDecHeads, g_all - g0);
   const int64_t head0 = (int64_t)b * h + (int64_t)kv_head * g_all + g0;
   blk.q = q + head0 * D;
@@ -1244,14 +1267,14 @@ cudaError_t allow_decode_smem() {
 
 template <typename T, int D>
 int launch_flash_decode(const void* q, const void* k, const void* v,
-                        void* out, int b, int smax, int h, int kvh, int pos,
-                        int chunk, float sm_scale, cudaStream_t stream) {
+                        void* out, int b, int smax, int h, int kvh,
+                        const int32_t* pos_ptr, int pos, int n_chunks,
+                        float sm_scale, cudaStream_t stream) {
   using L = DecLayout<T, D>;
   auto kernel = flash_decode_kernel<T, D>;
   cudaError_t err = allow_decode_smem<T, D>();
   if (err != cudaSuccess) return (int)err;
   const int groups = (h / kvh + kDecHeads - 1) / kDecHeads;
-  const int n_chunks = pos / chunk + 1;   // chunks holding 0..pos
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = n_chunks;
@@ -1266,26 +1289,30 @@ int launch_flash_decode(const void* q, const void* k, const void* v,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
                            static_cast<const T*>(k), static_cast<const T*>(v),
-                           static_cast<T*>(out), smax, h, kvh, groups, pos,
-                           chunk, sm_scale * kLog2e);
+                           static_cast<T*>(out), smax, h, kvh, groups,
+                           pos_ptr, pos, sm_scale * kLog2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_flash_decode(int d, const void* q, const void* k, const void* v,
-                          void* out, int b, int smax, int h, int kvh, int pos,
-                          int chunk, float sm_scale, cudaStream_t stream) {
+                          void* out, int b, int smax, int h, int kvh,
+                          const int32_t* pos_ptr, int pos, int n_chunks,
+                          float sm_scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch_flash_decode<T, 32>(q, k, v, out, b, smax, h, kvh, pos,
-                                        chunk, sm_scale, stream);
+      return launch_flash_decode<T, 32>(q, k, v, out, b, smax, h, kvh,
+                                        pos_ptr, pos, n_chunks, sm_scale,
+                                        stream);
     case 64:
-      return launch_flash_decode<T, 64>(q, k, v, out, b, smax, h, kvh, pos,
-                                        chunk, sm_scale, stream);
+      return launch_flash_decode<T, 64>(q, k, v, out, b, smax, h, kvh,
+                                        pos_ptr, pos, n_chunks, sm_scale,
+                                        stream);
     case 128:
-      return launch_flash_decode<T, 128>(q, k, v, out, b, smax, h, kvh, pos,
-                                         chunk, sm_scale, stream);
+      return launch_flash_decode<T, 128>(q, k, v, out, b, smax, h, kvh,
+                                         pos_ptr, pos, n_chunks, sm_scale,
+                                         stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1364,18 +1391,24 @@ extern "C" int tangram_flash_attention(const void* q, const void* k,
   }
 }
 
-// K7.  chunk: a multiple of 64 positions, with pos / chunk + 1 <= 8 (the
-// chunks of one KV head are one cluster).
+// K7.  pos_ptr: one int32 on the device, read by every block, or null for
+// the host `pos`.  n_chunks: chunks a (batch, KV head, group), 1 to 8 (one
+// cluster), fixed by the caller for every pos.
 extern "C" int tangram_flash_decode(const void* q, const void* k,
                                     const void* v, void* out, int b,
-                                    int smax, int h, int kvh, int d, int pos,
-                                    int chunk, float sm_scale, int bf16,
+                                    int smax, int h, int kvh, int d,
+                                    const int32_t* pos_ptr, int pos,
+                                    int n_chunks, float sm_scale, int bf16,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_chunks < 1 || n_chunks > 8 || smax < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (bf16) {
     return dispatch_flash_decode<__nv_bfloat16>(d, q, k, v, out, b, smax, h,
-                                                kvh, pos, chunk, sm_scale, s);
+                                                kvh, pos_ptr, pos, n_chunks,
+                                                sm_scale, s);
   }
-  return dispatch_flash_decode<float>(d, q, k, v, out, b, smax, h, kvh, pos,
-                                      chunk, sm_scale, s);
+  return dispatch_flash_decode<float>(d, q, k, v, out, b, smax, h, kvh,
+                                      pos_ptr, pos, n_chunks, sm_scale, s);
 }

@@ -17,11 +17,15 @@ K7 is one launch a call and needs no scratch: each block streams its
 warps' 16-position K/V tiles through per-warp ``cp.async`` rings, runs
 scores and P.V on the tensor cores (``mma.sync``), and the chunks of one
 KV head, a thread-block cluster, merge their (m, l, acc) states through
-distributed shared memory.  :func:`decode_plan` is its launch plan, kept
-in step with the source's ``DecLayout``; the SM count is asked once per
-device and the dynamic shared-memory attribute set once per kernel
-instance, so a call's host work is the checks, one ``torch.empty`` and
-the ctypes launch.
+distributed shared memory.  ``pos`` is a host int or a 0-d int32 tensor
+on the device, which every block reads, as the Pallas kernel reads it
+from SMEM: :func:`decode_plan`, its launch plan (kept in step with the
+source's ``DecLayout``), depends on Smax and not on ``pos``, and each
+block takes its positions from :func:`decode_chunk` of the ``pos`` it
+reads, so one launch captured in a CUDA graph serves every position.
+The SM count is asked once per device and the dynamic shared-memory
+attribute set once per kernel instance, so a call's host work is the
+checks, one ``torch.empty`` and the ctypes launch.
 
 A CUDA tensor always goes to the kernel; anything the kernel does not take
 raises.  The plain PyTorch versions (``mha_reference`` /
@@ -34,7 +38,7 @@ import ctypes
 import functools
 import math
 import pathlib
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -76,9 +80,9 @@ def library() -> ctypes.CDLL:
                                                           ctypes.c_int,
                                                           ctypes.c_void_p])
         lib.tangram_flash_decode.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                          ctypes.c_int,
-                                                          ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p])
         for fn in (lib.tangram_flash_attention, lib.tangram_flash_decode):
             fn.restype = ctypes.c_int
         lib._typed = True
@@ -212,13 +216,12 @@ def _sm_count(device: torch.device) -> int:
 class DecodePlan(NamedTuple):
     grid: Tuple[int, int, int]      # (chunks, KV heads x head groups, B)
     cluster: Tuple[int, int, int]   # (chunks, 1, 1): a cluster per group
-    chunk: int                      # positions a block, a multiple of 64
     stages: int                     # ring stages a warp
     smem: int                       # dynamic shared memory a block, bytes
 
 
 @functools.lru_cache(maxsize=4096)
-def decode_plan(b: int, smax: int, h: int, kvh: int, d: int, pos: int,
+def decode_plan(b: int, smax: int, h: int, kvh: int, d: int,
                 dtype: torch.dtype, sms: int) -> DecodePlan:
     """K7's launch, as the source's ``DecLayout`` lays a block out.
 
@@ -227,15 +230,17 @@ def decode_plan(b: int, smax: int, h: int, kvh: int, d: int, pos: int,
     elements), and the block keeps one merged (m, l, acc) state of
     ``DEC_HEADS`` heads x D float32 (plus q and a score tile a warp for
     float32).  Blocks take up to 16 query heads of one KV head (G > 16
-    takes ``ceil(G / 16)`` groups).  The positions 0..pos are cut into
-    chunks of a multiple of 64, as many a (batch, KV head, group) as give
-    about one block an SM on ``sms`` SMs, at most ``DEC_MAX_CLUSTER`` (one
-    cluster); a bf16 block's shared memory is under half an SM's, so two
-    may share an SM and every cluster of 8 finds room at once.  One block
-    an SM streamed the 8 x 32768 slice 6% faster than two on the H100
-    (``tools/time_decode.py``).  ``smax`` bounds nothing but pos."""
-    if not 0 <= pos < smax:
-        raise ValueError(f"pos {pos} outside [0, {smax})")
+    takes ``ceil(G / 16)`` groups).  A (batch, KV head, group) gets as
+    many chunks as give about one block an SM on ``sms`` SMs, at most
+    ``DEC_MAX_CLUSTER`` (one cluster) and at most the block passes of the
+    cache; the launch does not depend on ``pos``, which the blocks read
+    (:func:`decode_chunk`: at any ``pos`` the live chunks are those of a
+    grid sized to it, and the rest hold nothing).  A bf16 block's shared
+    memory is under half an SM's, so two may share an SM and every
+    cluster of 8 finds room at once.  One block an SM streamed the 8 x
+    32768 slice 6% faster than two on the H100 (``tools/time_decode.py``)."""
+    if smax < 1:
+        raise ValueError(f"a cache of {smax} positions")
     elem = 2 if dtype == torch.bfloat16 else 4
     ring = DEC_WARPS * DEC_STAGES * 2 * DEC_TILE * d * elem
     state = (DEC_HEADS * d + 2 * DEC_HEADS) * 4
@@ -243,22 +248,50 @@ def decode_plan(b: int, smax: int, h: int, kvh: int, d: int, pos: int,
     if dtype != torch.bfloat16:
         smem += DEC_HEADS * d * 4 + DEC_WARPS * DEC_HEADS * DEC_TILE * 4
     groups = -(-(h // kvh) // DEC_HEADS)
-    per_pass = DEC_WARPS * DEC_TILE
-    passes = -(-(pos + 1) // per_pass)
+    passes = -(-smax // (DEC_WARPS * DEC_TILE))
     n_chunks = max(1, min(DEC_MAX_CLUSTER, sms // (b * kvh * groups),
                           passes))
-    chunk = -(-passes // n_chunks) * per_pass
-    n_chunks = pos // chunk + 1
-    return DecodePlan((n_chunks, kvh * groups, b), (n_chunks, 1, 1), chunk,
+    return DecodePlan((n_chunks, kvh * groups, b), (n_chunks, 1, 1),
                       DEC_STAGES, smem)
 
 
+def decode_chunk(pos: int, n_chunks: int) -> int:
+    """Positions a K7 block takes at ``pos`` (the source's
+    ``decode_chunk``): the block passes of 0..pos spread evenly over
+    ``n_chunks`` chunks, in whole passes of ``DEC_WARPS * DEC_TILE``.
+    Chunk c holds ``[c * chunk, min((c + 1) * chunk, pos + 1))``, empty
+    past pos; ``pos // chunk + 1`` chunks are live."""
+    per_pass = DEC_WARPS * DEC_TILE
+    passes = pos // per_pass + 1
+    return -(-passes // n_chunks) * per_pass
+
+
+def decode_pos_arg(pos: Union[int, torch.Tensor], smax: int,
+                   device: torch.device) -> Tuple[Optional[int], int]:
+    """K7's ``(pos_ptr, pos)`` arguments: ``(None, pos)`` for a host int in
+    [0, Smax), ``(data_ptr, 0)`` for a 0-d int32 tensor on ``device``;
+    anything else raises (a device value is not range-checked: that would
+    sync the host; the kernel clamps it)."""
+    if isinstance(pos, torch.Tensor):
+        if (pos.dtype != torch.int32 or pos.dim() != 0
+                or pos.device != device):
+            raise ValueError(f"flash_decode: a tensor pos must be a 0-d "
+                             f"int32 tensor on {device}, got {pos.dtype} "
+                             f"{tuple(pos.shape)} on {pos.device}")
+        return pos.data_ptr(), 0
+    if not 0 <= int(pos) < smax:
+        raise ValueError(f"flash_decode: pos must be in [0, {smax}), got "
+                         f"{pos!r}")
+    return None, int(pos)
+
+
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pos: int) -> torch.Tensor:
+                      pos: Union[int, torch.Tensor]) -> torch.Tensor:
     """K7: q (B, 1, H, D), cache k / v (B, Smax, Kv, D), attend to
     positions 0..pos -> (B, 1, H, D) in q's dtype, in one launch.  ``pos``
-    is a host int (the grid is sized to it, and no device value is read
-    back)."""
+    is a host int in [0, Smax), or a 0-d int32 tensor on q's device, which
+    the kernel reads (clamped into [0, Smax): a device value is not
+    checked on the host, which would sync it) without a copy or a sync."""
     name = "flash_decode"
     _check_qkv(name, q, k, v, DECODE_HEAD_DIMS)
     b, one, h, d = q.shape
@@ -266,15 +299,11 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if one != 1:
         raise ValueError(f"{name}: q must be (B, 1, H, D), got "
                          f"{tuple(q.shape)}")
-    if isinstance(pos, torch.Tensor) or not 0 <= int(pos) < smax:
-        raise ValueError(f"{name}: pos must be a Python int in [0, {smax}), "
-                         f"got {pos!r}")
-    pos = int(pos)
+    pos_ptr, pos = decode_pos_arg(pos, smax, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    plan = decode_plan(b, smax, h, kvh, d, pos, q.dtype,
-                       _sm_count(q.device))
+    plan = decode_plan(b, smax, h, kvh, d, q.dtype, _sm_count(q.device))
     if plan.grid[1] > _MAX_GRID_YZ:
         raise ValueError(f"{name}: {kvh} KV heads x {plan.grid[1] // kvh} "
                          f"head groups exceed {_MAX_GRID_YZ}")
@@ -282,7 +311,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = library().tangram_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-            smax, h, kvh, d, pos, plan.chunk, 1.0 / math.sqrt(d),
+            smax, h, kvh, d, pos_ptr, pos, plan.grid[0], 1.0 / math.sqrt(d),
             _BF16_FLAG[q.dtype], stream)
     if rc != 0:
         raise _launch_failed("tangram_flash_decode", rc)

@@ -12,7 +12,7 @@ and have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -51,8 +51,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 pos: int, impl: Optional[str] = None) -> torch.Tensor:
-    """q: (B, 1, H, D); k, v: (B, Smax, Kv, D); positions 0..pos."""
+                 pos: Union[int, torch.Tensor],
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """q: (B, 1, H, D); k, v: (B, Smax, Kv, D); positions 0..pos.  ``pos``
+    is a host int or a 0-d int32 tensor on q's device, as the JAX entry
+    takes a Python int or a traced scalar."""
     if resolve_impl(impl, q) == "cuda":
         refuse_grad("flash_decode", q, k, v)
         return flash_decode_cuda(q, k, v, pos)

@@ -9,7 +9,7 @@ the CUDA kernels (K6, K7) are held against on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -45,8 +45,9 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: int) -> torch.Tensor:
-    """q: (B, 1, H, D); k, v: (B, Smax, Kv, D); attend to positions <= pos."""
+                     pos: Union[int, torch.Tensor]) -> torch.Tensor:
+    """q: (B, 1, H, D); k, v: (B, Smax, Kv, D); attend to positions <= pos
+    (a host int or a 0-d integer tensor)."""
     b, _, h, d = q.shape
     kv = k.shape[2]
     g = h // kv

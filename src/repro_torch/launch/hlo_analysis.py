@@ -14,7 +14,9 @@ device:
   plan, on fake tensors to infer a layout's shapes or inside its sharding
   propagation, are not the device's, and are left out);
 * bytes: the local input and output bytes of every op that is not a view
-  and not a collective (each input read once, each output written once);
+  and not a collective (each input read once, each output written once),
+  but an op that moves rows by index counts the rows it moves
+  (:func:`_moved_bytes`), not the whole tensor it indexes;
 * collectives: the output bytes of each functional collective
   (``_c10d_functional.*``, and DTensor's ``_dtensor.shard_dim_alltoall``),
   by kind and count — ``parse_collectives``' convention: its shapes are
@@ -110,6 +112,22 @@ def _tensors(tree):
             yield from _tensors(t)
 
 
+def _moved_bytes(func, args, kwargs, out) -> int:
+    """The bytes an op reads and writes: each input once, each output
+    once; ``index_select`` reads its rows (its output's size) and the
+    index, and an in-place ``index_copy_`` reads its source and the index
+    and writes the source's rows into ``self`` (a decode step's cache row
+    at a device position), as XLA counts a dynamic slice and its update
+    by the slice."""
+    if func is torch.ops.aten.index_select.default:
+        return 2 * sum(_nbytes(t) for t in _tensors(out)) + _nbytes(args[2])
+    if func is torch.ops.aten.index_copy_.default:
+        return 2 * _nbytes(args[3]) + _nbytes(args[2])
+    return (sum(_nbytes(t) for t in _tensors(args))
+            + sum(_nbytes(t) for t in _tensors(kwargs))
+            + sum(_nbytes(t) for t in _tensors(out)))
+
+
 class StepCounter(TorchDispatchMode):
     """Per-device FLOPs, bytes and collectives of the ops run inside it
     (see the module docstring).  On plain tensors it counts every op, so
@@ -156,9 +174,7 @@ class StepCounter(TorchDispatchMode):
         if fn is not None:
             self.flops += fn(*args, **kwargs, out_val=out)
         if not func.is_view and any(True for _ in _tensors(out)):
-            self.bytes += sum(_nbytes(t) for t in _tensors(args)) + sum(
-                _nbytes(t) for t in _tensors(kwargs)) + sum(
-                _nbytes(t) for t in _tensors(out))
+            self.bytes += _moved_bytes(func, args, kwargs, out)
         return out
 
 

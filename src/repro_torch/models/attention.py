@@ -29,7 +29,7 @@ K6, non-causal, and ``impl="torch"`` K6's plain version.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -327,13 +327,36 @@ def resolve_cache_update(cache_update: str) -> str:
     return "masked" if rules and rules.get("kv_seq") else "dus"
 
 
-def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
+def decode_position(pos, device: torch.device) -> Union[int, torch.Tensor]:
+    """``pos`` as the decode path takes it: a Python int, or a 0-d int32
+    tensor on ``device`` (the JAX ``pos``, a Python int or a traced
+    int32).  A tensor of another integer type is cast on the device; a
+    DTensor ``pos`` (replicated, as the JAX plan's ``PartitionSpec()``)
+    gives its whole value.  Nothing here reads a device value on the
+    host."""
+    if not isinstance(pos, torch.Tensor):
+        return int(pos)
+    if is_dtensor(pos):
+        pos = pos.full_tensor()
+    if (pos.dim() != 0 or pos.dtype == torch.bool
+            or pos.is_floating_point() or pos.is_complex()):
+        raise TypeError(f"decode: pos must be an int or a 0-d integer "
+                        f"tensor, got {pos.dtype} {tuple(pos.shape)}")
+    if pos.device != device:
+        raise ValueError(f"decode: pos on {pos.device}, the step on "
+                         f"{device}")
+    return pos.to(torch.int32)
+
+
+def decode_attention(params: dict, x: torch.Tensor, cache: dict,
+                     pos: Union[int, torch.Tensor],
                      *, n_heads: int, n_kv_heads: int, rope_theta: float,
                      compute_dtype: torch.dtype, impl: Optional[str] = None,
                      cache_update: str = "auto"
                      ) -> Tuple[torch.Tensor, dict]:
     """One-token decode.  x: (B, 1, d); cache k / v: (B, Smax, Kv, Dh);
-    ``pos``: the current position, a Python int.  Returns (out, cache).
+    ``pos``: the current position, a Python int or a 0-d integer tensor on
+    x's device (:func:`decode_position`).  Returns (out, cache).
 
     ``cache_update`` (:func:`resolve_cache_update`) picks the write of the
     new K/V row.  ``"dus"`` writes it into the cache tensors in place and
@@ -352,14 +375,19 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict, pos: int,
     one only where ``kv_seq`` is sharded, and writes it in place
     otherwise (one card).  Attention is K7 on a CUDA tensor (``impl`` as in
     the module docstring).
+
+    A tensor ``pos`` is read on the device only (RoPE's positions, the
+    row's index, the masks, K7), so one step captured in a CUDA graph
+    serves every position.  Its ``"dus"`` write clamps it into [0, Smax),
+    as XLA's ``dynamic_update_slice`` clamps its start (a host int outside
+    the cache raises there).
     """
-    if isinstance(pos, torch.Tensor):
-        raise TypeError("decode_attention: pos must be a Python int (a "
-                        "device scalar would sync the host every step)")
+    pos = decode_position(pos, x.device)
     update = resolve_cache_update(cache_update)
     b = x.shape[0]
     q, k_new, v_new = _qkv(params, x, n_kv_heads, compute_dtype)
-    positions = torch.full((b, 1), pos, device=x.device)
+    positions = (pos.expand(b, 1) if isinstance(pos, torch.Tensor)
+                 else torch.full((b, 1), pos, device=x.device))
     q = apply_rope(q, positions, rope_theta)
     k_new = apply_rope(k_new, positions, rope_theta)
     quant_kv = "k_scale" in cache
@@ -504,26 +532,43 @@ def _seq_offset(cache: torch.Tensor) -> int:
     return off
 
 
-def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
-    """``cache[:, pos] = new[:, 0]`` in place.  A DTensor cache takes the
-    row on the device whose shard holds ``pos`` (the row laid out as the
-    cache is, its one position replicated): each device writes its own
-    shard, so nothing but the row moves."""
+def _write_row(cache: torch.Tensor, new: torch.Tensor,
+               pos: Union[int, torch.Tensor]) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place; a tensor ``pos`` (clamped
+    into the cache, as ``dynamic_update_slice`` clamps) through
+    ``index_copy_``, which reads it on the device.  A DTensor cache takes
+    the row on the device whose shard holds ``pos`` (the row laid out as
+    the cache is, its one position replicated): each device writes its
+    own shard, so nothing but the row moves; with a tensor ``pos`` every
+    shard writes its clamped row back blended with ``where``, the new row
+    only on the shard that holds ``pos``."""
     if not is_dtensor(cache):
-        cache[:, pos] = new[:, 0]
+        if isinstance(pos, torch.Tensor):
+            at = pos.clamp(0, cache.shape[1] - 1).reshape(1).long()
+            cache.index_copy_(1, at, new)
+        else:
+            cache[:, pos] = new[:, 0]
         return
     from torch.distributed.tensor import Replicate, Shard
     want = tuple(Replicate() if pl == Shard(1) else pl
                  for pl in cache.placements)
     row = new.redistribute(cache.device_mesh, want).to_local()
     local = cache.to_local()
-    at = pos - (_seq_offset(cache) if _seq_dims(cache) else 0)
+    off = _seq_offset(cache) if _seq_dims(cache) else 0
+    if isinstance(pos, torch.Tensor):
+        at = pos.clamp(0, cache.shape[1] - 1) - off
+        mine = (at >= 0) & (at < local.shape[1])
+        at = at.clamp(0, local.shape[1] - 1).reshape(1).long()
+        local.index_copy_(1, at, torch.where(mine, row,
+                                             local.index_select(1, at)))
+        return
+    at = pos - off
     if 0 <= at < local.shape[1]:
         local[:, at] = row[:, 0]
 
 
 def _blend_row(cache: torch.Tensor, new: torch.Tensor,
-               pos: int) -> torch.Tensor:
+               pos: Union[int, torch.Tensor]) -> torch.Tensor:
     """A new tensor: ``cache`` with position ``pos`` (dim 1) replaced by
     ``new[:, 0]``, as a select of ``arange(Smax) == pos`` against the
     cache (the JAX masked update).  A DTensor cache keeps its placements:
@@ -542,7 +587,7 @@ def _blend_row(cache: torch.Tensor, new: torch.Tensor,
                       (cache.placements, want), cache.device_mesh)(cache, new)
 
 
-def _seq_sharded_decode(q, k, v, pos: int):
+def _seq_sharded_decode(q, k, v, pos: Union[int, torch.Tensor]):
     """Decode attention over a cache whose sequence axis is sharded (the
     sequence-parallel overlay): each device scores its own positions, the
     softmax's max and sum reduce across the shards (DTensor's reductions:

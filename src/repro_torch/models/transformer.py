@@ -243,13 +243,18 @@ def cache_axes(cfg: TransformerConfig) -> dict:
 
 
 def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
-                cache: dict, pos: int, *, impl: Optional[str] = None
+                cache: dict, pos, *, impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, dict]:
-    """tokens: (B, 1) -> (logits (B, 1, V), cache).  ``pos``: a Python int.
-    The cache is written as ``cfg.cache_update`` says (see
-    ``attention.decode_attention``): in place under ``"dus"``, where the
-    returned tree is ``cache`` itself, and into a new tree of new tensors
-    under ``"masked"``, the input's tensors left as they were."""
+    """tokens: (B, 1) -> (logits (B, 1, V), cache).  ``pos``: a Python int
+    or a 0-d integer tensor on the tokens' device, passed on as it is
+    (``attention.decode_position``); a tensor is read on the device only,
+    so the step captured once in a CUDA graph decodes at whatever position
+    the tensor holds at each replay, as the JAX step jitted once takes any
+    ``jnp.int32`` position.  The cache is written as ``cfg.cache_update``
+    says (see ``attention.decode_attention``): in place under ``"dus"``,
+    where the returned tree is ``cache`` itself, and into a new tree of
+    new tensors under ``"masked"``, the input's tensors left as they
+    were."""
     cdt = dtype_of(cfg.compute_dtype)
     x = layers.embed_lookup(params["embed"], tokens, cdt)
     x = with_logical_constraint(x, ("decode_batch", None, "embed"))

@@ -482,11 +482,16 @@ K7_ROW_TOL = 0.077     # chip_smoke.ATTN_ROW_TOL["k7", bf16]
 
 
 def _k7_against_plain(q, k, v, pos):
-    """One K7 launch against ``decode_reference``: within ATTN_TOL, and
-    every output row within K7_ROW_TOL (bf16) of its own RMS."""
+    """K7 launched at the host int ``pos`` and at ``pos`` as a 0-d int32
+    on the card: the two bit-equal, and against ``decode_reference``
+    within ATTN_TOL, every output row within K7_ROW_TOL (bf16) of its own
+    RMS."""
     before = kernels.LAUNCHES["flash_decode"]
     got = attn_ops.flash_decode(q, k, v, pos)
-    assert kernels.LAUNCHES["flash_decode"] == before + 1
+    on_card = attn_ops.flash_decode(
+        q, k, v, torch.tensor(pos, dtype=torch.int32, device=q.device))
+    assert kernels.LAUNCHES["flash_decode"] == before + 2
+    assert torch.equal(on_card, got)
     want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
     assert got.dtype == q.dtype and got.shape == want.shape
     assert torch.isfinite(got.float()).all()
@@ -515,11 +520,12 @@ def test_flash_decode_cluster_edges_against_plain(cuda, b, smax, h, kv, d,
                                                   pos, chunks):
     """The bf16 K7 (one cluster of chunks a KV head) within 2e-2 and the
     row limit of ``decode_reference`` at chunk and tile edges, G 1 to 24,
-    D 32 to 128, one chunk a pair to eight."""
+    D 32 to 128, one live chunk a pair to eight; at a device pos
+    bit-equal to the host int."""
     plan = flash_kernels.decode_plan(
-        b, smax, h, kv, d, pos, torch.bfloat16,
+        b, smax, h, kv, d, torch.bfloat16,
         torch.cuda.get_device_properties(cuda).multi_processor_count)
-    assert plan.grid[0] == chunks
+    assert pos // flash_kernels.decode_chunk(pos, plan.grid[0]) + 1 == chunks
     rng = np.random.default_rng(19)
     q, k, v = _qkv(rng, [(b, 1, h, d), (b, smax, kv, d), (b, smax, kv, d)],
                    torch.bfloat16, cuda)
@@ -538,18 +544,46 @@ def test_flash_decode_float32_against_plain(cuda, d):
 
 
 def test_flash_decode_back_to_back_positions(cuda):
-    """Calls back to back on one cache at positions that change the grid
-    (1 to 8 chunks and back), as a decode run makes them: nothing a call
+    """Calls back to back on one cache at positions that change the live
+    chunks (1 to 8 and back), as a decode run makes them, at host ints
+    and at one device pos written between launches: nothing a call
     leaves behind reaches the next."""
     rng = np.random.default_rng(21)
     q, k, v = _qkv(rng, [(2, 1, 24, 128), (2, 4096, 8, 128),
                          (2, 4096, 8, 128)], torch.bfloat16, cuda)
-    outs = {pos: attn_ops.flash_decode(q, k, v, pos)
-            for pos in (4095, 0, 300, 64, 4095, 1, 2047)}
-    for pos, got in outs.items():
+    order = (4095, 0, 300, 64, 4095, 1, 2047)
+    outs = [attn_ops.flash_decode(q, k, v, pos) for pos in order]
+    dev = torch.zeros((), dtype=torch.int32, device=cuda)
+    on_card = []
+    for pos in order:
+        dev.fill_(pos)
+        on_card.append(attn_ops.flash_decode(q, k, v, dev))
+    for pos, got, got_dev in zip(order, outs, on_card):
         want = attn_ops.flash_decode(q, k, v, pos, impl="torch")
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+        assert torch.equal(got_dev, got)
+
+
+@pytest.mark.parametrize("b,smax,pos", [
+    (2, 4096, 0), (2, 4096, 63), (2, 4096, 64), (2, 4096, 287),
+    (2, 4096, 4095),
+    (2, 32768, 5),         # far below Smax: 7 empty blocks a cluster
+    (8, 32768, 20000),     # the slice's 2 chunks, the second live
+])
+def test_flash_decode_device_pos_equals_host_int(cuda, b, smax, pos):
+    """K7 with ``pos`` a 0-d int32 on the card (the grid and cluster fixed
+    by Smax, each block reading pos) bit-equal to the host-int launch and
+    within its limits of the plain version, at minitron-4b's heads; a
+    device pos past the cache reads as Smax - 1 (the kernel clamps)."""
+    rng = np.random.default_rng(22)
+    q, k, v = _qkv(rng, [(b, 1, 24, 128), (b, smax, 8, 128),
+                         (b, smax, 8, 128)], torch.bfloat16, cuda)
+    _k7_against_plain(q, k, v, pos)
+    if pos == smax - 1:
+        past = torch.tensor(smax + 9, dtype=torch.int32, device=cuda)
+        assert torch.equal(attn_ops.flash_decode(q, k, v, past),
+                           attn_ops.flash_decode(q, k, v, pos))
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -575,7 +609,10 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
             attn_ops.flash_attention(*args, **kw)
     q1 = q[:, :1].contiguous()
     for pos, match in ((64, "pos"), (-1, "pos"),
-                       (torch.tensor(3, device=cuda), "pos")):
+                       (torch.tensor(3, device=cuda), "0-d int32"),
+                       (torch.tensor(3, dtype=torch.int32), "0-d int32"),
+                       (torch.tensor([3], dtype=torch.int32, device=cuda),
+                        "0-d int32")):
         with pytest.raises(ValueError, match=match):
             attn_ops.flash_decode(q1, kv, kv, pos)
     with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):
@@ -757,6 +794,49 @@ def test_stitch_embed_wgmma_tiles_against_plain_and_default(cuda, tile, b,
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
     assert torch.equal(got, default)
+
+
+def test_decode_step_captured_once_replays_every_position(cuda):
+    """The reduced minitron-4b on the card: one decode step captured in a
+    CUDA graph on static tokens, ``pos`` (a 0-d int32) and the in-place
+    cache, replayed at positions 0..7 with the next token and pos + 1
+    written between replays: each replay's logits and the cache bit-equal
+    to the eager step at the host int on a second cache.  Capture
+    launches K7 once a layer (the host counter), a replay moves no
+    counter."""
+    cfg = reduce_arch(get("minitron-4b"))
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    cache = transformer.init_cache(cfg, 2, 128, cuda)
+    eager = transformer.init_cache(cfg, 2, 128, cuda)
+    tok = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab, size=(2, 1))).to(cuda)
+    pos = torch.zeros((), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up (writes row 0, replayed)
+        transformer.decode_step(cfg, params, tok, cache, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(kernels.LAUNCHES)
+    with torch.cuda.graph(graph):
+        logits, out = transformer.decode_step(cfg, params, tok, cache, pos)
+    assert out is cache
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: cfg.n_layers if k == "flash_decode" else 0
+                        for k in before}
+    for step in range(8):
+        want, eager = transformer.decode_step(cfg, params, tok, eager, step)
+        counts = dict(kernels.LAUNCHES)
+        graph.replay()
+        assert kernels.LAUNCHES == counts
+        assert torch.equal(logits, want), step
+        tok.copy_(logits[:, 0].float().argmax(-1, keepdim=True))
+        pos.add_(1)
+    for name, layer in cache.items():
+        for key, leaf in layer.items():
+            assert torch.equal(leaf, eager[name][key])
+    assert int(pos) == 8 and not cache["layer_0"]["k"][:, 8:].any()
 
 
 def test_masked_decode_on_card_equals_in_place(cuda):

@@ -128,14 +128,34 @@ def test_impl_follows_the_device_and_never_falls_back():
 ])
 def test_decode_chunk_spreads_the_cache_over_the_card(n_valid, pairs, sms,
                                                       chunk):
-    """K7's chunk of positions (``decode_plan``) at minitron-4b's 8 KV
-    heads: a multiple of the block's 64-position pass, as many chunks a
-    (batch, KV head) as give about one block an SM, at most 8."""
-    plan = tflash.decode_plan(pairs // 8, n_valid, 24, 8, 128, n_valid - 1,
-                              torch.bfloat16, sms)
-    assert plan.chunk == chunk
-    assert chunk % 64 == 0
-    assert plan.grid[0] * pairs <= sms
+    """K7's chunk of positions (``decode_chunk`` at the chunks of
+    ``decode_plan``) at minitron-4b's 8 KV heads, in a cache of
+    ``n_valid`` positions and in one of 32,768: a multiple of the block's
+    64-position pass, as many chunks a (batch, KV head) as give about one
+    block an SM, at most 8, whatever the cache beyond pos."""
+    for smax in (n_valid, 32768):
+        plan = tflash.decode_plan(pairs // 8, smax, 24, 8, 128,
+                                  torch.bfloat16, sms)
+        assert tflash.decode_chunk(n_valid - 1, plan.grid[0]) == chunk
+        assert chunk % 64 == 0
+        assert plan.grid[0] * pairs <= sms
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 1, 63, 64, 200, 511])
+def test_flash_decode_plain_takes_a_tensor_pos(pos, dtype):
+    """The plain K7 with ``pos`` a 0-d int32 tensor (the port's device
+    position) against the Pallas kernel in interpret mode with
+    ``jnp.int32(pos)`` (its SMEM scalar), GQA 8 over 4, and bit-equal to
+    the plain K7 at the host int."""
+    rng = np.random.default_rng(3)
+    b, h, kv, d, smax = 2, 8, 4, 64, 512
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        rng, [(b, 1, h, d), (b, smax, kv, d), (b, smax, kv, d)], dtype)
+    got = tops.flash_decode(tq, tk, tv, torch.tensor(pos, dtype=torch.int32))
+    assert torch.equal(got, tops.flash_decode(tq, tk, tv, pos))
+    _close(got, jops.flash_decode(jq, jk, jv, jnp.int32(pos), block_kv=128,
+                                  interpret=True), dtype)
 
 
 @pytest.mark.parametrize("jimpl", ["xla", "flash_interpret"])

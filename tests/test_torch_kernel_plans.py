@@ -275,6 +275,26 @@ def _k7_smem(d, dtype):
     return smem
 
 
+def _sized_to_pos(b, h, kvh, pos, sms):
+    """(chunks, chunk) of a K7 grid sized to ``pos``, as the launch was
+    planned before the kernel read ``pos`` from the device: as many chunks
+    of whole 64-position block passes as give about one block an SM, at
+    most 8, at most the passes of 0..pos."""
+    groups = -(-(h // kvh) // 16)
+    passes = -(-(pos + 1) // 64)
+    n = max(1, min(8, sms // (b * kvh * groups), passes))
+    chunk = -(-passes // n) * 64
+    return pos // chunk + 1, chunk
+
+
+def _chunks(pos, n_chunks):
+    """The positions of each of K7's ``n_chunks`` chunks at ``pos``
+    (``flash.decode_chunk``), and the chunk."""
+    chunk = flash.decode_chunk(pos, n_chunks)
+    return [range(c * chunk, min((c + 1) * chunk, pos + 1))
+            for c in range(n_chunks)], chunk
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,kvh,d,pos,sms", [
     (2, 24, 8, 128, 4095, 132),     # minitron-4b, B=2, the cache's end
@@ -292,41 +312,97 @@ def _k7_smem(d, dtype):
     (2, 24, 8, 128, 4095, 16),      # a small card
 ])
 def test_flash_decode_plan(b, h, kvh, d, pos, sms, dtype):
-    plan = flash.decode_plan(b, pos + 1, h, kvh, d, pos, dtype, sms)
-    n_chunks = plan.grid[0]
-    groups = -(-(h // kvh) // 16)
-    assert plan.grid[1:] == (kvh * groups, b)
-    assert plan.cluster == (n_chunks, 1, 1) and 1 <= n_chunks <= 8
-    assert plan.grid[0] % plan.cluster[0] == 0
-    # chunks of a multiple of 64 positions; each starts at or before pos,
-    # and together they hold positions 0..pos exactly
-    assert plan.chunk % 64 == 0
-    assert (n_chunks - 1) * plan.chunk <= pos < n_chunks * plan.chunk
-    assert plan.stages == 3
-    assert plan.smem == _k7_smem(d, dtype) <= SMEM_LIMIT
-    # about one block an SM, unless the pairs alone fill the card; a bf16
-    # block leaves room for a second on its SM
-    blocks = n_chunks * plan.grid[1] * b
-    assert blocks <= sms or n_chunks == 1
-    if dtype == torch.bfloat16:
-        assert 2 * (plan.smem + 1024) <= 233472
+    """The launch is fixed by Smax (a cache of pos + 1 and one of 32,768
+    positions); at ``pos`` the chunks hold 0..pos exactly once, in
+    multiples of 64, and the live ones are the chunks of a grid sized to
+    ``pos``: the same work at every position."""
+    for smax in (pos + 1, 32768):
+        plan = flash.decode_plan(b, smax, h, kvh, d, dtype, sms)
+        n_chunks = plan.grid[0]
+        groups = -(-(h // kvh) // 16)
+        assert plan.grid[1:] == (kvh * groups, b)
+        assert plan.cluster == (n_chunks, 1, 1) and 1 <= n_chunks <= 8
+        assert plan.grid[0] % plan.cluster[0] == 0
+        chunks, chunk = _chunks(pos, n_chunks)
+        assert chunk % 64 == 0
+        assert [j for c in chunks for j in c] == list(range(pos + 1))
+        live = pos // chunk + 1
+        assert all(len(c) for c in chunks[:live])
+        assert not any(len(c) for c in chunks[live:])
+        assert (live, chunk) == _sized_to_pos(b, h, kvh, pos, sms)
+        assert plan.stages == 3
+        assert plan.smem == _k7_smem(d, dtype) <= SMEM_LIMIT
+        # about one block an SM, unless the pairs alone fill the card; a
+        # bf16 block leaves room for a second on its SM
+        blocks = n_chunks * plan.grid[1] * b
+        assert blocks <= sms or n_chunks == 1
+        if dtype == torch.bfloat16:
+            assert 2 * (plan.smem + 1024) <= 233472
 
 
 @pytest.mark.parametrize("b,pos,want", [
-    ((2, 4095, ((8, 8, 2), 512))),
-    ((2, 287, ((5, 8, 2), 64))),
-    ((8, 32767, ((2, 8, 8), 16384))),
-    ((2, 0, ((1, 8, 2), 64))),
+    ((2, 4095, ((8, 8, 2), 512, 8))),
+    ((2, 287, ((8, 8, 2), 64, 5))),
+    ((8, 32767, ((2, 8, 8), 16384, 2))),
+    ((2, 0, ((8, 8, 2), 64, 1))),
 ])
 def test_flash_decode_plan_main_path_numbers(b, pos, want):
-    """minitron-4b (24 / 8 heads x 128, bf16) on 132 SMs: 8 chunks of 512
-    at pos 4095 (128 blocks, 16 clusters of 8); 5 of 64 at pos 287; 2 of
-    16,384 on the 8 x 32768 slice (128 blocks); one at pos 0."""
-    plan = flash.decode_plan(b, 32768, 24, 8, 128, pos, torch.bfloat16, 132)
-    assert (plan.grid, plan.chunk) == want
+    """minitron-4b (24 / 8 heads x 128, bf16) on 132 SMs over a 32,768
+    cache: 8 chunks a KV head at B=2 (128 blocks, 16 clusters of 8), 2 on
+    the 8 x 32768 slice (128 blocks), whatever ``pos``; live, 8 of 512 at
+    pos 4095, 5 of 64 at pos 287, 2 of 16,384 at pos 32,767 and one at pos
+    0, as a grid sized to ``pos`` launched them."""
+    plan = flash.decode_plan(b, 32768, 24, 8, 128, torch.bfloat16, 132)
+    chunk = flash.decode_chunk(pos, plan.grid[0])
+    assert (plan.grid, chunk, pos // chunk + 1) == want
     assert plan.smem == 98304 + 8320
 
 
 def test_flash_decode_plan_rejects_pos_outside_the_cache():
-    with pytest.raises(ValueError, match="pos"):
-        flash.decode_plan(2, 4096, 24, 8, 128, 4096, torch.bfloat16, 132)
+    """A host pos outside [0, Smax) raises before anything is built; a
+    tensor pos must be a 0-d int32 on the kernel's device (its value is
+    the kernel's to clamp: checking it would sync the host)."""
+    cuda = torch.device("cuda", 0)
+    for pos in (4096, -1):
+        with pytest.raises(ValueError, match="pos"):
+            flash.decode_pos_arg(pos, 4096, cuda)
+    assert flash.decode_pos_arg(4095, 4096, cuda) == (None, 4095)
+    for bad in (torch.tensor(3), torch.tensor(3, dtype=torch.int32),
+                torch.tensor([3], dtype=torch.int32)):
+        with pytest.raises(ValueError, match="0-d int32 tensor on cuda"):
+            flash.decode_pos_arg(bad, 4096, cuda)
+    cpu = torch.tensor(4096, dtype=torch.int32)
+    assert flash.decode_pos_arg(cpu, 4096, cpu.device) == (cpu.data_ptr(), 0)
+    with pytest.raises(ValueError, match="cache of 0"):
+        flash.decode_plan(2, 0, 24, 8, 128, torch.bfloat16, 132)
+
+
+@pytest.mark.parametrize("n_chunks", range(1, 9))
+def test_decode_chunk_covers_every_position_once(n_chunks):
+    """``decode_chunk`` (the kernel's, mirrored) at every pos up to 4,200:
+    the chunks hold 0..pos once each, in whole 64-position passes, live
+    chunks first, and as many live as a grid of at most ``n_chunks``
+    sized to ``pos`` had."""
+    for pos in range(4200):
+        chunks, chunk = _chunks(pos, n_chunks)
+        assert chunk % 64 == 0 and n_chunks * chunk > pos
+        assert [j for c in chunks for j in c] == list(range(pos + 1))
+        assert pos // chunk + 1 <= n_chunks
+        # a grid sized to pos: min(n_chunks, passes) chunks of whole passes
+        passes = pos // 64 + 1
+        assert chunk == -(-passes // min(n_chunks, passes)) * 64
+
+
+def test_flash_decode_cluster_never_exceeds_eight():
+    """Over batch, KV heads, head groups, caches and SM counts the cluster
+    of one (batch, KV head, group) stays within 1..8 and spans the grid's
+    first axis."""
+    for b in (1, 2, 3, 8, 64, 1024):
+        for h, kvh in ((24, 8), (16, 16), (48, 2), (8, 1), (96, 8)):
+            for smax in (1, 63, 64, 65, 512, 4096, 32768, 524288):
+                for sms in (1, 16, 132, 264, 1000):
+                    plan = flash.decode_plan(b, smax, h, kvh, 128,
+                                             torch.bfloat16, sms)
+                    assert 1 <= plan.cluster[0] <= 8
+                    assert plan.cluster == (plan.grid[0], 1, 1)
+                    assert plan.grid[0] <= -(-smax // 64)

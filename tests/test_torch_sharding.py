@@ -300,6 +300,11 @@ def _gloo_cases():
              "decode_32k", dict(sequence_parallel=True)),
             ("lm_decode_int8", dc.replace(lm, quant_kv=True), "decode_32k",
              dict(sequence_parallel=True)),
+            ("lm_decode_far", lm, "decode_32k", dict(sequence_parallel=True)),
+            ("lm_decode_dus_far", dc.replace(lm, cache_update="dus"),
+             "decode_32k", dict(sequence_parallel=True)),
+            ("lm_decode_int8_far", dc.replace(lm, quant_kv=True),
+             "decode_32k", dict(sequence_parallel=True)),
             ("moe_train", moe, "train_4k", dict(fsdp=True, act_seq=True)),
             ("vit_cls", reduce_arch(tconfigs.get("deit-b")), "cls_224",
              dict()),
@@ -373,6 +378,11 @@ def _gloo_worker(rank, world, port, names):
             rules = tsharding.ShardingConfig.make(**kw).rules
             plan = tapi.plan_cell(model, shape, mesh, rules)
             args = _real_args(plan, 7)
+            if name.endswith("_far"):
+                # the decode step's device pos (random ids lie in [0, 16):
+                # the first sequence shard) in the cache's last shard
+                args = args[:-1] + (torch.tensor(shape.seq_len - 28,
+                                                 dtype=torch.int32),)
             dargs = _distribute(args, plan.in_shardings, mesh, dm)
             # a copy for the plain step, whose decode writes its cache in
             # place (a replicated or chunked layout may share its memory)
@@ -399,7 +409,8 @@ def _free_port():
     ("lm_prefill", "lm_train", "lm_decode"), ("moe_train",),
     ("vit_cls", "det_train"),
     ("effnet_cls", "dit_gen"),
-    ("lm_decode_dus", "lm_decode_masked", "lm_decode_int8")])
+    ("lm_decode_dus", "lm_decode_masked", "lm_decode_int8"),
+    ("lm_decode_far", "lm_decode_dus_far", "lm_decode_int8_far")])
 def test_sharded_steps_equal_plain_on_four_processes(names):
     """Reduced cells on a (2, 2) mesh of four gloo processes: the LM's
     prefill (heads, vocabulary and the embedding sharded over "model"),
@@ -407,7 +418,9 @@ def test_sharded_steps_equal_plain_on_four_processes(names):
     AdamW and the loss) and decode step over a sequence-sharded cache
     (written in place on the shard that holds the new row under
     ``"dus"``, blended shard by shard under ``"masked"`` and ``"auto"``,
-    int8 values and scales too; the softmax reduced across the shards),
+    int8 values and scales too; the softmax reduced across the shards;
+    ``pos`` a replicated 0-d int32, as the JAX plan's, in the first
+    sequence shard and, ``*_far``, in the last),
     the MoE train step (expert-sharded einsums),
     DeiT's classification step (a vocabulary-sharded gather), the
     detector's train step (the target scatter on each device's canvases),

@@ -17,8 +17,10 @@ decode shape (24 query heads over 8 KV heads, head dim 128, bf16) times
 - ``ms_profiler``: the device time of the kernels themselves, summed
   from ``torch.profiler`` over one window;
 
-and the same three for SDPA over (B, Kv, pos+1, D) copies of the cache
-(``sdpa_*``), the library yardstick.
+the same three with ``pos`` a 0-d int32 on the card (``tensor_pos_*``,
+bit-equal to the host-int launch; a checkout whose K7 takes only a host
+int has none); and the same three for SDPA over (B, Kv, pos+1, D)
+copies of the cache (``sdpa_*``), the library yardstick.
 
 One JSON line per shape.  Two checkouts are compared by running this
 script once for each in one call on one card (parent, change, change,
@@ -36,7 +38,8 @@ import sys
 
 import torch
 
-SHAPES = ((2, 4096, 287), (2, 4096, 4095), (8, 32768, 32767))
+SHAPES = ((2, 4096, 63), (2, 4096, 287), (2, 4096, 4095),
+          (8, 32768, 32767))
 H, KVH, D = 24, 8, 128
 
 
@@ -122,6 +125,12 @@ def main() -> None:
                "bound_ms": 2 * b * (pos + 1) * KVH * D * 2 / 3.35e12 * 1e3}
         row.update(timings(lambda: ops.flash_decode(q, k, v, pos,
                                                     impl="cuda")))
+        if hasattr(flash, "decode_pos_arg"):     # K7 reads pos on the card
+            dev = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            row["tensor_pos_bit_equal"] = torch.equal(
+                ops.flash_decode(q, k, v, dev, impl="cuda"), got)
+            row.update({f"tensor_pos_{key}": value for key, value in timings(
+                lambda: ops.flash_decode(q, k, v, dev, impl="cuda")).items()})
         # the yardstick: SDPA over (B, Kv, pos+1, D) copies of the cache
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
