@@ -258,12 +258,24 @@ Phases (any failure raises, so the exit code is non-zero):
    model cut to ``DRYRUN_DEPTH`` layers, direct counts (rows in
    ``build/hillclimb.json``; their ``t_*`` are the plan priced on the
    H100 data sheet, not measurements);
+13. the port's four examples (``examples/torch_*.py``), each run in
+   process at its own arguments on the card, with one line each (wall,
+   launches by kernel, the card): ``torch_quickstart`` (K5's 40-frame
+   edge stream equal, patch for patch, to the plain GMM's on the card and
+   the CPU's, and its report equal to theirs), ``torch_serve_e2e`` (K5,
+   K1 and K2; patches, invocations and frames held equal to the example
+   with ``--device cpu``, routed detections too, but for scores within
+   1e-3 of 0.5), ``torch_lm_sequence_packing`` (float32 K6 in the
+   forward and with ``segment_ids``, within 1e-4 of the plain calls, and
+   again on random q, k, v with the row's segment ids) and
+   ``torch_train_detector`` (its own assertion that training learns, the
+   drill restored once, no kernel);
 9. print one JSON line of kernels (K1-K7, the K4/K3 rows of phase 5f's
    models, named ``kernel[model]``, phase 8c's ``K6[vit-b16]`` and
    ``K6[dit-xl2]`` and phase 8d's ``K6[deepseek-moe-16b]`` and
    ``K7[deepseek-moe-16b]``; ``launches_by_path`` has phase 10's
-   ``train`` counts, all 0, phase 11's serve runs and phase 12's tile
-   search and decode runs) and, last,
+   ``train`` counts, all 0, phase 11's serve runs, phase 12's tile
+   search and decode runs and phase 13's ``example_*`` runs) and, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -276,6 +288,8 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -328,6 +342,7 @@ from repro_torch.kernels.launches import (  # noqa: E402
 from repro_torch.kernels.stitch import fused_embed  # noqa: E402
 from repro_torch.kernels.stitch import ops as stitch_ops  # noqa: E402
 from repro_torch.kernels.stitch import stitch as stitch_kernels  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     make_serve_mesh, make_worker_meshes)
@@ -5190,6 +5205,217 @@ def hillclimb_phase(lm: dict, device, by_path: dict) -> None:
                              f"{len(rows)} rows of {want}")
 
 
+# --------------------------------------------------------------- phase 13 ----
+
+#: phase 13: the port's examples, run as a user runs them
+EXAMPLES = ROOT / "examples"
+#: phase 13: routed scores this close to the 0.5 threshold may cross it
+#: between the card and the CPU (float32 summation order), as phase 5's
+EXAMPLE_MARGIN = 1e-3
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``__main__`` block does not
+    run)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv: list, card: str):
+    """``mod.main(argv)`` with every launch count set to 0 just before and
+    read just after; its stdout is echoed indented.  Returns (what main
+    returns, the launches, the stdout)."""
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    for line in out.getvalue().splitlines():
+        log(f"    | {line}")
+    ran = {k: v for k, v in launches.items() if v} or "none"
+    log(f"  {mod.__name__[len('example_'):]}.py {' '.join(argv)}: "
+        f"{wall:.2f}s wall, launches {ran}, card {card}")
+    return result, launches, out.getvalue()
+
+
+@contextlib.contextmanager
+def serve_routes(routed: dict):
+    """Record, frame by frame in completion order, the detections that the
+    executors of ``launch/serve.main`` route."""
+    make = serve_lib.make_executor
+
+    def recording(*args, **kwargs):
+        ex = make(*args, **kwargs)
+        release = ex.on_complete
+
+        def on_complete(comp):
+            for fid, dets in comp.outputs[0].items():
+                routed.setdefault(fid, []).extend(dets)
+            release(comp)
+
+        ex.on_complete = on_complete
+        return ex
+
+    serve_lib.make_executor = recording
+    try:
+        yield
+    finally:
+        serve_lib.make_executor = make
+
+
+def served_counts(text: str) -> tuple:
+    """(patches, invocations, routed detections, frames still held) of the
+    serve driver's summary line."""
+    m = re.search(r"served (\d+) patches in (\d+) invocations.*routed "
+                  r"(\d+) detections.*\((\d+) frames still held", text)
+    if not m:
+        raise AssertionError(f"no summary line in: {text!r}")
+    return tuple(int(x) for x in m.groups())
+
+
+def same_routes(card: dict, cpu: dict) -> tuple:
+    """The card's routed detections against the CPU's, both without the
+    scores within ``EXAMPLE_MARGIN`` of 0.5: the same frames and counts,
+    scores within 1e-4 and boxes within 1e-3 px, pair by pair.  Returns
+    (detections compared, largest score and box differences)."""
+    a = margin_filter(card, margin=EXAMPLE_MARGIN)
+    b = margin_filter(cpu, margin=EXAMPLE_MARGIN)
+    if {f: len(d) for f, d in a.items()} != {f: len(d) for f, d in b.items()}:
+        raise AssertionError("serve example: routed detections differ "
+                             "between the card and the CPU")
+    d_score = d_box = 0.0
+    for fid in a:
+        for (sa, ba), (sb, bb) in zip(a[fid], b[fid]):
+            d_score = max(d_score, abs(sa - sb))
+            d_box = max(d_box, max(abs(x - y) for x, y in zip(ba, bb)))
+    if d_score > 1e-4 or d_box > 1e-3:
+        raise AssertionError(f"serve example: card vs CPU detections differ "
+                             f"by {d_score} in score, {d_box} px in box")
+    return sum(len(d) for d in a.values()), d_score, d_box
+
+
+def quickstart_example(device, by_path: dict, card: str) -> None:
+    """K5's edge stream against the plain GMM's on the card and the CPU's,
+    and the report of each."""
+    qs = load_example("torch_quickstart")
+    (stream, res), launches, _ = run_example(qs, [], card)
+    by_path["example_quickstart"] = launches
+    check_launches({"launches": launches}, GMM, "quickstart example")
+    if launches["gmm_update"] != qs.FRAMES:
+        raise AssertionError(f"quickstart example: K5 launched "
+                             f"{launches['gmm_update']} times for "
+                             f"{qs.FRAMES} frames")
+    reset_launches()
+    plain, _ = qs.edge_stream(device, gmm_impl="torch")
+    check_launches({"launches": dict(LAUNCHES)}, (), "quickstart plain GMM")
+    cpu, _ = qs.edge_stream("cpu")
+    if not stream or stream != plain or stream != cpu:
+        raise AssertionError(f"quickstart example: K5's stream "
+                             f"({len(stream)} patches) differs from the "
+                             f"plain GMM's on the card ({len(plain)}) or "
+                             f"the CPU's ({len(cpu)})")
+    table = qs.detector_latency_model(qs.CANVAS, qs.CANVAS).build_table(16)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = qs.cloud_report(plain, table)
+    if res.summary() != want.summary():
+        raise AssertionError("quickstart example: the report differs from "
+                             "the plain stream's")
+    summary = res.summary()
+    log(f"  quickstart: {len(stream)} patches, equal patch for patch to the "
+        f"plain GMM's on the card and the CPU's; report equal "
+        f"({summary['invocations']} invocations, violation rate "
+        f"{summary['violation_rate']})")
+
+
+def serve_example(by_path: dict, card: str) -> None:
+    """The serve example on the card against the same example with
+    ``--device cpu``."""
+    mod = load_example("torch_serve_e2e")
+    routed_card, routed_cpu = {}, {}
+    with serve_routes(routed_card):
+        _, launches, text = run_example(mod, [], card)
+    by_path["example_serve_e2e"] = launches
+    check_launches({"launches": launches}, UNFUSED + GMM, "serve example")
+    with serve_routes(routed_cpu), \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        mod.main(["--device", "cpu"])
+    got, want = served_counts(text), served_counts(out.getvalue())
+    if (got[0], got[1], got[3]) != (want[0], want[1], want[3]) or got[3]:
+        raise AssertionError(f"serve example: card (patches, invocations, "
+                             f"detections, held) {got} against the CPU's "
+                             f"{want}")
+    n, d_score, d_box = same_routes(routed_card, routed_cpu)
+    log(f"  serve_e2e: card {got} and CPU {want} (patches, invocations, "
+        f"detections, frames held); {n} detections off the threshold equal "
+        f"(score within {d_score:.2e}, box {d_box:.2e} px); K1 "
+        f"{launches['stitch']}, K2 {launches['unstitch']}, K5 "
+        f"{launches['gmm_update']}")
+
+
+def lm_packing_example(device, by_path: dict, card: str) -> None:
+    """K6 in the packed LM's forward and in the segment-masked call against
+    their plain versions on the card (float32)."""
+    mod = load_example("torch_lm_sequence_packing")
+    got, launches, _ = run_example(mod, [], card)
+    by_path["example_lm_packing"] = launches
+    check_launches({"launches": launches}, ("flash_attention",),
+                   "LM packing example")
+    if launches["flash_attention"] != mod.CFG.n_layers + 1:
+        raise AssertionError(f"LM packing example: K6 launched "
+                             f"{launches['flash_attention']} times, want "
+                             f"{mod.CFG.n_layers} layers + 1")
+    seg = got["segment_ids"]
+    h, out = mod.serve_row(got["params"], got["tokens"], seg, impl="torch")
+    errs = {"hidden": max_abs_err(got["hidden"], h),
+            "segment-masked": max_abs_err(got["attention"], out)}
+    # the example's q, k and v are all ones (every output is 1): K6 again
+    # on seeded random ones, with the packed row's segment ids
+    gen = torch.Generator(device=device).manual_seed(13)
+    q = torch.randn((1, mod.SEQ, 4, 32), generator=gen, device=device)
+    k, v = (torch.randn((1, mod.SEQ, 2, 32), generator=gen, device=device)
+            for _ in range(2))
+    errs["segment-masked, random q/k/v"] = max_abs_err(
+        attn_ops.flash_attention(q, k, v, causal=True, segment_ids=seg),
+        attn_ops.flash_attention(q, k, v, causal=True, segment_ids=seg,
+                                 impl="torch"))
+    tol = ATTN_TOL[torch.float32]
+    if max(errs.values()) > tol:
+        raise AssertionError(f"LM packing example: K6 vs plain {errs}, "
+                             f"limit {tol}")
+    log(f"  lm_sequence_packing: {int(seg.max())} segments in the row; "
+        f"K6 vs plain, max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (limit {tol})")
+
+
+def train_example(by_path: dict, card: str) -> None:
+    """The training example: its own assertion that training learns, and
+    the drill restored once; no hand kernel."""
+    mod = load_example("torch_train_detector")
+    (losses, drills), launches, _ = run_example(mod, [], card)
+    by_path["example_train"] = launches
+    check_launches({"launches": launches}, (), "train example")
+    if drills != 1:
+        raise AssertionError(f"train example: {drills} drills restored")
+    k = max(len(losses) // 10, 1)
+    log(f"  train_detector: {len(losses)} steps, loss first-{k} mean "
+        f"{sum(losses[:k]) / k:.4f} -> last-{k} mean "
+        f"{sum(losses[-k:]) / k:.4f}, the drill restored once")
+
+
+def examples_phase(device, by_path: dict, card: str) -> None:
+    quickstart_example(device, by_path, card)
+    serve_example(by_path, card)
+    lm_packing_example(device, by_path, card)
+    train_example(by_path, card)
+
+
 # ------------------------------------------------------------------ main ----
 
 def serve_phases(build, table, arrivals, frames, device):
@@ -5419,6 +5645,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 12: {time.perf_counter() - t12:.1f}s")
+    log("phase 13: the port's four examples (examples/torch_*.py) on the "
+        "card at their own arguments")
+    t13 = time.perf_counter()
+    examples_phase(device, by_path, card)
+    log(f"phase 13: {time.perf_counter() - t13:.1f}s")
     for row in rows:
         if "launches_by_path" not in row:      # phase 5f's rows have theirs
             row["launches_by_path"] = {path: counts[row["name"]]

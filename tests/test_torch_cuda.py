@@ -6,6 +6,9 @@ package, so it runs on a host with only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib.util
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -1607,3 +1610,132 @@ def test_dry_run_flops_equal_a_card_run(cuda):
         plan.step_fn(params, x)
     assert counted["flops"] == fc.get_total_flops() > 0
     assert counted["args"] == hlo_analysis.local_bytes((params, x))
+
+
+# ------------------------------------------------------------ examples ----
+
+EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a fresh module (its ``__main__`` block does
+    not run)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_example_on_card_runs_k5(cuda, capsys):
+    """The example with no argument runs K5 once a frame; its stream equals
+    the plain GMM's on the card and the CPU's, patch for patch."""
+    mod = load_example("torch_quickstart")
+    reset_launches()
+    stream, res = mod.main([])
+    assert dict(LAUNCHES) == {**{k: 0 for k in LAUNCHES},
+                              "gmm_update": mod.FRAMES}
+    plain, _ = mod.edge_stream(cuda, gmm_impl="torch")
+    cpu, _ = mod.edge_stream("cpu")
+    assert stream and stream == plain == cpu
+    table = mod.detector_latency_model(mod.CANVAS, mod.CANVAS).build_table(16)
+    assert res.summary() == mod.cloud_report(cpu, table).summary()
+
+
+def _routes(mp: pytest.MonkeyPatch, routed: dict):
+    """Record what ``launch/serve.main``'s executors route, per frame, until
+    ``mp`` is undone."""
+    from repro_torch.launch import serve
+    make = serve.make_executor
+
+    def recording(*a, **kw):
+        ex = make(*a, **kw)
+        release = ex.on_complete
+
+        def on_complete(comp):
+            for fid, dets in comp.outputs[0].items():
+                routed.setdefault(fid, []).extend(dets)
+            release(comp)
+
+        ex.on_complete = on_complete
+        return ex
+    mp.setattr(serve, "make_executor", recording)
+
+
+def _served(out: str) -> tuple:
+    m = re.search(r"served (\d+) patches in (\d+) invocations.*routed "
+                  r"(\d+) detections.*\((\d+) frames still held", out)
+    assert m, out
+    return tuple(int(x) for x in m.groups())
+
+
+def test_serve_example_on_card_matches_cpu(cuda, capsys):
+    """K5, K1 and K2 on the card serve what the example serves with
+    ``--device cpu``: patches, invocations, 0 frames held, and the routed
+    detections but for scores within 1e-3 of 0.5 (float32 summation
+    order; scores within 1e-4, boxes within 1e-3 px)."""
+    mod = load_example("torch_serve_e2e")
+    card, cpu = {}, {}
+    with pytest.MonkeyPatch.context() as mp:
+        _routes(mp, card)
+        reset_launches()
+        mod.main([])
+        launches = dict(LAUNCHES)
+    got = _served(capsys.readouterr().out)
+    with pytest.MonkeyPatch.context() as mp:
+        _routes(mp, cpu)
+        mod.main(["--device", "cpu"])
+    want = _served(capsys.readouterr().out)
+    assert launches["stitch"] == launches["unstitch"] == got[1] > 0
+    assert launches["gmm_update"] == 40
+    assert (got[0], got[1], got[3]) == (want[0], want[1], want[3])
+    assert got[3] == 0
+
+    def kept(routed):
+        return {f: [(s, b) for s, b in d if abs(s - 0.5) >= 1e-3]
+                for f, d in routed.items()}
+    a, b = kept(card), kept(cpu)
+    assert {f: len(d) for f, d in a.items()} == \
+        {f: len(d) for f, d in b.items()}
+    for f in a:
+        for (sa, ba), (sb, bb) in zip(a[f], b[f]):
+            assert abs(sa - sb) <= 1e-4
+            assert max(abs(x - y) for x, y in zip(ba, bb)) <= 1e-3
+
+
+def test_lm_example_on_card_runs_float32_k6(cuda, capsys):
+    """K6 once a layer and once with the packed row's segment ids, float32,
+    within 1e-4 of its plain version on the card and of the CPU run (the
+    weights are drawn on the host)."""
+    mod = load_example("torch_lm_sequence_packing")
+    reset_launches()
+    got = mod.main([])
+    assert dict(LAUNCHES) == {**{k: 0 for k in LAUNCHES},
+                              "flash_attention": mod.CFG.n_layers + 1}
+    h, out = mod.serve_row(got["params"], got["tokens"], got["segment_ids"],
+                           impl="torch")
+    torch.testing.assert_close(got["hidden"], h, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got["attention"], out, atol=1e-4, rtol=1e-4)
+    cpu = mod.main(["--device", "cpu"])
+    torch.testing.assert_close(got["hidden"].cpu(), cpu["hidden"],
+                               atol=1e-4, rtol=1e-4)
+    seg = got["segment_ids"]
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((1, mod.SEQ, 4, 32), generator=gen, device=cuda)
+    k, v = (torch.randn((1, mod.SEQ, 2, 32), generator=gen, device=cuda)
+            for _ in range(2))
+    torch.testing.assert_close(
+        attn_ops.flash_attention(q, k, v, causal=True, segment_ids=seg),
+        attn_ops.flash_attention(q, k, v, causal=True, segment_ids=seg,
+                                 impl="torch"), atol=1e-4, rtol=1e-4)
+
+
+def test_train_example_on_card_learns_and_restores(cuda, capsys):
+    """The example's own assertion (training learns) at 44 steps, the drill
+    at step 22 restored; training launches no kernel."""
+    mod = load_example("torch_train_detector")
+    reset_launches()
+    losses, drills = mod.main(["--steps", "44"])
+    assert len(losses) == 44 and drills == 1
+    assert not any(LAUNCHES.values())
+    assert "[drill] host at step 22" in capsys.readouterr().out

@@ -1,8 +1,8 @@
-"""The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke`` pulls in neither JAX nor the JAX package, needs no CUDA
-compiler, builds no kernel, starts no process group and sets no
-environment variable; entry points default to CUDA and never fall back to
-the CPU."""
+"""The port stands alone: importing every ``repro_torch`` module,
+``chip_smoke`` and the port's examples pulls in neither JAX nor the JAX
+package, needs no CUDA compiler, builds no kernel, starts no process
+group and sets no environment variable; entry points default to CUDA and
+never fall back to the CPU."""
 import json
 import os
 import pathlib
@@ -16,12 +16,13 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import _build
+from test_torch_cuda import load_example
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 _PROBE = """
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pathlib, pkgutil, sys
 sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -44,6 +45,9 @@ for name in names:
 import chip_smoke
 import torch.distributed as dist
 from repro_torch.kernels import _build
+for path in sorted(pathlib.Path({root!r}, "examples").glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({{"modules": len(names), "bad": bad,
@@ -148,14 +152,34 @@ def test_one_step_off_a_mesh_loads_no_dtensor(arch):
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]))
+    + [ROOT / "chip_smoke.py"] + EXAMPLES))
 def test_source_names_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", text,
                          re.M), path
     assert not re.search(r"^\s*from\s+repro\.", text, re.M), path
+
+
+def test_port_has_the_four_examples():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_lm_sequence_packing.py", "torch_quickstart.py",
+        "torch_serve_e2e.py", "torch_train_detector.py"]
+
+
+@pytest.mark.parametrize("path", [p.name for p in EXAMPLES])
+def test_examples_default_to_cuda_and_raise_without_it(path, monkeypatch):
+    """With no argument an example asks for CUDA; on a host without it
+    (here: ``torch.cuda.is_available`` reports none) it raises before any
+    work and never falls back to the CPU."""
+    mod = load_example(path[:-3])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
 
 
 def test_resolve_device_defaults_to_cuda_and_never_falls_back():
