@@ -16,6 +16,7 @@ import threading
 import time
 from typing import Callable, List, Protocol, runtime_checkable
 
+from repro_torch.core import spans
 from repro_torch.core.registry import lookup
 
 
@@ -78,7 +79,8 @@ class WallClock:
     def advance_to(self, t: float) -> None:
         dt = (t - self.now()) / self.speed
         if dt > 0:
-            self._sleep_fn(dt)
+            with spans.span("engine.sleep"):
+                self._sleep_fn(dt)
         # an event scheduled at t has happened by the time advance_to
         # returns, even if sleep undershot by a scheduler tick
         if t > self._floor:

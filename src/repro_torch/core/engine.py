@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.compat.shardingx import make_mesh, mesh_axis_sizes
+from repro_torch.core import spans
 from repro_torch.core.clock import Clock, VirtualClock
 from repro_torch.core.framestore import FrameStore
 from repro_torch.core.invoker import Invocation, SLOAwareInvoker
@@ -634,54 +635,67 @@ class DeviceExecutor:
 
     def _launch(self, inv: Invocation) -> dict:
         """Host-side packing + queueing of the device work; nothing here
-        waits for the card (the host-to-device copies aside)."""
-        with torch.cuda.stream(self.stream):
-            return self._queue(inv)
+        waits for the card (the host-to-device copies aside).  The payload
+        carries the invocation's span number (``inv``; None with no span
+        log)."""
+        with torch.cuda.stream(self.stream), spans.span(
+                "stage", spans.NEW, len(inv.canvases)) as stage:
+            payload = self._queue(inv)
+            payload["inv"] = stage.inv
+            return payload
 
     def _queue(self, inv: Invocation) -> dict:
         t0 = self.clock()
         rt = self._runtime(inv.model)
-        plan = inv.batch_plan()
-        stitch_ops.check_records(plan)
-        crops = []
-        store = self.store
-        for patch in inv.patches:
-            frame = store.get(patch.frame_id)
-            if frame is None:
-                crops.append(np.zeros((patch.h, patch.w, 3), np.float32))
-            else:
-                crops.append(frame[patch.y0:patch.y1, patch.x0:patch.x1])
-        host_slots = stitch_ops.pack_plan_host(crops, plan)
-        slots = torch.from_numpy(host_slots).to(self.device)
-        records = torch.from_numpy(plan.records).to(self.device)
-        if self.fuse:
-            # K4 emits the token batch straight from the slots, the trunk
-            # runs from tokens, and K3 decodes the head into per-slot grids
-            tokens = stitch_ops.stitch_embed(
-                slots, records, rt.embed_kernel, rt.embed_bias, rt.canvas_m,
-                rt.canvas_n, rt.patch, impl=self.impl)
-            raw = rt.tokens_fn(rt.params, tokens)
-            fused = stitch_ops.unstitch_decode(
-                raw, records, rt.patch, plan.slot_capacity, impl=self.impl)
+        with spans.span("stage.plan"):
+            plan = inv.batch_plan()
+            stitch_ops.check_records(plan)
+        with spans.span("stage.pack"):
+            crops = []
+            store = self.store
+            for patch in inv.patches:
+                frame = store.get(patch.frame_id)
+                if frame is None:
+                    crops.append(np.zeros((patch.h, patch.w, 3), np.float32))
+                else:
+                    crops.append(frame[patch.y0:patch.y1, patch.x0:patch.x1])
+            host_slots = stitch_ops.pack_plan_host(crops, plan)
+        with spans.span("stage.h2d"):
+            slots = torch.from_numpy(host_slots).to(self.device)
+            records = torch.from_numpy(plan.records).to(self.device)
+        with spans.span("stage.launch"):
+            if self.fuse:
+                # K4 emits the token batch straight from the slots, the
+                # trunk runs from tokens, and K3 decodes the head into
+                # per-slot grids
+                tokens = stitch_ops.stitch_embed(
+                    slots, records, rt.embed_kernel, rt.embed_bias,
+                    rt.canvas_m, rt.canvas_n, rt.patch, impl=self.impl)
+                raw = rt.tokens_fn(rt.params, tokens)
+                fused = stitch_ops.unstitch_decode(
+                    raw, records, rt.patch, plan.slot_capacity,
+                    impl=self.impl)
+                self.n_invocations += 1
+                self.n_fused += 1
+                return {"plan": plan, "fused": fused, "slots": host_slots,
+                        "done": self._record_done(fused), "t0": t0}
+            canvases = stitch_ops.stitch_canvases(
+                slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
+            chunks, sharded = shard_canvases(canvases, rt.mesh, rt.rules)
+            obj, boxes = rt.serve_sharded(chunks, canvases.shape[0],
+                                          self.device)
+            # inverse gather: the box head has no pixel-space output, so
+            # the canvases stand in for a per-pixel head; the gathered
+            # slots equal the input crops and are routed back as evidence
+            patch_out = stitch_ops.unstitch_patches(
+                canvases, records, plan.slot_capacity, plan.hmax, plan.wmax,
+                impl=self.impl)
             self.n_invocations += 1
-            self.n_fused += 1
-            return {"plan": plan, "fused": fused, "slots": host_slots,
-                    "done": self._record_done(fused), "t0": t0}
-        canvases = stitch_ops.stitch_canvases(
-            slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
-        chunks, sharded = shard_canvases(canvases, rt.mesh, rt.rules)
-        obj, boxes = rt.serve_sharded(chunks, canvases.shape[0], self.device)
-        # inverse gather: the box head has no pixel-space output, so the
-        # canvases stand in for a per-pixel head; the gathered slots equal
-        # the input crops and are routed back as evidence
-        patch_out = stitch_ops.unstitch_patches(
-            canvases, records, plan.slot_capacity, plan.hmax, plan.wmax,
-            impl=self.impl)
-        self.n_invocations += 1
-        self.n_sharded += bool(sharded)
-        return {"plan": plan, "obj": obj, "boxes": boxes,
-                "patch_out": patch_out,
-                "done": self._record_done(obj, boxes, patch_out), "t0": t0}
+            self.n_sharded += bool(sharded)
+            return {"plan": plan, "obj": obj, "boxes": boxes,
+                    "patch_out": patch_out,
+                    "done": self._record_done(obj, boxes, patch_out),
+                    "t0": t0}
 
     def _record_done(self, *outputs):
         """What :meth:`AsyncDeviceExecutor.ready` probes with ``query()``.
@@ -704,22 +718,35 @@ class DeviceExecutor:
 
     def _route(self, inv: Invocation, payload: dict) -> Completion:
         plan = payload["plan"]
+        # the head's host copies are freed before the evidence copies
+        # allocate: held across them, K3's grids cost tangram-replay about
+        # a tenth of its patches a second (measured on an H100 host)
         if "fused" in payload:
-            per_frame = stitch_ops.route_fused(
-                plan, inv.patches, payload["fused"].cpu().numpy())
+            with spans.span("route.wait"):
+                grids = payload["fused"].cpu().numpy()
+            with spans.span("route.fused"):
+                per_frame = stitch_ops.route_fused(plan, inv.patches, grids)
+            del grids
             # the unfused evidence (gathered slots) equals the input crops,
             # so the fused path serves it from the host slots it packed
             evidence = payload["slots"]
         else:
-            per_frame = stitch_ops.route_detections(
-                plan, inv.patches, payload["obj"].cpu().numpy(),
-                payload["boxes"].cpu().numpy())
-            evidence = payload["patch_out"].cpu().numpy()
+            with spans.span("route.wait"):
+                obj = payload["obj"].cpu().numpy()
+                boxes = payload["boxes"].cpu().numpy()
+            with spans.span("route.fused"):
+                per_frame = stitch_ops.route_detections(plan, inv.patches,
+                                                        obj, boxes)
+            del obj, boxes
+            with spans.span("route.wait"):
+                evidence = payload["patch_out"].cpu().numpy()
         per_frame_pixels: Dict[object, List[np.ndarray]] = {}
-        for i, patch in enumerate(inv.patches):
-            # copy: a view would pin the whole pow2-padded batch in memory
-            per_frame_pixels.setdefault(patch.frame_id, []).append(
-                np.ascontiguousarray(evidence[i, :patch.h, :patch.w]))
+        with spans.span("route.evidence"):
+            for i, patch in enumerate(inv.patches):
+                # copy: a view would pin the whole pow2-padded batch in
+                # memory
+                per_frame_pixels.setdefault(patch.frame_id, []).append(
+                    np.ascontiguousarray(evidence[i, :patch.h, :patch.w]))
         wall = self.clock() - payload["t0"]
 
         self.n_detections += sum(len(v) for v in per_frame.values())
@@ -730,14 +757,20 @@ class DeviceExecutor:
                           model=inv.model)
 
     def submit(self, inv: Invocation) -> ExecHandle:
-        comp = self._finalize(inv, self._launch(inv))
+        payload = self._launch(inv)
+        with spans.span("route", payload["inv"], len(inv.canvases)):
+            comp = self._finalize(inv, payload)
+            del payload
         return ExecHandle(inv, t_finish=comp.t_finish, completion=comp)
 
     def resolve(self, handle: ExecHandle) -> Completion:
         if handle.completion is None:
-            handle.completion = self._finalize(handle.invocation,
-                                               handle.payload)
-            handle.payload = None
+            # the span holds the payload's release: the host slots go here
+            with spans.span("route", handle.payload["inv"],
+                            len(handle.invocation.canvases)):
+                handle.completion = self._finalize(handle.invocation,
+                                                   handle.payload)
+                handle.payload = None
         return handle.completion
 
     def execute(self, inv: Invocation) -> Completion:  # legacy shim
@@ -879,6 +912,8 @@ class ServingEngine:
         """One arrival: first fire everything due strictly before it."""
         self.advance(arrival.t_arrive)
         self.clock.advance_to(arrival.t_arrive)
+        if spans.LOG is not None:
+            self._late(arrival.t_arrive, "arrival")
         self._ingest(arrival)
 
     def offer_batch(self, arrivals: Sequence[Arrival]):
@@ -893,6 +928,8 @@ class ServingEngine:
             if self._next_event() < t:
                 self.advance(t)
             self.clock.advance_to(t)
+            if spans.LOG is not None:
+                self._late(t, "arrival")
             self._ingest(arr)
 
     def _ingest(self, arrival: Arrival):
@@ -959,6 +996,9 @@ class ServingEngine:
             if t_next >= t:
                 return
             self.clock.advance_to(t_next)
+            if spans.LOG is not None:
+                self._late(t_next, "completion" if t_comp <= t_timer
+                           else "timer")
             if t_comp <= t_timer:
                 self._deliver_scheduled()
             else:
@@ -985,7 +1025,20 @@ class ServingEngine:
 
     # --------------------------------------------------------- internals ----
 
+    def _late(self, due: float, kind: str):
+        """``engine.late``: the event due at engine time ``due``, taken
+        now, as an interval that ends now on the span log's clock and
+        lasts the lag in engine seconds (zero when on time).  Only on a
+        wall clock: a virtual one is never late."""
+        log = spans.LOG
+        if log is None or self.clock.virtual:
+            return
+        t1 = log.clock()
+        lag = max(0.0, self.clock.now() - due)
+        log.event("engine.late", t1 - lag, t1, value=kind)
+
     def _dispatch(self, inv: Invocation):
+        spans.event("fire", value=inv.reason)
         # canvas-less invocations are legitimate only for batchers that
         # bill through cost_canvases (the padded-tile baselines)
         if self.check_invariants and inv.cost_canvases is None:

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""One benchmark run with the port's span log, and what the log saw.
+
+    python3 tools/span_runs.py --spans 0|1 --workload CELL --seed N \
+        --seconds S --trace 0|1
+
+Runs ``tangram_bench``'s ``harness.main`` in this process with the span
+log (``repro_torch.core.spans``) installed from the start (``--spans 1``,
+through ``tangram_bench/program_spans.py``) or not (``--spans 0``; with
+``--trace 1`` the cell's readers of program spans install it all the
+same).  Prints the harness's JSON line, then one of its own: the log's
+records and bytes, the window's records by name, its invocations and
+canvases, host ms a canvas in each staging and routing span, the
+engine's lateness by kind and the fire reasons, and with ``--trace 1``
+the window's device idle seconds under each innermost span and the
+``breakdown``'s idle gaps named by span.
+
+Runs at ``--spans 0`` and ``--spans 1`` with ``--trace 0``, the same seeds,
+in turns on one card, give what the log costs the end-to-end metrics.
+Needs a CUDA card, as the harness does; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import sys
+import time
+
+T0 = time.perf_counter()        # set-up is timed from here, as run.py does
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+SPANS = ("stage", "stage.plan", "stage.pack", "stage.h2d", "stage.launch",
+         "route", "route.wait", "route.fused", "route.evidence")
+
+
+def report(data) -> dict:
+    from tangram_bench import program_spans as ps
+    from tangram_bench import stats
+    recs = ps.records(data)
+    if not recs:
+        return {"log": ps.log_size(), "records": None}
+    window = [r for r in recs
+              if r is not None and 0.0 <= r[1] < data.seconds]
+    lags = collections.defaultdict(list)
+    for r in ps.in_window(recs, "engine.late", data.seconds):
+        lags[r[5]].append(r[2] - r[1])
+    invs = ps.window_canvases(recs, data.seconds)
+    out = {"log": ps.log_size(), "window_records": len(window),
+           "invocations": len(invs), "canvases": sum(invs.values()),
+           "by_name": collections.Counter(r[0] for r in window),
+           "ms_per_canvas": {n: ps.ms_per_canvas(data, (n,)) for n in SPANS},
+           "late_ms": {k: {"n": len(v),
+                           "p50": stats.nearest_rank(v, 0.5) * 1e3,
+                           "p95": stats.nearest_rank(v, 0.95) * 1e3,
+                           "max": max(v) * 1e3} for k, v in lags.items()},
+           "fire": collections.Counter(
+               r[5] for r in ps.in_window(recs, "fire", data.seconds))}
+    if data.trace is not None:
+        idle = ps.idle_by_span(data)
+        out["idle_s_by_span"] = {str(k): v for k, v in
+                                 sorted(idle.items(), key=lambda kv: -kv[1])}
+        out["idle_gaps"] = ps.gap_labels(data)
+    return out
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--spans", type=int, choices=(0, 1), required=True)
+    args, rest = p.parse_known_args()
+    if args.spans:
+        from tangram_bench import program_spans  # noqa: F401 (installs)
+    from tangram_bench import harness
+    kept = {}
+    run_checked = harness.run_checked
+
+    def keep(*a, **kw):
+        out = run_checked(*a, **kw)
+        kept["data"] = out[1]
+        return out
+
+    harness.run_checked = keep
+    rc = harness.main(rest, t0=T0)
+    line = {"spans": args.spans}
+    if "tangram_bench.program_spans" in sys.modules and "data" in kept:
+        line.update(report(kept["data"]))
+    print(json.dumps(line))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
