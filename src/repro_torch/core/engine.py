@@ -495,11 +495,101 @@ def shard_canvases(canvases: torch.Tensor, mesh, rules=None
     return [c.to(d) for c, d in zip(chunks, devs)], n_data > 1
 
 
+@dataclasses.dataclass(eq=False)
+class StagingBuffer:
+    """One host buffer of a :class:`HostStaging` pool: ``host`` (float32,
+    pinned on a card), ``array`` its numpy view, and ``event``, recorded
+    after the copy that last read it (None off a card)."""
+    host: torch.Tensor
+    array: np.ndarray
+    event: Optional[torch.cuda.Event]
+
+
+class HostStaging:
+    """The host buffers a device executor stages its invocations from,
+    reused.
+
+    On a card they are pinned, so the staging copy runs without the
+    host, straight from them; off a card they are ordinary host memory and
+    the same code runs.  :meth:`take` lends a free buffer, after waiting
+    for the copy that last read it; :meth:`give` takes it back.  A buffer
+    is allocated, or grown, only when no free one holds what is asked:
+    then to the largest ``reserve`` asked so far, so that once the
+    largest batch has run as many invocations as are held at once, the
+    pool stops allocating.  ``allocs`` counts buffers allocated or grown;
+    ``n_buffers`` those the pool owns, lent or free.
+    """
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self.free: List[StagingBuffer] = []
+        self.allocs = 0
+        self.n_buffers = 0
+        self.reserve = 0
+
+    def take(self, n: int, reserve: int = 0) -> StagingBuffer:
+        """A buffer of at least ``n`` float32 elements."""
+        self.reserve = max(self.reserve, reserve, n)
+        buf = max(self.free, key=lambda b: b.array.size, default=None)
+        if buf is not None:
+            self.free.remove(buf)
+            if buf.event is not None:
+                buf.event.synchronize()
+            if buf.array.size >= n:
+                return buf
+        else:
+            self.n_buffers += 1
+        self.allocs += 1
+        host = torch.empty(self.reserve, dtype=torch.float32,
+                           pin_memory=self.pin)
+        return StagingBuffer(host, host.numpy(),
+                             torch.cuda.Event() if self.pin else None)
+
+    def give(self, buf: StagingBuffer) -> None:
+        self.free.append(buf)
+
+
+class StagedCrops:
+    """One invocation's crops in a buffer lent by a :class:`HostStaging`
+    pool (:func:`~repro_torch.kernels.stitch.ops.pack_plan_compact`'s
+    layout), held from staging until routing has copied the evidence."""
+
+    def __init__(self, pool: HostStaging, buf: StagingBuffer,
+                 packed: stitch_ops.CompactCrops, plan):
+        self.pool, self.buf, self.packed = pool, buf, packed
+        self.hmax, self.wmax = plan.hmax, plan.wmax
+
+    def crop(self, i: int, patch: Patch) -> np.ndarray:
+        """Patch ``i``'s evidence as its padded slot's ``[:patch.h,
+        :patch.w]`` reads: its crop, a view into the buffer (a padded copy
+        where the crop's extent is not the patch's)."""
+        px = self.packed.crop(i)
+        h, w = min(patch.h, self.hmax), min(patch.w, self.wmax)
+        if px.shape[:2] == (h, w):
+            return px
+        out = np.zeros((h, w, px.shape[2]), np.float32)
+        hh, ww = min(h, px.shape[0]), min(w, px.shape[1])
+        out[:hh, :ww] = px[:hh, :ww]
+        return out
+
+    def release(self) -> None:
+        """Hand the buffer back to its pool."""
+        self.pool.give(self.buf)
+
+
 class DeviceExecutor:
-    """Executor over the real pipeline on one device: crop gather + slot
-    packing on the host -> K1 stitch -> detector -> K2 unstitch -> route,
-    joined synchronously at submit (``t_finish`` = ``t_submit`` + measured
-    wall time, the quantity the latency table estimates).
+    """Executor over the real pipeline on one device: crop gather on the
+    host -> slots laid out on the device -> K1 stitch -> detector -> K2
+    unstitch -> route, joined synchronously at submit (``t_finish`` =
+    ``t_submit`` + measured wall time, the quantity the latency table
+    estimates).
+
+    Staging ships only the crops' bytes and the records: packed back to
+    back into a reused host buffer (:class:`HostStaging`, pinned on a
+    card), copied in one non-blocking copy on the executor's stream, and
+    laid out into the plan's zero-padded slots on the device.  Counters:
+    ``h2d_bytes`` (bytes shipped), ``pinned_allocs`` (staging buffers
+    allocated or grown).
 
     :meth:`_launch` queues the work and returns before the card finishes;
     :meth:`_finalize` copies the outputs to the host (which waits for the
@@ -526,7 +616,7 @@ class DeviceExecutor:
     ``stream`` (a ``torch.cuda.Stream`` of the executor's device; the
     counterpart of the JAX executor's ``mesh=``): :meth:`_launch`,
     :meth:`_record_done` and :meth:`_finalize` each run inside
-    ``torch.cuda.stream(stream)``, so the slot and record uploads, every
+    ``torch.cuda.stream(stream)``, so the staging copy, every
     kernel, the trunk, the ``done`` event and the host copies land on it.
     Each method enters the stream itself, because the current stream is
     per thread and one thread may drive several executors.  ``None``
@@ -579,6 +669,8 @@ class DeviceExecutor:
         self.n_detections = 0
         self.n_sharded = 0
         self.evidence_bytes = 0
+        self.staging = HostStaging(pin=self.device.type == "cuda")
+        self.h2d_bytes = 0
 
     def _checked(self, rt: ModelRuntime, model: Optional[str]
                  ) -> ModelRuntime:
@@ -631,13 +723,17 @@ class DeviceExecutor:
     def _refs(self) -> Dict[object, int]:
         return self.store.refs_snapshot()
 
+    @property
+    def pinned_allocs(self) -> int:
+        """Staging buffers allocated or grown (pinned on a card)."""
+        return self.staging.allocs
+
     # --------------------------------------------------------- execution ----
 
     def _launch(self, inv: Invocation) -> dict:
         """Host-side packing + queueing of the device work; nothing here
-        waits for the card (the host-to-device copies aside).  The payload
-        carries the invocation's span number (``inv``; None with no span
-        log)."""
+        waits for the card.  The payload carries the invocation's span
+        number (``inv``; None with no span log)."""
         with torch.cuda.stream(self.stream), spans.span(
                 "stage", spans.NEW, len(inv.canvases)) as stage:
             payload = self._queue(inv)
@@ -650,19 +746,7 @@ class DeviceExecutor:
         with spans.span("stage.plan"):
             plan = inv.batch_plan()
             stitch_ops.check_records(plan)
-        with spans.span("stage.pack"):
-            crops = []
-            store = self.store
-            for patch in inv.patches:
-                frame = store.get(patch.frame_id)
-                if frame is None:
-                    crops.append(np.zeros((patch.h, patch.w, 3), np.float32))
-                else:
-                    crops.append(frame[patch.y0:patch.y1, patch.x0:patch.x1])
-            host_slots = stitch_ops.pack_plan_host(crops, plan)
-        with spans.span("stage.h2d"):
-            slots = torch.from_numpy(host_slots).to(self.device)
-            records = torch.from_numpy(plan.records).to(self.device)
+        slots, records, staged = self._stage(inv, plan, rt)
         with spans.span("stage.launch"):
             if self.fuse:
                 # K4 emits the token batch straight from the slots, the
@@ -677,7 +761,7 @@ class DeviceExecutor:
                     impl=self.impl)
                 self.n_invocations += 1
                 self.n_fused += 1
-                return {"plan": plan, "fused": fused, "slots": host_slots,
+                return {"plan": plan, "fused": fused, "staged": staged,
                         "done": self._record_done(fused), "t0": t0}
             canvases = stitch_ops.stitch_canvases(
                 slots, records, rt.canvas_m, rt.canvas_n, impl=self.impl)
@@ -693,9 +777,53 @@ class DeviceExecutor:
             self.n_invocations += 1
             self.n_sharded += bool(sharded)
             return {"plan": plan, "obj": obj, "boxes": boxes,
-                    "patch_out": patch_out,
+                    "patch_out": patch_out, "staged": staged,
                     "done": self._record_done(obj, boxes, patch_out),
                     "t0": t0}
+
+    def _crops(self, inv: Invocation) -> List[np.ndarray]:
+        """Each queued patch's crop, a view of its frame; zeros for a frame
+        the store no longer holds."""
+        crops = []
+        store = self.store
+        for patch in inv.patches:
+            frame = store.get(patch.frame_id)
+            if frame is None:
+                crops.append(np.zeros((patch.h, patch.w, 3), np.float32))
+            else:
+                crops.append(frame[patch.y0:patch.y1, patch.x0:patch.x1])
+        return crops
+
+    def _stage(self, inv: Invocation, plan, rt: ModelRuntime):
+        """The plan's slots and records on the device, from one buffer of
+        the staging pool: the records and the crops packed back to back
+        with no padding (``stage.pack``), one non-blocking copy on the
+        executor's stream, then the padded slots laid out on the device
+        (``stage.h2d``, valued in the bytes shipped).  Returns the slots,
+        the records and the :class:`StagedCrops` that routing reads the
+        evidence from and releases."""
+        records_np = plan.records
+        n_rec = records_np.size
+        with spans.span("stage.pack"):
+            crops = self._crops(inv)
+            c = crops[0].shape[-1] if crops else 3
+            need = n_rec + c * sum(px.shape[0] * px.shape[1] for px in crops)
+            # the most an invocation of this many canvases can ship: its
+            # crops lie on the canvases without overlap
+            reserve = n_rec + len(records_np) * rt.canvas_m * rt.canvas_n * c
+            buf = self.staging.take(need, reserve)
+            buf.array[:n_rec].view(np.int32)[:] = records_np.reshape(-1)
+            packed = stitch_ops.pack_plan_compact(
+                crops, plan, out=buf.array[n_rec:need])
+        with spans.span("stage.h2d", value=4 * need):
+            flat = buf.host[:need].to(self.device, non_blocking=True,
+                                      copy=True)
+            if buf.event is not None:
+                buf.event.record(torch.cuda.current_stream(self.device))
+            records = flat[:n_rec].view(torch.int32).view(records_np.shape)
+            slots = stitch_ops.lay_out_slots(flat[n_rec:], packed, plan)
+        self.h2d_bytes += 4 * need
+        return slots, records, StagedCrops(self.staging, buf, packed, plan)
 
     def _record_done(self, *outputs):
         """What :meth:`AsyncDeviceExecutor.ready` probes with ``query()``.
@@ -718,6 +846,7 @@ class DeviceExecutor:
 
     def _route(self, inv: Invocation, payload: dict) -> Completion:
         plan = payload["plan"]
+        staged = payload["staged"]
         # the head's host copies are freed before the evidence copies
         # allocate: held across them, K3's grids cost tangram-replay about
         # a tenth of its patches a second (measured on an H100 host)
@@ -728,8 +857,8 @@ class DeviceExecutor:
                 per_frame = stitch_ops.route_fused(plan, inv.patches, grids)
             del grids
             # the unfused evidence (gathered slots) equals the input crops,
-            # so the fused path serves it from the host slots it packed
-            evidence = payload["slots"]
+            # so the fused path serves it from the crops it staged
+            crop = staged.crop
         else:
             with spans.span("route.wait"):
                 obj = payload["obj"].cpu().numpy()
@@ -740,13 +869,19 @@ class DeviceExecutor:
             del obj, boxes
             with spans.span("route.wait"):
                 evidence = payload["patch_out"].cpu().numpy()
+
+            def crop(i, patch):
+                return evidence[i, :patch.h, :patch.w]
         per_frame_pixels: Dict[object, List[np.ndarray]] = {}
         with spans.span("route.evidence"):
             for i, patch in enumerate(inv.patches):
-                # copy: a view would pin the whole pow2-padded batch in
-                # memory
+                # a copy: the staging buffer goes back to its pool, and a
+                # view of the gathered slots would pin the whole batch
                 per_frame_pixels.setdefault(patch.frame_id, []).append(
-                    np.ascontiguousarray(evidence[i, :patch.h, :patch.w]))
+                    np.array(crop(i, patch)))
+        # the outputs' host copies waited for the card, so the staging
+        # copy has read the buffer
+        staged.release()
         wall = self.clock() - payload["t0"]
 
         self.n_detections += sum(len(v) for v in per_frame.values())
@@ -765,7 +900,7 @@ class DeviceExecutor:
 
     def resolve(self, handle: ExecHandle) -> Completion:
         if handle.completion is None:
-            # the span holds the payload's release: the host slots go here
+            # the span holds the payload's release
             with spans.span("route", handle.payload["inv"],
                             len(handle.invocation.canvases)):
                 handle.completion = self._finalize(handle.invocation,

@@ -24,7 +24,7 @@ Records and what reads them (``tangram_bench/metrics/``):
 
 | record | where | value |
 |---|---|---|
-| ``stage``, children ``stage.plan`` / ``.pack`` / ``.h2d`` / ``.launch`` | ``DeviceExecutor._queue`` | canvases |
+| ``stage``, children ``stage.plan`` / ``.pack`` / ``.h2d`` / ``.launch`` | ``DeviceExecutor._queue`` | canvases (``stage.h2d``: bytes shipped) |
 | ``route``, children ``route.wait`` / ``.fused`` / ``.evidence`` | ``DeviceExecutor.submit`` / ``resolve`` | canvases |
 | ``fire`` (zero length) | ``ServingEngine._dispatch`` | the invocation's reason |
 | ``engine.late`` (due -> taken) | ``ServingEngine.offer`` / ``advance`` on a clock that is not virtual | ``"arrival"``, ``"timer"``, ``"completion"`` |

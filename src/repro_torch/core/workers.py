@@ -429,6 +429,14 @@ class WorkerPoolExecutor:
     def evidence_bytes(self) -> int:
         return self._sum("evidence_bytes")
 
+    @property
+    def h2d_bytes(self) -> int:
+        return self._sum("h2d_bytes")
+
+    @property
+    def pinned_allocs(self) -> int:
+        return self._sum("pinned_allocs")
+
     def worker_stats(self) -> List[dict]:
         """Per-worker counters for ``Results.worker_stats``."""
         stats = []

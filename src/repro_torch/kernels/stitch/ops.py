@@ -1,5 +1,6 @@
 """Public entries for canvas stitch/unstitch, the fused stitch->embed and
-decode->gather, and host-side packing and routing.
+decode->gather, host-side packing (padded, or compact with the slots laid
+out on the device) and routing.
 
 Port of ``repro/kernels/stitch/ops.py``.  ``impl`` picks
 the implementation: ``"cuda"`` launches the hand-written kernel,
@@ -10,7 +11,7 @@ does a kernel on inputs that require grad (``launches.refuse_grad``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +120,68 @@ def pack_plan_host(frame_pixels: Sequence[np.ndarray],
             raise ValueError(f"crop {i} ({h}x{w}) exceeds the plan's slot "
                              f"({plan.hmax}x{plan.wmax})")
         slots[i, :h, :w] = px
+    return slots
+
+
+class CompactCrops(NamedTuple):
+    """:func:`pack_plan_compact`'s result: crop i is ``flat[offsets[i]:
+    offsets[i] + h * w * channels]``, row-major (h, w, C), ``(h, w) =
+    hw[i]``."""
+    flat: np.ndarray            # float32, the crops back to back
+    offsets: np.ndarray         # (P,) int64
+    hw: np.ndarray              # (P, 2) int64
+    channels: int
+
+    def crop(self, i: int) -> np.ndarray:
+        """Crop ``i`` as an (h, w, C) view of ``flat``."""
+        h, w = (int(v) for v in self.hw[i])
+        o = int(self.offsets[i])
+        return self.flat[o:o + h * w * self.channels].reshape(
+            h, w, self.channels)
+
+
+def pack_plan_compact(frame_pixels: Sequence[np.ndarray], plan: BatchPlan,
+                      out: Optional[np.ndarray] = None) -> CompactCrops:
+    """Host prep with no padding: the crops back to back, in queue order,
+    as float32 (what :func:`lay_out_slots` lays out into
+    :func:`pack_plan_host`'s slots on the device).
+
+    ``out``: a 1-d float32 array to write into (a reused staging buffer),
+    at least the crops' size; None allocates one.  A crop larger than the
+    plan's slot raises before anything is written.
+    """
+    c = frame_pixels[0].shape[-1] if frame_pixels else 3
+    hw = np.array([px.shape[:2] for px in frame_pixels],
+                  np.int64).reshape(-1, 2)
+    for i, (h, w) in enumerate(hw.tolist()):
+        if h > plan.hmax or w > plan.wmax:
+            raise ValueError(f"crop {i} ({h}x{w}) exceeds the plan's slot "
+                             f"({plan.hmax}x{plan.wmax})")
+    sizes = hw[:, 0] * hw[:, 1] * c
+    total = int(sizes.sum())
+    if out is None:
+        out = np.empty(total, np.float32)
+    elif out.dtype != np.float32 or out.ndim != 1 or out.size < total:
+        raise ValueError(f"out must be 1-d float32 of at least {total} "
+                         f"elements, got {out.dtype} {out.shape}")
+    packed = CompactCrops(out[:total], np.cumsum(sizes) - sizes, hw, c)
+    for i, px in enumerate(frame_pixels):
+        packed.crop(i)[...] = px
+    return packed
+
+
+def lay_out_slots(flat: torch.Tensor, packed: CompactCrops,
+                  plan: BatchPlan) -> torch.Tensor:
+    """``flat`` (``packed.flat`` on any device) -> the plan's (slot_capacity,
+    hmax, wmax, C) float32 slots on that device, zero-padded: equal to
+    :func:`pack_plan_host` of the same crops, padding included.  One
+    copy a crop, on the device."""
+    c = packed.channels
+    slots = torch.zeros((plan.slot_capacity, plan.hmax, plan.wmax, c),
+                        dtype=torch.float32, device=flat.device)
+    for i, (o, (h, w)) in enumerate(zip(packed.offsets.tolist(),
+                                        packed.hw.tolist())):
+        slots[i, :h, :w] = flat[o:o + h * w * c].view(h, w, c)
     return slots
 
 

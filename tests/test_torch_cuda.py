@@ -22,7 +22,7 @@ from repro_torch.core.config import ServeConfig
 from repro_torch.core.engine import (InvokerPool, ModelRuntime, ServingEngine,
                                      data_devices, make_executor, slo_class,
                                      uniform_pool)
-from repro_torch.core.invoker import SLOAwareInvoker
+from repro_torch.core.invoker import Invocation, SLOAwareInvoker
 from repro_torch.core.latency import LatencyTable
 from repro_torch.core.models import make_model
 from repro_torch.core.partitioning import Patch
@@ -1739,3 +1739,129 @@ def test_train_example_on_card_learns_and_restores(cuda, capsys):
     assert len(losses) == 44 and drills == 1
     assert not any(LAUNCHES.values())
     assert "[drill] host at step 22" in capsys.readouterr().out
+
+
+class _PaddedCrops:
+    """What staging padded host slots leaves for routing."""
+
+    def __init__(self, slots):
+        self.slots = slots
+
+    def crop(self, i, patch):
+        return self.slots[i, :patch.h, :patch.w]
+
+    def release(self):
+        pass
+
+
+def _stage_padded(ex):
+    """``ex`` staging as before the compact path: every crop into a padded
+    host slot array, shipped whole with the records."""
+    def stage(inv, plan, rt):
+        host = ops.pack_plan_host(ex._crops(inv), plan)
+        return (torch.from_numpy(host).to(ex.device),
+                torch.from_numpy(plan.records).to(ex.device),
+                _PaddedCrops(host))
+    ex._stage = stage
+    return ex
+
+
+def _staged_invocations(canvas, n_canvases, n_invs, seed):
+    """Frames of 3840x2160 and invocations of patches of about a fifth of a
+    canvas (0.2 Mpx at 1024^2) that fill ``n_canvases`` canvases each,
+    every invocation from a frame of its own."""
+    rng = np.random.default_rng(seed)
+    frames, invs, fid = {}, [], 0
+    for _ in range(n_invs):
+        frames[fid] = rng.random((2160, 3840, 3), dtype=np.float32)
+        patches = []
+        while True:
+            w = int(rng.integers(canvas // 3, canvas * 5 // 8))
+            h = int(rng.integers(canvas // 4, canvas // 2))
+            x, y = (int(rng.integers(0, 3840 - w)),
+                    int(rng.integers(0, 2160 - h)))
+            p = Patch(x, y, x + w, y + h, frame_id=fid)
+            if len(stitch([*patches, p], canvas, canvas)) > n_canvases:
+                break
+            patches.append(p)
+        invs.append(Invocation(0.0, stitch(patches, canvas, canvas), patches,
+                               0.0, "timer"))
+        fid += 1
+    return frames, invs
+
+
+def _staging_executors(cuda, canvas):
+    cfg, params, serve_fn = build_detector(canvas, device=cuda)
+    return [make_executor("async_device", serve_fn=serve_fn, params=params,
+                          canvas_m=canvas, canvas_n=canvas, device=cuda,
+                          max_inflight=4, clock=lambda: 0.0,
+                          **fused_kwargs(cfg, params)) for _ in range(2)]
+
+
+def _assert_same_outputs(got, want):
+    (grids, comp), (want_grids, want_comp) = got, want
+    assert torch.equal(grids.view(torch.int32), want_grids.view(torch.int32))
+    assert comp.outputs[0] == want_comp.outputs[0]
+    pixels, want_pixels = comp.outputs[1], want_comp.outputs[1]
+    assert pixels.keys() == want_pixels.keys()
+    for fid in want_pixels:
+        for a, b in zip(pixels[fid], want_pixels[fid], strict=True):
+            np.testing.assert_array_equal(a.view(np.int32),
+                                          b.view(np.int32))
+
+
+def test_staging_buffers_pinned_and_reused_back_to_back(cuda):
+    """Two invocations staged back to back, both unresolved, each from its
+    own pinned buffer; then a third from a buffer handed back.  K3's grids
+    and the evidence equal, bit for bit, those staged with padded host
+    slots (the buffers are not reused while a copy may read them)."""
+    ex, ref = _staging_executors(cuda, 256)
+    _stage_padded(ref)
+    frames, invs = _staged_invocations(256, 3, 3, seed=4)
+    outs = []
+    for e in (ex, ref):
+        for fid, px in frames.items():
+            e.add_frame(fid, px, 10 ** 6)
+        handles = [e.submit(inv) for inv in invs[:2]]
+        grids = [h.payload["fused"] for h in handles]
+        staged = [h.payload["staged"] for h in handles]
+        runs = [(g, e.resolve(h)) for g, h in zip(grids, handles)]
+        third = e.submit(invs[2])
+        third_staged = third.payload["staged"]
+        runs.append((third.payload["fused"], e.resolve(third)))
+        outs.append(runs)
+        if e is ex:
+            assert all(s.buf.host.is_pinned() for s in staged)
+            assert staged[0].buf is not staged[1].buf
+            assert third_staged.buf in (staged[0].buf, staged[1].buf)
+            assert ex.pinned_allocs == 2 and ex.staging.n_buffers == 2
+    for got, want in zip(*outs):
+        _assert_same_outputs(got, want)
+
+
+def test_queue_returns_before_the_staging_copy_completes(cuda):
+    """A 4K invocation of 8 canvases of 1024^2 queued behind a second of
+    device sleep: staging returns with its copy still pending (nothing in
+    it waits for the card), ships under the padded slots' bytes, and
+    routes what padded host slots route, bit for bit."""
+    ex, ref = _staging_executors(cuda, 1024)
+    _stage_padded(ref)
+    frames, (inv,) = _staged_invocations(1024, 8, 1, seed=9)
+    outs = []
+    for e in (ex, ref):
+        for fid, px in frames.items():
+            e.add_frame(fid, px, 10 ** 6)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2 * 10 ** 9)
+        handle = e.submit(inv)
+        if e is ex:
+            assert not handle.payload["staged"].buf.event.query()
+            assert not handle.payload["done"].query()
+        grids = handle.payload["fused"]
+        outs.append((grids, e.resolve(handle)))
+    plan = inv.batch_plan()
+    slot_bytes = 4 * 3 * plan.slot_capacity * plan.hmax * plan.wmax
+    assert len(inv.canvases) == 8
+    assert ex.h2d_bytes < slot_bytes
+    print(f"shipped {ex.h2d_bytes} of {slot_bytes} padded slot bytes")
+    _assert_same_outputs(*outs)

@@ -13,7 +13,11 @@ records and bytes, the window's records by name, its invocations and
 canvases, host ms a canvas in each staging and routing span, the
 engine's lateness by kind and the fire reasons, and with ``--trace 1``
 the window's device idle seconds under each innermost span and the
-``breakdown``'s idle gaps named by span.
+``breakdown``'s idle gaps named by span.  Where the executor stages
+through a pool (``DeviceExecutor._stage``), the line adds ``staging``:
+the staging buffers allocated or grown (``pinned_allocs``) when the
+window opened and when its last invocation was staged, and the window's
+bytes shipped (``h2d_bytes``) against the padded slots' bytes.
 
 Runs at ``--spans 0`` and ``--spans 1`` with ``--trace 0``, the same seeds,
 in turns on one card, give what the log costs the end-to-end metrics.
@@ -66,6 +70,57 @@ def report(data) -> dict:
     return out
 
 
+def watch_staging(harness, stages: list) -> None:
+    """Wrap ``harness.build_program`` so that each staging of the worker
+    appends (in the window, ``pinned_allocs``, bytes shipped, padded slot
+    bytes) to ``stages``."""
+    build_program = harness.build_program
+
+    def build(cfg, weights, device, recorder):
+        program = build_program(cfg, weights, device, recorder)
+        worker = program.worker
+        stage = getattr(worker, "_stage", None)
+        if stage is None:
+            return program
+
+        def staged(inv, plan, rt):
+            before = worker.h2d_bytes
+            out = stage(inv, plan, rt)
+            slot_bytes = (4 * out[0].shape[-1] * plan.slot_capacity
+                          * plan.hmax * plan.wmax)
+            stages.append((recorder.recording, worker.pinned_allocs,
+                           worker.h2d_bytes - before, slot_bytes))
+            return out
+
+        worker._stage = staged
+        return program
+
+    harness.build_program = build
+
+
+def staging_report(stages: list) -> dict:
+    """``pinned_allocs`` after warm-up, at the first staging from the
+    window's opening on and at the last, and the index among those
+    stagings of the last that changed it; bytes shipped against the padded
+    slots' bytes over those stagings (the drain included)."""
+    warm = [s for s in stages if not s[0]]
+    served = [s for s in stages if s[0]]
+    out = {"stagings": len(stages),
+           "pinned_allocs_after_warm_up": warm[-1][1] if warm else 0}
+    if served:
+        shipped = sum(s[2] for s in served)
+        slots = sum(s[3] for s in served)
+        grew = [i for i in range(1, len(served))
+                if served[i][1] != served[i - 1][1]]
+        out.update(served_stagings=len(served),
+                   pinned_allocs_first=served[0][1],
+                   pinned_allocs_last=served[-1][1],
+                   last_growth_at=grew[-1] if grew else 0,
+                   h2d_bytes=shipped, slot_bytes=slots,
+                   shipped_share=shipped / slots)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--spans", type=int, choices=(0, 1), required=True)
@@ -82,10 +137,14 @@ def main() -> int:
         return out
 
     harness.run_checked = keep
+    stages = []
+    watch_staging(harness, stages)
     rc = harness.main(rest, t0=T0)
     line = {"spans": args.spans}
     if "tangram_bench.program_spans" in sys.modules and "data" in kept:
         line.update(report(kept["data"]))
+    if stages:
+        line["staging"] = staging_report(stages)
     print(json.dumps(line))
     return rc
 
