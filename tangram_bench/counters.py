@@ -8,21 +8,16 @@ from __future__ import annotations
 
 import numpy as np
 
+from tangram_bench import families
+
 BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
 def detector_flops_per_canvas(cfg: dict) -> float:
-    """Multiply-adds x 2 of one canvas through the detector: the patch
-    embed over every token, per layer the Q/K/V/O projections, the two
-    attention products (S x S) and the MLP, and the 5-channel head.
-    Norms, softmax and activations are not counted."""
-    d, dff, p = cfg["d_model"], cfg["d_ff"], cfg["patch"]
-    s = (cfg["canvas"] // p) ** 2
-    embed = 2 * s * (p * p * 3) * d
-    per_layer = 2 * s * d * d * 4 + 2 * 2 * s * s * d + 2 * 2 * s * d * dff
-    head = 2 * s * d * 5
-    return float(embed + cfg["n_layers"] * per_layer + head)
+    """Multiply-adds x 2 of one canvas through the detector, as the
+    configuration's family counts them (``flops_per_canvas``)."""
+    return families.load(cfg).flops_per_canvas(cfg)
 
 
 def touched_tokens(records: np.ndarray, canvas: int, patch: int) -> int:

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tangram_bench import reference
+from tangram_bench import families, reference
 from tangram_bench.traffic import generator
 from tangram_bench.weights import make_weights, set_objectness
 
@@ -258,12 +258,11 @@ class DrainClock:
 
 def detector_config(cfg: dict):
     """The registry model's ``DetectorConfig``, checked against the
-    configuration file's widths (a file without ``model`` builds its own,
-    for the tests)."""
+    configuration file's values of its family's ``KEYS`` (a file without
+    ``model`` builds its own, for the tests)."""
     from repro_torch.config import DetectorConfig
     from repro_torch.core.models import make_model
-    keys = ("canvas", "patch", "n_layers", "d_model", "n_heads", "d_ff",
-            "param_dtype", "compute_dtype")
+    keys = families.load(cfg).KEYS
     if "model" in cfg:
         arch = make_model(cfg["model"]).arch
         differ = [k for k in keys if getattr(arch, k) != cfg[k]]
@@ -536,8 +535,8 @@ def control_outputs(canvases, records, weights, cfg, n_slots, origins):
     side = cfg["canvas"] // cfg["patch"]
     tokens = reference.embed(canvases, weights, cfg["patch"],
                              reference.mm_fp8)
-    raw = reference.detector_raw(tokens, weights, side, cfg["norm_eps"],
-                                 reference.mm_fp8)
+    raw = families.load(cfg).detector_raw(tokens, weights, side,
+                                          cfg["norm_eps"], reference.mm_fp8)
     grids = reference.decode_gather(raw, records, cfg["patch"], n_slots)
     routed = reference.route(records, origins, grids.cpu().numpy())
     return tokens, raw, grids, routed
@@ -555,6 +554,7 @@ def check(recorder: Recorder, source, book, cfg: dict, weights: dict,
     m = n = cfg["canvas"]
     patch = cfg["patch"]
     side = m // patch
+    detector_raw = families.load(cfg).detector_raw
     out = {"plan_mismatch": 0, "k4_token_err": 0.0, "head_err": 0.0,
            "k3_grid_err": 0.0, "route_mismatch": 0}
     samples = recorder.checked_samples()
@@ -583,9 +583,8 @@ def check(recorder: Recorder, source, book, cfg: dict, weights: dict,
             else:
                 got = (s.tokens, s.raw, s.fused, s.rec.detections or {})
             tokens = reference.embed(canvases, weights, patch)
-            raw = reference.detector_raw(tokens, weights, side,
-                                         cfg["norm_eps"])
-            yard = gaps(reference.detector_raw(
+            raw = detector_raw(tokens, weights, side, cfg["norm_eps"])
+            yard = gaps(detector_raw(
                 reference.embed(canvases, weights, patch, reference.mm_bf16),
                 weights, side, cfg["norm_eps"], reference.mm_bf16), raw)
             del canvases
@@ -662,6 +661,7 @@ def calibrate_objectness(weights: dict, clips, cfg: dict,
     from the float32 reference (``weights.set_objectness``)."""
     m, patch = cfg["canvas"], cfg["patch"]
     side = m // patch
+    detector_raw = families.load(cfg).detector_raw
     cells = []
     with reference.full_float32():
         for clip in clips:
@@ -674,8 +674,7 @@ def calibrate_objectness(weights: dict, clips, cfg: dict,
                      for x0, y0, x1, y1 in rects]
             canvas = reference.stitch(crops, records, m, m, device)
             tokens = reference.embed(canvas, weights, patch)
-            raw = reference.detector_raw(tokens, weights, side,
-                                         cfg["norm_eps"])
+            raw = detector_raw(tokens, weights, side, cfg["norm_eps"])
             cells.append(raw[routable(records, side, patch).to(device)])
     return set_objectness(weights, torch.cat(cells), cfg["obj_share"])
 

@@ -11,9 +11,9 @@ works the invocation out again:
   bucketed to powers of two;
 * ``stitch`` + ``embed``: the crops placed on zero canvases, cut into
   patches and projected, in float32;
-* ``detector_raw``: the ViT trunk (pre-norm blocks, plain softmax
-  attention, tanh GELU MLP, final layernorm) and the 5-channel head, in
-  float32 with TF32 off, one canvas at a time;
+* the trunk and its 5-channel head are the configuration's family's
+  (``families/<family>.py``'s ``detector_raw``), built from this
+  module's ``layernorm`` and products, in float32 with TF32 off;
 * ``decode_gather``: objectness and box decode, each cell kept in the
   placement that contains its centre, boxes clipped placement-local;
 * ``route``: detections at objectness >= 0.5, moved to frame
@@ -22,7 +22,6 @@ works the invocation out again:
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -173,37 +172,11 @@ def embed(canvases: torch.Tensor, weights: dict, patch: int, matmul=mm
             + f32(pe["bias"]))
 
 
-# ------------------------------------------------------------- detector ----
+# ------------------------------------------------- shared by the trunks ----
 
 def layernorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return F.layer_norm(x, (x.shape[-1],), f32(p["scale"]), f32(p["bias"]),
                         eps)
-
-
-def block(lp: dict, x: torch.Tensor, eps: float, matmul=mm
-          ) -> torch.Tensor:
-    """One pre-norm encoder block on one canvas, x (S, d)."""
-    a = lp["attn"]
-    d = x.shape[-1]
-    h = layernorm(lp["ln1"], x, eps)
-
-    def heads(w):                                   # (d, H, Dh) -> (H, S, Dh)
-        hh, dh = w.shape[1], w.shape[2]
-        return matmul(h, f32(w).reshape(d, hh * dh)).reshape(
-            -1, hh, dh).transpose(0, 1)
-
-    q, k, v = heads(a["wq"]), heads(a["wk"]), heads(a["wv"])
-    scores = matmul(q, k.transpose(1, 2)) / math.sqrt(q.shape[-1])
-    ctx = matmul(torch.softmax(scores, dim=-1), v)          # (H, S, Dh)
-    wo = f32(a["wo"])
-    x = x + matmul(ctx.transpose(0, 1).reshape(-1, wo.shape[0] * wo.shape[1]),
-                   wo.reshape(-1, d))
-    h = layernorm(lp["ln2"], x, eps)
-    mlp = lp["mlp"]
-    u = F.gelu(matmul(h, f32(mlp["fc1"]["kernel"]))
-               + f32(mlp["fc1"]["bias"]), approximate="tanh")
-    return (x + matmul(u, f32(mlp["fc2"]["kernel"]))
-            + f32(mlp["fc2"]["bias"]))
 
 
 @contextlib.contextmanager
@@ -218,23 +191,6 @@ def full_float32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old
-
-
-@torch.no_grad()
-def detector_raw(tokens: torch.Tensor, weights: dict, side: int,
-                 eps: float = NORM_EPS, matmul=mm) -> torch.Tensor:
-    """Embedded tokens (B, S, d) -> raw head (B, side, side, 5)."""
-    tp = weights["trunk"]
-    head = weights["det_head"]
-    out = []
-    with full_float32():
-        for x in tokens:
-            x = f32(x) + f32(tp["pos_embed"][0])
-            for lp in tp["layers"]:
-                x = block(lp, x, eps, matmul)
-            x = layernorm(tp["ln_f"], x, eps)
-            out.append(matmul(x, f32(head["kernel"])) + f32(head["bias"]))
-    return torch.stack(out).reshape(tokens.shape[0], side, side, 5)
 
 
 # ------------------------------------------------------- decode, route ----

@@ -1,14 +1,18 @@
 """The harness with the timed path broken underneath: each fault the
 cells can have must come out as not correct.  The look for a chip is
 skipped; the rest of a run is driven as the command drives it."""
+import sys
+import types
+
 import pytest
 import torch
-from conftest import tiny_config, tiny_traffic
+from tb_fixtures import tiny_config, tiny_traffic
 
 from repro_torch.core import stitching
 from repro_torch.kernels.stitch import ops as stitch_ops
 from repro_torch.models import detector as detector_lib
 from tangram_bench import harness, reference
+from tangram_bench.families import vit
 
 
 def correct(checks, cfg) -> bool:
@@ -124,6 +128,36 @@ def test_the_packer_placing_off_its_rule(cpu, monkeypatch):
     cfg, checks = run(cpu)
     assert not correct(checks, cfg)
     assert checks["plan_mismatch"] > 0
+
+
+def test_a_family_that_departs_from_the_program_is_not_correct(cpu,
+                                                               monkeypatch):
+    """A family whose reference takes the softmax over the first half of
+    the keys only, the program unchanged: the family's ``detector_raw``
+    is what the program's head is held to, so the run is not correct."""
+    def detector_raw(tokens, weights, side, eps=reference.NORM_EPS,
+                     matmul=reference.mm):
+        def half_keys(a, b):
+            # the attention weights (H, S, S) times V (H, S, Dh), in every
+            # precision: the yardstick and the control depart alike
+            s = a.shape[-1]
+            if a.dim() == 3 and a.shape[-2] == s == b.shape[-2]:
+                p = a[..., :s // 2]
+                a = torch.cat([p / p.sum(-1, keepdim=True),
+                               torch.zeros_like(a[..., s // 2:])], -1)
+            return matmul(a, b)
+        return vit.detector_raw(tokens, weights, side, eps, half_keys)
+
+    family = types.ModuleType("tangram_bench.families.half_keys")
+    family.KEYS, family.leaf_specs = vit.KEYS, vit.leaf_specs
+    family.flops_per_canvas = vit.flops_per_canvas
+    family.detector_raw = detector_raw
+    monkeypatch.setitem(sys.modules, family.__name__, family)
+    cfg = tiny_config(family="half_keys")
+    checks, *_ = harness.run_checked(cfg, tiny_traffic(), 4242, cpu, 1.0)
+    assert not correct(checks, cfg)
+    assert checks["head_err"] > cfg["limits"]["head_err"]
+    assert checks["k4_token_err"] <= cfg["limits"]["k4_token_err"]
 
 
 def test_the_control_is_not_correct(cpu):

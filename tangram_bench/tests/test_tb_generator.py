@@ -6,7 +6,7 @@ import hashlib
 import numpy as np
 import pytest
 import torch
-from conftest import tiny_traffic
+from tb_fixtures import tiny_traffic
 
 from tangram_bench.traffic import generator
 

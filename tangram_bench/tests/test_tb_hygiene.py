@@ -61,7 +61,7 @@ import sys
 sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r},
                 {str(BENCH / 'tests')!r}]
 import torch
-from conftest import tiny_config, tiny_traffic
+from tb_fixtures import tiny_config, tiny_traffic
 from tangram_bench import harness
 checks, *_ = harness.run_checked(tiny_config(), tiny_traffic(), 3,
                                  torch.device("cpu"), 0.5)

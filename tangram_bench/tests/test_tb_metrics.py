@@ -4,7 +4,7 @@ import math
 
 import numpy as np
 import pytest
-from conftest import tiny_config, tiny_traffic
+from tb_fixtures import tiny_config, tiny_traffic
 
 from tangram_bench import counters, harness, stats
 from tangram_bench.trace import TraceData, idle_gaps, union_length

@@ -3,7 +3,7 @@
 ``route.wait``; lateness is a nearest-rank p95; the spans' host stamps
 are put in engine seconds by the window's ``submit`` spans."""
 import pytest
-from conftest import tiny_config, tiny_traffic
+from tb_fixtures import tiny_config, tiny_traffic
 
 from tangram_bench import harness, program_spans
 from tangram_bench.trace import TraceData

@@ -5,7 +5,7 @@ routing; then a whole run through the engine."""
 import numpy as np
 import pytest
 import torch
-from conftest import tiny_config, tiny_traffic
+from tb_fixtures import tiny_config, tiny_traffic
 
 from repro_torch.config import DetectorConfig
 from repro_torch.core.partitioning import Patch
@@ -14,7 +14,7 @@ from repro_torch.kernels.stitch import ops as stitch_ops
 from repro_torch.kernels.stitch.ref import (stitch_embed_reference,
                                             unstitch_decode_reference)
 from repro_torch.models import detector as detector_lib
-from tangram_bench import harness, reference
+from tangram_bench import families, harness, reference
 from tangram_bench.weights import make_weights, n_params
 
 KEYS = ("canvas", "patch", "n_layers", "d_model", "n_heads", "d_ff")
@@ -52,8 +52,7 @@ def test_weight_tree_has_the_detectors_layout(name):
            harness.load_json(harness.BENCH_DIR / "configs" / f"{name}.json"))
     specs = dict(flat_paths(detector_lib.param_specs(arch(cfg))))
     if name != "tiny":
-        from tangram_bench.weights import leaf_specs
-        ours = {p: s for p, s, _, _ in leaf_specs(cfg)}
+        ours = {p: s for p, s, _, _ in families.load(cfg).leaf_specs(cfg)}
         assert {p: tuple(s.shape) for p, s in specs.items()} == ours
         return
     tree = make_weights(cfg, 3, torch.device("cpu"))
@@ -95,7 +94,7 @@ def test_stitch_embed_and_trunk_equal_the_ports_in_float32():
     canvases = reference.stitch(crops, ref["records"], 128, 128, cpu)
     with reference.full_float32():
         tokens = reference.embed(canvases, weights, 16)
-        raw = reference.detector_raw(tokens, weights, 8)
+        raw = families.load(cfg).detector_raw(tokens, weights, 8)
     slots = torch.from_numpy(stitch_ops.pack_plan_host(
         crops, build_batch_plan(patches, stitch(patches, 128, 128), 128,
                                 128)))

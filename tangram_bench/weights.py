@@ -7,54 +7,29 @@ sqrt(fan_in)``, the two projections that write into the residual stream,
 them, so that a random trunk stays as well conditioned on every seed;
 biases and position embeddings ``0.02``, norm scales ``1 + 0.02 N``),
 the buffer is rounded once to the served dtype, and the leaves
-are views into it, each starting on a 128-byte boundary.  The tree has
-the detector's published layout (nested dicts, the layers a list), which
-both the program and the reference read.  :func:`set_objectness` then
-shifts the head's objectness bias so that a share of the cells of a
-reference canvas routes a detection, as a sparse scene would (random
-weights put every cell of a canvas near one objectness otherwise).
+are views into it, each starting on a 128-byte boundary.  The leaves
+are those of the configuration's family (``families/<family>.py``'s
+``leaf_specs``), in the detector's published layout (nested dicts, the
+layers a list), which both the program and the reference read.
+:func:`set_objectness` then shifts the head's objectness bias so that a
+share of the cells of a reference canvas routes a detection, as a sparse
+scene would (random weights put every cell of a canvas near one
+objectness otherwise).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
 
 import torch
+
+from tangram_bench import families
 
 _ALIGN = 64     # elements (128 bytes in bf16)
 
 
-def leaf_specs(cfg: dict) -> List[Tuple[tuple, tuple, str, int]]:
-    """(path, shape, init, fan_in) of every leaf, in tree order."""
-    d, h, dff, p = cfg["d_model"], cfg["n_heads"], cfg["d_ff"], cfg["patch"]
-    dh = d // h
-    side = cfg["canvas"] // p
-    out = [(("trunk", "patch_embed", "kernel"), (p * p * 3, d), "w", p * p * 3),
-           (("trunk", "patch_embed", "bias"), (d,), "b", 0),
-           (("trunk", "pos_embed"), (1, side * side, d), "b", 0)]
-    for i in range(cfg["n_layers"]):
-        pre = ("trunk", "layers", i)
-        out += [(pre + ("ln1", "scale"), (d,), "scale", 0),
-                (pre + ("ln1", "bias"), (d,), "b", 0),
-                (pre + ("attn", "wq"), (d, h, dh), "w", d),
-                (pre + ("attn", "wk"), (d, h, dh), "w", d),
-                (pre + ("attn", "wv"), (d, h, dh), "w", d),
-                (pre + ("attn", "wo"), (h, dh, d), "out", d),
-                (pre + ("ln2", "scale"), (d,), "scale", 0),
-                (pre + ("ln2", "bias"), (d,), "b", 0),
-                (pre + ("mlp", "fc1", "kernel"), (d, dff), "w", d),
-                (pre + ("mlp", "fc1", "bias"), (dff,), "b", 0),
-                (pre + ("mlp", "fc2", "kernel"), (dff, d), "out", dff),
-                (pre + ("mlp", "fc2", "bias"), (d,), "b", 0)]
-    out += [(("trunk", "ln_f", "scale"), (d,), "scale", 0),
-            (("trunk", "ln_f", "bias"), (d,), "b", 0),
-            (("det_head", "kernel"), (d, 5), "w", d),
-            (("det_head", "bias"), (5,), "b", 0)]
-    return out
-
-
 def n_params(cfg: dict) -> int:
-    return sum(math.prod(shape) for _, shape, _, _ in leaf_specs(cfg))
+    return sum(math.prod(shape)
+               for _, shape, _, _ in families.load(cfg).leaf_specs(cfg))
 
 
 def _put(tree: dict, path: tuple, value) -> None:
@@ -74,7 +49,7 @@ def _put(tree: dict, path: tuple, value) -> None:
 def make_weights(cfg: dict, seed: int, device: torch.device,
                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """The tree of ``dtype`` views into one buffer, drawn from ``seed``."""
-    specs = leaf_specs(cfg)
+    specs = families.load(cfg).leaf_specs(cfg)
     offsets, total = [], 0
     for _, shape, _, _ in specs:
         offsets.append(total)
