@@ -225,7 +225,17 @@ class DiTConfig:
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """ViT-backbone anchor-free detector for the Tangram pipeline;
-    ``remat`` as for :class:`ViTConfig` (off, as in the JAX config)."""
+    ``remat`` as for :class:`ViTConfig` (off, as in the JAX config).
+
+    The defaults are the plain ViT trunk of the JAX package.  The ViTDet
+    trunk (Li et al., arXiv:2203.16527) sets ``window`` (the side, in
+    tokens, of the windows a block attends within; 0: every block
+    attends over the whole grid), ``global_every`` (with a window, every
+    ``global_every``-th block, the last of each group, attends globally
+    instead; 0: none), ``rel_pos`` (decomposed relative-position terms
+    in every block's logits), ``attn_bias`` (q/k/v and output-projection
+    biases) and ``gelu`` (``"tanh"``, the JAX package's approximation,
+    or ``"erf"``, the exact form)."""
 
     name: str
     canvas: int = 1024
@@ -240,6 +250,16 @@ class DetectorConfig:
     # int8-resident trunk weights (per-output-channel scales); the patch
     # embed, head and norms stay full precision
     quant_weights: bool = False
+    window: int = 0
+    global_every: int = 0
+    rel_pos: bool = False
+    attn_bias: bool = False
+    gelu: str = "tanh"
+
+    def __post_init__(self):
+        if self.gelu not in ("tanh", "erf"):
+            raise ValueError(f"gelu must be 'tanh' or 'erf', got "
+                             f"{self.gelu!r}")
 
     @property
     def n_tokens(self) -> int:
@@ -247,7 +267,28 @@ class DetectorConfig:
         return side * side
 
     @property
+    def plain(self) -> bool:
+        """True for the JAX package's plain ViT trunk."""
+        return not (self.window or self.rel_pos or self.attn_bias
+                    or self.gelu != "tanh")
+
+    def block_window(self, i: int) -> int:
+        """Block ``i``'s window side in tokens; 0 when it attends over the
+        whole grid."""
+        if not self.window or (self.global_every
+                               and (i + 1) % self.global_every == 0):
+            return 0
+        return self.window
+
+    @property
     def n_params(self) -> int:
+        """The JAX package's count for the plain trunk (it leaves out the
+        MLP, patch-embed and head biases and the final norm); a ViTDet
+        trunk's spec tree, counted exactly."""
+        if not self.plain:
+            from repro_torch.models import detector
+            from repro_torch.param import count_params
+            return count_params(detector.param_specs(self))
         d = self.d_model
         per_layer = 4 * d * d + 2 * d * self.d_ff + 4 * d
         return (self.n_layers * per_layer + 3 * self.patch**2 * d + d * 5

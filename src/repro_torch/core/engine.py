@@ -872,6 +872,9 @@ class DeviceExecutor:
 
             def crop(i, patch):
                 return evidence[i, :patch.h, :patch.w]
+        # the host copies waited for the card: the trunk's device-timed
+        # spans have ended
+        spans.settle(payload.get("inv"))
         per_frame_pixels: Dict[object, List[np.ndarray]] = {}
         with spans.span("route.evidence"):
             for i, patch in enumerate(inv.patches):

@@ -4,7 +4,8 @@ Port of ``repro/core/models.py`` with the JAX registry's entries: the
 paper's detector ``tangram`` (ViT-B/32 trunk on 1024^2 canvases, bf16),
 ``vit_s16`` (the ViT-S/16 trunk at patch 16), ``efficientnet_b7`` (a
 transformer trunk sized to B7's compute class, B7's weight economics),
-and the int8-resident variants ``tangram_int8`` and ``vit_s16_int8``.  A
+the int8-resident variants ``tangram_int8`` and ``vit_s16_int8``, and
+the port's own ``vitdet_l`` (ViTDet-L, ``configs/vitdet_l.py``).  A
 spec carries identity, canvas geometry, weight economics
 (``weight_bytes`` / ``load_s``), a latency profile (explicit, or the
 analytical model over the trunk dims on an H100), and :meth:`build`,
@@ -117,11 +118,18 @@ class ModelSpec:
         while canvas % patch:
             patch //= 2
         d_model = max(32, a.d_model // 12)
-        return DetectorConfig(
+        cfg = DetectorConfig(
             name=f"{self.name}-reduced", canvas=canvas, patch=patch,
             n_layers=max(1, a.n_layers // 6), d_model=d_model,
             n_heads=4, d_ff=2 * d_model,
             param_dtype="float32", compute_dtype="float32")
+        if a.plain:
+            return cfg
+        # a ViTDet trunk keeps its mechanism: windows of 3 (so that a grid
+        # of a power-of-two side is padded), every other block global
+        return dataclasses.replace(
+            cfg, window=min(a.window, 3), global_every=min(a.global_every, 2),
+            rel_pos=a.rel_pos, attn_bias=a.attn_bias, gelu=a.gelu)
 
     def build(self, canvas: Optional[int] = None, reduced: bool = True,
               device: DeviceLike = None):
@@ -176,7 +184,8 @@ def _ensure_seeded():
     if _seeded:
         return
     _seeded = True
-    from repro_torch.configs import efficientnet_b7, tangram_detector, vit_s16
+    from repro_torch.configs import (efficientnet_b7, tangram_detector,
+                                     vit_s16, vitdet_l)
     from repro_torch.models.efficientnet import count_params
 
     register_model(ModelSpec(
@@ -215,6 +224,14 @@ def _ensure_seeded():
                            * _DTYPE_BYTES.get(e.param_dtype, 4)),
         description="EfficientNet-B7-class detector (conv-net weight "
                     "economics, transformer substitute trunk)"))
+
+    # ViTDet-L (arXiv:2203.16527) at its 1024^2 input: windowed and
+    # global attention with decomposed relative positions; the JAX
+    # registry has no such trunk
+    register_model(ModelSpec(
+        name="vitdet_l", arch=vitdet_l.ARCH,
+        description="ViTDet-L (ViT-L/16 trunk, 14x14 windows, 4 global "
+                    "blocks, relative positions, 1024^2 canvas)"))
 
 
 def make_model(name: str) -> ModelSpec:

@@ -29,13 +29,25 @@ Records and what reads them (``tangram_bench/metrics/``):
 | ``fire`` (zero length) | ``ServingEngine._dispatch`` | the invocation's reason |
 | ``engine.late`` (due -> taken) | ``ServingEngine.offer`` / ``advance`` on a clock that is not virtual | ``"arrival"``, ``"timer"``, ``"completion"`` |
 | ``engine.sleep`` | ``WallClock.advance_to`` | - |
+| ``trunk`` (device-timed) | ``models/detector.forward_tokens`` | device ms, K4's tokens to the head |
+| ``trunk.attn.window`` / ``.global`` (device-timed) | ``models/vit._block`` | device ms in the window / global blocks' attention, summed over the blocks |
+
+Device-timed records (:func:`device_span`) time the device work queued
+inside them: CUDA events on the current stream on a card, host stamps on
+the CPU.  They belong to the invocation of the innermost open span
+(``stage`` on the executor's path) and wait in the log until it is routed:
+:func:`settle` then writes one zero-length record a name, stamped at the
+routing, whose value is the device ms summed over its intervals.  Routing
+has waited for the card by then, so reading the events adds no sync.
 """
 from __future__ import annotations
 
 import itertools
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
+
+import torch
 
 #: the installed log; None when off (:func:`install`, :func:`uninstall`)
 LOG: Optional["SpanLog"] = None
@@ -53,6 +65,8 @@ class SpanLog:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._invs = itertools.count()
+        #: inv -> [(name, start, end)] of device-timed spans not settled
+        self._device: Dict[object, list] = {}
 
     def _stack(self) -> list:
         """This thread's open spans, innermost last."""
@@ -78,6 +92,26 @@ class SpanLog:
             inv = outer.inv
         self._append((name, t1 if t0 is None else t0, t1,
                       None if outer is None else outer.index, inv, value))
+
+    def _timed(self, inv, name: str, start, end) -> None:
+        with self._lock:
+            self._device.setdefault(inv, []).append((name, start, end))
+
+    def settle(self, inv) -> None:
+        """Write invocation ``inv``'s device-timed records: one a name,
+        its intervals' device ms summed."""
+        with self._lock:
+            timed = self._device.pop(inv, ())
+        totals: Dict[str, float] = {}
+        for name, start, end in timed:
+            if isinstance(start, torch.cuda.Event):
+                end.synchronize()           # complete already: routed
+                ms = start.elapsed_time(end)
+            else:
+                ms = (end - start) * 1e3
+            totals[name] = totals.get(name, 0.0) + ms
+        for name, ms in totals.items():
+            self.event(name, inv=inv, value=ms)
 
 
 class _Span:
@@ -124,6 +158,28 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _DeviceSpan:
+    __slots__ = ("log", "name", "inv", "device", "start")
+
+    def __init__(self, log: SpanLog, name: str, inv, device: torch.device):
+        self.log, self.name, self.inv, self.device = log, name, inv, device
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return self.log.clock()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def __enter__(self) -> "_DeviceSpan":
+        self.start = self._mark()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.log._timed(self.inv, self.name, self.start, self._mark())
+        return False
+
+
 def install(log: SpanLog) -> None:
     global LOG
     LOG = log
@@ -141,6 +197,28 @@ def span(name: str, inv=None, value=None):
     if log is None:
         return _NULL
     return _Span(log, name, inv, value)
+
+
+def device_span(name: str, like: torch.Tensor):
+    """A context manager timing the device work queued inside it on
+    ``like``'s device, for the invocation of the innermost open span; the
+    shared null context with no log installed or outside an invocation
+    (nothing allocated, no event made)."""
+    log = LOG
+    if log is None:
+        return _NULL
+    stack = log._stack()
+    inv = stack[-1].inv if stack else None
+    if inv is None:
+        return _NULL
+    return _DeviceSpan(log, name, inv, like.device)
+
+
+def settle(inv) -> None:
+    """:meth:`SpanLog.settle` on the installed log, if any."""
+    log = LOG
+    if log is not None and inv is not None:
+        log.settle(inv)
 
 
 def event(name: str, t0: Optional[float] = None, t1: Optional[float] = None,

@@ -6,11 +6,12 @@ q, k, the output and the decode cache (``sharding.with_logical_constraint``:
 they read the ambient mesh and rules, and return their input outside a
 mesh).  Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wk`` /
 ``wv`` (d, Kv, Dh) or one fused ``wqkv`` (d, H + 2 Kv, Dh), and ``wo``
-(H, Dh, d), no biases.  An int8-resident weight is ``{q, scale}``: int8
-values and a float32 scale over the output axes ((H, Dh) for the
-projections in, (d,) for ``wo``), dequantized in the compute dtype.  An
-int8 KV cache holds int8 ``k`` / ``v`` and float32 ``k_scale`` /
-``v_scale`` per position and KV head.
+(H, Dh, d), no biases (ViTDet's encoder attention adds q/k/v/o
+biases and relative-position tables, :func:`encoder_attention`).  An
+int8-resident weight is ``{q, scale}``: int8 values and a float32 scale
+over the output axes ((H, Dh) for the projections in, (d,) for ``wo``),
+dequantized in the compute dtype.  An int8 KV cache holds int8 ``k`` /
+``v`` and float32 ``k_scale`` / ``v_scale`` per position and KV head.
 
 ``decode_attention`` always goes through
 :mod:`repro_torch.kernels.attention.ops`, and so does the causal
@@ -239,9 +240,43 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
                                    ("batch", "seq", "embed"))
 
 
+def rel_pos_table(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
+    """A decomposed relative-position table (2 size - 1, Dh) -> (size,
+    size, Dh) whose row ``[i, j]`` is the entry of offset ``i - j``
+    (ViTDet's ``get_rel_pos`` at equal query and key sizes; the tables
+    are held at the grid they serve, so none is interpolated)."""
+    if rel_pos.shape[0] != 2 * size - 1:
+        raise ValueError(f"a relative-position table of {rel_pos.shape[0]} "
+                         f"rows serves a grid of side "
+                         f"{(rel_pos.shape[0] + 1) // 2}, not {size}")
+    pos = torch.arange(size, device=rel_pos.device)
+    return rel_pos[pos[:, None] - pos[None, :] + size - 1]
+
+
+def _add_rel_pos(scores: torch.Tensor, q: torch.Tensor, params: dict,
+                 grid: Tuple[int, int],
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """ViTDet's ``add_decomposed_rel_pos``: the float32 logits (B, H, S,
+    S) of queries q (B, S, H, Dh) on a row-major (gh, gw) grid plus, in
+    place, ``q . Rh[i_h - j_h]`` and ``q . Rw[i_w - j_w]`` with the
+    unscaled q, each a product in the compute dtype."""
+    b, s, h, d = q.shape
+    gh, gw = grid
+    rh = rel_pos_table(params["rel_pos_h"], gh).to(compute_dtype)
+    rw = rel_pos_table(params["rel_pos_w"], gw).to(compute_dtype)
+    rq = q.reshape(b, gh, gw, h, d)
+    rel_h = torch.einsum("byxhd,ykd->bhyxk", rq, rh).to(torch.float32)
+    rel_w = torch.einsum("byxhd,xkd->bhyxk", rq, rw).to(torch.float32)
+    grid_scores = scores.view(b, h, gh, gw, gh, gw)
+    grid_scores.add_(rel_h[..., :, None]).add_(rel_w[..., None, :])
+    return scores
+
+
 def encoder_attention(params: dict, x: torch.Tensor, *,
                       compute_dtype: torch.dtype,
-                      impl: str = "xla") -> torch.Tensor:
+                      impl: str = "xla",
+                      grid: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """Bidirectional MHA (no RoPE) for the ViT and DiT encoders.  x: (B,
     S, d) -> (B, S, d); the head count is the weights' H (a fused
     ``wqkv`` holds 3 H).  ``impl="xla"`` (the default, and what the
@@ -249,12 +284,29 @@ def encoder_attention(params: dict, x: torch.Tensor, *,
     softmax, the context in the compute dtype;
     ``impl="flash"`` runs K6 non-causal (its plain version on the CPU);
     ``impl="torch"`` runs K6's plain version on any device, what a kernel
-    run is held against."""
+    run is held against.
+
+    ViTDet's attention: biases ``bq`` / ``bk`` / ``bv`` (H, Dh) and
+    ``bo`` (d,) in ``params`` are added to the projections; tables
+    ``rel_pos_h`` / ``rel_pos_w`` add decomposed relative-position terms
+    to the plain path's float32 logits (:func:`_add_rel_pos`), with
+    ``grid`` the (rows, columns) the tokens lie on, row-major.  K6 takes
+    no logit bias, so ``"flash"`` and ``"torch"`` refuse the tables."""
     w = params["wqkv"] if "wqkv" in params else params["wq"]
     n_heads = (w["q"] if isinstance(w, dict) else w).shape[1]
     if "wqkv" in params:
         n_heads //= 3
+    rel = "rel_pos_h" in params
+    if rel and impl in ("flash", "torch"):
+        raise ValueError(f"encoder attention impl {impl!r} (K6) takes no "
+                         f"relative-position logits; ViTDet's attention "
+                         f"runs on the plain path (impl='xla')")
+    if rel and grid is None:
+        raise ValueError("relative positions need the token grid (grid=)")
     q, k, v = _qkv(params, x, n_heads, compute_dtype)
+    if "bq" in params:
+        q, k, v = (t + params[name].to(compute_dtype)
+                   for t, name in ((q, "bq"), (k, "bk"), (v, "bv")))
     if impl in ("flash", "torch"):
         ctx = flash_ops.flash_attention(
             q, k, v, causal=False, impl=None if impl == "flash" else "torch")
@@ -267,12 +319,16 @@ def encoder_attention(params: dict, x: torch.Tensor, *,
         scale = 1.0 / math.sqrt(q.shape[-1])
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(
             torch.float32) * scale
+        if rel:
+            scores = _add_rel_pos(scores, q, params, grid, compute_dtype)
         probs = torch.softmax(scores, dim=-1)
         return torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
 
     ctx = _per_head_group(core, q, k, v)
-    return with_logical_constraint(_out(params, ctx, compute_dtype),
-                                   ("batch", "seq", "embed"))
+    out = _out(params, ctx, compute_dtype)
+    if "bo" in params:
+        out = out + params["bo"].to(compute_dtype)
+    return with_logical_constraint(out, ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------- decode ----

@@ -19,6 +19,15 @@ the trunk's attention and MLP kernels are int8, see :func:`param_specs`):
                "ln_f": {scale, bias}},
      "det_head": {kernel (d, 5), bias (5,)}}
 
+A ViTDet trunk (``DetectorConfig.window`` / ``global_every`` /
+``rel_pos`` / ``attn_bias`` / ``gelu``; ``configs/vitdet_l.py``) adds to
+each layer's ``attn`` the biases ``bq`` / ``bk`` / ``bv`` (H, Dh) and
+``bo`` (d,), and the tables ``rel_pos_h`` / ``rel_pos_w`` (2 w - 1, Dh),
+w the block's window or, in a global block, the grid's side; its blocks
+attend within windows, partitioned after the first norm, but every
+``global_every``-th (:func:`blocks`).  ``models/vitdet_reference.py`` is
+its plain float32 reference.
+
 :func:`init_params` draws them from a ``torch.Generator`` with the
 reference's init rules (:func:`param_specs`); :func:`convert_params` takes
 the JAX package's tree (as numpy arrays) instead.
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import DetectorConfig, ViTConfig, dtype_of
+from repro_torch.core import spans
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, vit
 from repro_torch.param import convert_like, map_tree, spec
@@ -62,12 +72,28 @@ def param_specs(cfg: DetectorConfig) -> dict:
     d, h = cfg.d_model, cfg.n_heads
     quant = cfg.quant_weights
     side = cfg.canvas // cfg.patch
-    layer = {
-        "ln1": layers.layernorm_specs(d, dtype),
-        "attn": attn.gqa_specs(d, h, h, d // h, dtype, quant=quant),
-        "ln2": layers.layernorm_specs(d, dtype),
-        "mlp": layers.gelu_mlp_specs(d, cfg.d_ff, dtype, quant=quant),
-    }
+
+    def layer(i: int) -> dict:
+        a = attn.gqa_specs(d, h, h, d // h, dtype, quant=quant)
+        if cfg.attn_bias:
+            a.update({name: spec((h, d // h), ("heads", "head_dim"),
+                                 dtype=dtype, init="zeros")
+                      for name in ("bq", "bk", "bv")})
+            a["bo"] = spec((d,), ("embed",), dtype=dtype, init="zeros")
+        if cfg.rel_pos:
+            # (2 w - 1, Dh) for a block over a w x w grid: its window, or
+            # the whole grid in a global block
+            rows = 2 * (cfg.block_window(i) or side) - 1
+            for name in ("rel_pos_h", "rel_pos_w"):
+                a[name] = spec((rows, d // h), (None, "head_dim"),
+                               dtype=dtype, fan_in_axes=(1,))
+        return {"ln1": layers.layernorm_specs(d, dtype), "attn": a,
+                "ln2": layers.layernorm_specs(d, dtype),
+                "mlp": layers.gelu_mlp_specs(d, cfg.d_ff, dtype,
+                                             quant=quant)}
+
+    per_layer = ([layer(0)] * cfg.n_layers if cfg.plain
+                 else [layer(i) for i in range(cfg.n_layers)])
     return {
         "trunk": {
             "patch_embed": layers.dense_specs(3 * cfg.patch * cfg.patch, d,
@@ -76,7 +102,7 @@ def param_specs(cfg: DetectorConfig) -> dict:
                                               bias=True),
             "pos_embed": spec((1, side * side, d), (None, "seq", "embed"),
                               dtype=dtype, init="pos"),
-            "layers": [layer] * cfg.n_layers,
+            "layers": per_layer,
             "ln_f": layers.layernorm_specs(d, dtype),
         },
         "det_head": layers.dense_specs(d, 5, in_axis="embed", out_axis=None,
@@ -141,16 +167,27 @@ def embed_params(cfg: DetectorConfig, params: dict
 
 # ---------------------------------------------------------------- forward ----
 
+def blocks(cfg: DetectorConfig) -> Optional[vit.Blocks]:
+    """A ViTDet trunk's block pattern (grid side, each block's window,
+    GELU form); None for the plain trunk."""
+    if cfg.plain:
+        return None
+    return vit.Blocks(cfg.canvas // cfg.patch,
+                      tuple(cfg.block_window(i) for i in range(cfg.n_layers)),
+                      cfg.gelu)
+
+
 def forward_tokens(cfg: DetectorConfig, params: dict, tokens: torch.Tensor
                    ) -> torch.Tensor:
     """Embedded tokens (B, seq, d_model) -> (B, side, side, 5) raw head."""
     cdt = dtype_of(cfg.compute_dtype)
     tp = params["trunk"]
-    x = tokens.to(cdt) + tp["pos_embed"].to(cdt)
-    x = with_logical_constraint(x, ("canvas", "seq", "embed"))
-    x = vit.encoder(trunk_cfg(cfg), tp, x)
-    out = layers.dense(params["det_head"], x, cdt)
     side = cfg.canvas // cfg.patch
+    with spans.device_span("trunk", tokens):
+        x = tokens.to(cdt) + tp["pos_embed"].to(cdt)
+        x = with_logical_constraint(x, ("canvas", "seq", "embed"))
+        x = vit.encoder(trunk_cfg(cfg), tp, x, blocks=blocks(cfg))
+        out = layers.dense(params["det_head"], x, cdt)
     return out.reshape(tokens.shape[0], side, side, 5)
 
 

@@ -235,10 +235,13 @@ def swiglu(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
     return dense(params["down"], g * u, compute_dtype)
 
 
-def gelu_mlp(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
-             ) -> torch.Tensor:
-    # jax.nn.gelu(approximate=True) is the tanh approximation
-    h = F.gelu(dense(params["fc1"], x, compute_dtype), approximate="tanh")
+def gelu_mlp(params: dict, x: torch.Tensor, compute_dtype: torch.dtype,
+             gelu: str = "tanh") -> torch.Tensor:
+    """fc1, GELU, fc2.  ``gelu="tanh"`` is ``jax.nn.gelu(approximate=
+    True)``, the JAX package's; ``"erf"`` is the exact form (``nn.GELU``'s
+    default, which ViTDet uses)."""
+    h = F.gelu(dense(params["fc1"], x, compute_dtype),
+               approximate="tanh" if gelu == "tanh" else "none")
     return dense(params["fc2"], h, compute_dtype)
 
 

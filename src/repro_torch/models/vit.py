@@ -25,6 +25,7 @@ layer is recomputed in the backward pass, its weight products kept
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ViTConfig, dtype_of
+from repro_torch.core import spans
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, remat
@@ -133,23 +135,80 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, h * w, patch * patch * c)
 
 
-def _block(cfg: ViTConfig, lp: dict, x: torch.Tensor,
-           impl: str) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """What a ViTDet trunk's blocks take beyond the :class:`ViTConfig`:
+    the side of the token grid (the sequence is the grid row-major, with
+    no class token), each block's window side (0: attention over the
+    whole grid) and the GELU form (``layers.gelu_mlp``)."""
+    side: int
+    windows: Tuple[int, ...]
+    gelu: str = "tanh"
+
+
+def window_partition(x: torch.Tensor, side: int, window: int
+                     ) -> torch.Tensor:
+    """Tokens (B, side * side, d) on a row-major grid -> windows (B * n *
+    n, window * window, d), the grid zero-padded at its bottom and right
+    to n = ceil(side / window) windows a side (ViTDet's
+    ``window_partition``; the padding is not masked)."""
+    b, _, d = x.shape
+    pad = -side % window
+    grid = x.reshape(b, side, side, d)
+    if pad:
+        grid = F.pad(grid, (0, 0, 0, pad, 0, pad))
+    n = (side + pad) // window
+    grid = grid.reshape(b, n, window, n, window, d).permute(0, 1, 3, 2, 4, 5)
+    return grid.reshape(b * n * n, window * window, d)
+
+
+def window_unpartition(windows: torch.Tensor, side: int, window: int
+                       ) -> torch.Tensor:
+    """:func:`window_partition`'s inverse: the windows laid back on the
+    padded grid, the padding cropped off -> (B, side * side, d)."""
+    n = -(-side // window)
+    d = windows.shape[-1]
+    b = windows.shape[0] // (n * n)
+    grid = windows.reshape(b, n, n, window, window, d).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, n * window, n * window, d)
+    return grid[:, :side, :side].reshape(b, side * side, d)
+
+
+def _block(cfg: ViTConfig, lp: dict, x: torch.Tensor, impl: str,
+           side: int = 0, window: int = 0, gelu: str = "tanh"
+           ) -> torch.Tensor:
+    """One pre-norm block.  ``side`` (a ViTDet trunk's grid) gives the
+    attention its grid for the relative positions; ``window`` attends
+    within windows of that side, partitioned after the first norm."""
     cdt = dtype_of(cfg.compute_dtype)
     h = layers.layernorm(lp["ln1"], x, cfg.norm_eps, cdt)
-    x = x + attn.encoder_attention(lp["attn"], h, compute_dtype=cdt,
-                                   impl=impl)
+    with spans.device_span(
+            "trunk.attn.window" if window else "trunk.attn.global", x):
+        if window:
+            h = window_unpartition(attn.encoder_attention(
+                lp["attn"], window_partition(h, side, window),
+                compute_dtype=cdt, impl=impl, grid=(window, window)),
+                side, window)
+        else:
+            h = attn.encoder_attention(lp["attn"], h, compute_dtype=cdt,
+                                       impl=impl,
+                                       grid=(side, side) if side else None)
+    x = x + h
     h = layers.layernorm(lp["ln2"], x, cfg.norm_eps, cdt)
-    return x + layers.gelu_mlp(lp["mlp"], h, cdt)
+    return x + layers.gelu_mlp(lp["mlp"], h, cdt, gelu)
 
 
 def encoder(cfg: ViTConfig, params: dict, x: torch.Tensor,
-            impl: str = "xla") -> torch.Tensor:
+            impl: str = "xla", blocks: Optional[Blocks] = None
+            ) -> torch.Tensor:
     """Pre-norm transformer blocks over ``params["layers"]``, then the
     final layernorm; ``impl`` as ``attention.encoder_attention`` takes
-    it."""
-    for lp in params["layers"]:
-        x = remat.run(_block, cfg, lp, x, impl, remat=cfg.remat)
+    it; ``blocks``, a ViTDet trunk's grid, windows and GELU (None: every
+    block global, tanh GELU)."""
+    for i, lp in enumerate(params["layers"]):
+        extra = (() if blocks is None else
+                 (blocks.side, blocks.windows[i], blocks.gelu))
+        x = remat.run(_block, cfg, lp, x, impl, *extra, remat=cfg.remat)
     return layers.layernorm(params["ln_f"], x, cfg.norm_eps,
                             dtype_of(cfg.compute_dtype))
 

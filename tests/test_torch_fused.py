@@ -161,7 +161,8 @@ def _detector(dtype="float32", noise=0.3):
         (x + jnp.asarray(rng.normal(size=x.shape) * noise, x.dtype)).astype(
             dtype) for x in leaves])
     tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name)
-                             for f in dataclasses.fields(DetectorConfig)})
+                             for f in dataclasses.fields(DetectorConfig)
+                             if hasattr(cfg, f.name)})
     tparams = tdet.convert_params(jax.tree_util.tree_map(np.asarray, params),
                                   tcfg, CPU)
     return (cfg, params, serve_fn, rules), (tcfg, tparams)

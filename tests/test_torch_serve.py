@@ -59,7 +59,8 @@ def detector():
         x + jnp.asarray(rng.normal(size=x.shape) * 0.3, x.dtype)
         for x in leaves])
     tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name)
-                             for f in dataclasses.fields(DetectorConfig)})
+                             for f in dataclasses.fields(DetectorConfig)
+                             if hasattr(cfg, f.name)})
     tparams = tdet.convert_params(jax.tree_util.tree_map(np.asarray, params),
                                   tcfg, torch.device("cpu"))
     return (params, serve_fn, cfg, rules), (tparams, tdet.serve_fn(tcfg),
@@ -222,7 +223,8 @@ def jax_weights(monkeypatch):
     def build(canvas=256, quantize=False, device=None):
         cfg, params, _, _ = jserve.build_detector(canvas, quantize=quantize)
         tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
-                                 dataclasses.fields(DetectorConfig)})
+                                 dataclasses.fields(DetectorConfig)
+                                 if hasattr(cfg, f.name)})
         tparams = tdet.convert_params(
             jax.tree_util.tree_map(np.asarray, params), tcfg,
             torch.device("cpu"))
@@ -298,6 +300,20 @@ def test_serve_cli_quantize_builds_int8_weights(capsys):
                  "--canvas", "128", "--slo", "5.0"])
     out = capsys.readouterr().out
     assert ", int8" in out and _summary(out)[0] > 0 and _summary(out)[4] == 0
+
+
+def test_serve_cli_serves_vitdet_l(capsys):
+    """``--model vitdet_l`` serves the registry's reduced ViTDet trunk
+    (windows of 3 on the 8x8 grid, every other block global, relative
+    positions) through the fused path, and prints the summary line the
+    other models print."""
+    tserve.main(["--device", "cpu", "--model", "vitdet_l", "--fuse",
+                 "--frames", "16", "--canvas", "128", "--slo", "5.0"])
+    out = capsys.readouterr().out
+    assert "models: vitdet_l (default vitdet_l)" in out
+    assert ", fused" in out
+    served, invocations, _, _, held = _summary(out)
+    assert served > 0 and invocations > 0 and held == 0
 
 
 def test_serve_cli_async_and_live_source(capsys):
@@ -403,7 +419,8 @@ class _JaxBuilt:
         from repro.core.models import make_model as jmake_model
         cfg, params, _, _ = jmake_model(self.name).build(canvas=canvas)
         tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
-                                 dataclasses.fields(DetectorConfig)})
+                                 dataclasses.fields(DetectorConfig)
+                                 if hasattr(cfg, f.name)})
         tparams = tdet.convert_params(
             jax.tree_util.tree_map(np.asarray, params), tcfg,
             torch.device("cpu"))
@@ -504,7 +521,8 @@ def test_fused_model_runtimes_match_jax_unfused_engine(detector):
         cfg, params, serve_fn, _ = jmake_model(name).build(canvas=CANVAS)
         jruntimes[name] = JModelRuntime(serve_fn, params, CANVAS, CANVAS)
         tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
-                                 dataclasses.fields(DetectorConfig)})
+                                 dataclasses.fields(DetectorConfig)
+                                 if hasattr(cfg, f.name)})
         tparams = tdet.convert_params(
             jax.tree_util.tree_map(np.asarray, params), tcfg,
             torch.device("cpu"))
@@ -653,7 +671,8 @@ def perturbed_weights(monkeypatch):
     def build(canvas=256, quantize=False, device=None):
         cfg, params, _, _ = jserve.build_detector(canvas, quantize=quantize)
         tcfg = DetectorConfig(**{f.name: getattr(cfg, f.name) for f in
-                                 dataclasses.fields(DetectorConfig)})
+                                 dataclasses.fields(DetectorConfig)
+                                 if hasattr(cfg, f.name)})
         tparams = tdet.convert_params(
             jax.tree_util.tree_map(np.asarray, _perturbed(params)), tcfg,
             torch.device("cpu"))

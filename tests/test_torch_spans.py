@@ -25,6 +25,9 @@ from repro_torch.models import detector as tdet
 M = 128
 STAGE = ("stage.plan", "stage.pack", "stage.h2d", "stage.launch")
 ROUTE = ("route.wait", "route.fused", "route.evidence")
+#: the trunk's device-timed records, settled at routing (a plain trunk's
+#: blocks are all global); in the order their spans closed
+DEVICE = ("trunk.attn.global", "trunk")
 
 
 @pytest.fixture(autouse=True)
@@ -102,15 +105,20 @@ def test_executor_spans_nest_and_leave_outputs_bit_equal(kind, fuse):
     recs = log.records
     assert None not in recs
     names = [r[0] for r in recs]
-    assert set(names) == {"stage", "route", *STAGE, *ROUTE}
+    assert set(names) == {"stage", "route", *STAGE, *ROUTE, *DEVICE}
     assert {r[4] for r in recs} == {0}             # one invocation number
+    for r in recs:
+        if r[0] in DEVICE:                         # zero-length, host ms
+            assert r[1] == r[2] and r[5] > 0
     for top in ("stage", "route"):
         i = names.index(top)
         _, t0, t1, parent, _, value = recs[i]
         assert parent is None and value == n_canvases
         kids = [r for r in recs if r[3] == i]
-        want = STAGE if top == "stage" else ROUTE if fuse else (
-            "route.wait", "route.fused", "route.wait", "route.evidence")
+        want = STAGE if top == "stage" else (
+            "route.wait", "route.fused", *DEVICE, "route.evidence") \
+            if fuse else ("route.wait", "route.fused", "route.wait",
+                          *DEVICE, "route.evidence")
         assert [k[0] for k in kids] == list(want)
         for _, k0, k1, _, _, _ in kids:
             assert t0 <= k0 <= k1 <= t1

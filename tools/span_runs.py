@@ -10,9 +10,10 @@ through ``tangram_bench/program_spans.py``) or not (``--spans 0``; with
 ``--trace 1`` the cell's readers of program spans install it all the
 same).  Prints the harness's JSON line, then one of its own: the log's
 records and bytes, the window's records by name, its invocations and
-canvases, host ms a canvas in each staging and routing span, the
-engine's lateness by kind and the fire reasons, and with ``--trace 1``
-the window's device idle seconds under each innermost span and the
+canvases, host ms a canvas in each staging and routing span, device ms
+a canvas in the trunk's device-timed records, the engine's lateness by
+kind and the fire reasons, and with ``--trace 1`` the window's device
+idle seconds under each innermost span and the
 ``breakdown``'s idle gaps named by span.  Where the executor stages
 through a pool (``DeviceExecutor._stage``), the line adds ``staging``:
 the staging buffers allocated or grown (``pinned_allocs``) when the
@@ -38,9 +39,11 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 SPANS = ("stage", "stage.plan", "stage.pack", "stage.h2d", "stage.launch",
          "route", "route.wait", "route.fused", "route.evidence")
+DEVICE = ("trunk", "trunk.attn.window", "trunk.attn.global")
 
 
 def report(data) -> dict:
+    from tangram_bench import device_spans
     from tangram_bench import program_spans as ps
     from tangram_bench import stats
     recs = ps.records(data)
@@ -56,6 +59,8 @@ def report(data) -> dict:
            "invocations": len(invs), "canvases": sum(invs.values()),
            "by_name": collections.Counter(r[0] for r in window),
            "ms_per_canvas": {n: ps.ms_per_canvas(data, (n,)) for n in SPANS},
+           "device_ms_per_canvas": {n: device_spans.ms_per_canvas(data, n)
+                                    for n in DEVICE},
            "late_ms": {k: {"n": len(v),
                            "p50": stats.nearest_rank(v, 0.5) * 1e3,
                            "p95": stats.nearest_rank(v, 0.95) * 1e3,
