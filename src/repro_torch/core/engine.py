@@ -550,31 +550,39 @@ class HostStaging:
 
 
 class StagedCrops:
-    """One invocation's crops in a buffer lent by a :class:`HostStaging`
-    pool (:func:`~repro_torch.kernels.stitch.ops.pack_plan_compact`'s
-    layout), held from staging until routing has copied the evidence."""
+    """One invocation's crops: the views of the frames that
+    :meth:`DeviceExecutor._crops` cut, which routing hands out as the
+    fused path's evidence, and the buffer lent by a :class:`HostStaging`
+    pool that they were packed into, held from staging until routing."""
 
     def __init__(self, pool: HostStaging, buf: StagingBuffer,
-                 packed: stitch_ops.CompactCrops, plan):
-        self.pool, self.buf, self.packed = pool, buf, packed
-        self.hmax, self.wmax = plan.hmax, plan.wmax
-
-    def crop(self, i: int, patch: Patch) -> np.ndarray:
-        """Patch ``i``'s evidence as its padded slot's ``[:patch.h,
-        :patch.w]`` reads: its crop, a view into the buffer (a padded copy
-        where the crop's extent is not the patch's)."""
-        px = self.packed.crop(i)
-        h, w = min(patch.h, self.hmax), min(patch.w, self.wmax)
-        if px.shape[:2] == (h, w):
-            return px
-        out = np.zeros((h, w, px.shape[2]), np.float32)
-        hh, ww = min(h, px.shape[0]), min(w, px.shape[1])
-        out[:hh, :ww] = px[:hh, :ww]
-        return out
+                 crops: List[np.ndarray]):
+        self.pool, self.buf, self.crops = pool, buf, crops
 
     def release(self) -> None:
         """Hand the buffer back to its pool."""
         self.pool.give(self.buf)
+
+
+def crop_evidence(px: np.ndarray, h: int, w: int
+                  ) -> Tuple[np.ndarray, bool]:
+    """A patch's evidence from its staged crop ``px``: what its padded
+    slot's ``[:h, :w]`` reads, and whether it is a view of the frame.
+
+    A float32 view whose extent is the patch's is handed out as it is,
+    read-only (the frame stays writeable).  Every other crop gives a
+    private float32 array: a frame of another dtype cast as the staging
+    buffer casts it, a crop cut short at the frame's edge zero-padded;
+    a frame the store no longer held gave zeros of its own already."""
+    if px.dtype == np.float32 and px.shape[:2] == (h, w):
+        if px.flags.owndata:
+            return px, False
+        px.flags.writeable = False
+        return px, True
+    out = np.zeros((h, w, px.shape[2]), np.float32)
+    hh, ww = min(h, px.shape[0]), min(w, px.shape[1])
+    out[:hh, :ww] = px[:hh, :ww]
+    return out, False
 
 
 class DeviceExecutor:
@@ -590,6 +598,16 @@ class DeviceExecutor:
     laid out into the plan's zero-padded slots on the device.  Counters:
     ``h2d_bytes`` (bytes shipped), ``pinned_allocs`` (staging buffers
     allocated or grown).
+
+    The fused path's evidence is the crops staging cut: each patch's, a
+    read-only view of its frame where that equals the padded slot's
+    ``[:h, :w]`` bit for bit, else a private float32 copy
+    (:func:`crop_evidence`).  The store holds a frame until its last
+    patch is delivered and the engine drops a completion's outputs at
+    delivery, so there a view holds its frame no longer than the store
+    does; a caller that keeps the evidence keeps the whole frame.
+    Counters: ``evidence_views``, ``evidence_copies`` (patches routed
+    each way; the unfused path copies every patch).
 
     :meth:`_launch` queues the work and returns before the card finishes;
     :meth:`_finalize` copies the outputs to the host (which waits for the
@@ -669,6 +687,8 @@ class DeviceExecutor:
         self.n_detections = 0
         self.n_sharded = 0
         self.evidence_bytes = 0
+        self.evidence_views = 0
+        self.evidence_copies = 0
         self.staging = HostStaging(pin=self.device.type == "cuda")
         self.h2d_bytes = 0
 
@@ -800,8 +820,8 @@ class DeviceExecutor:
         with no padding (``stage.pack``), one non-blocking copy on the
         executor's stream, then the padded slots laid out on the device
         (``stage.h2d``, valued in the bytes shipped).  Returns the slots,
-        the records and the :class:`StagedCrops` that routing reads the
-        evidence from and releases."""
+        the records and the :class:`StagedCrops` that routing takes the
+        fused path's evidence from and releases."""
         records_np = plan.records
         n_rec = records_np.size
         with spans.span("stage.pack"):
@@ -823,7 +843,7 @@ class DeviceExecutor:
             records = flat[:n_rec].view(torch.int32).view(records_np.shape)
             slots = stitch_ops.lay_out_slots(flat[n_rec:], packed, plan)
         self.h2d_bytes += 4 * need
-        return slots, records, StagedCrops(self.staging, buf, packed, plan)
+        return slots, records, StagedCrops(self.staging, buf, crops)
 
     def _record_done(self, *outputs):
         """What :meth:`AsyncDeviceExecutor.ready` probes with ``query()``.
@@ -847,18 +867,23 @@ class DeviceExecutor:
     def _route(self, inv: Invocation, payload: dict) -> Completion:
         plan = payload["plan"]
         staged = payload["staged"]
-        # the head's host copies are freed before the evidence copies
-        # allocate: held across them, K3's grids cost tangram-replay about
-        # a tenth of its patches a second (measured on an H100 host)
+        # the head's host copies are freed before any evidence copy
+        # allocates: held across one copy a patch, K3's grids cost
+        # tangram-replay about a tenth of its patches a second (measured
+        # on an H100 host)
         if "fused" in payload:
             with spans.span("route.wait"):
                 grids = payload["fused"].cpu().numpy()
             with spans.span("route.fused"):
                 per_frame = stitch_ops.route_fused(plan, inv.patches, grids)
             del grids
+
             # the unfused evidence (gathered slots) equals the input crops,
-            # so the fused path serves it from the crops it staged
-            crop = staged.crop
+            # so the fused path hands out the crops it staged
+            def evidence(i, patch):
+                return crop_evidence(staged.crops[i],
+                                     min(patch.h, plan.hmax),
+                                     min(patch.w, plan.wmax))
         else:
             with spans.span("route.wait"):
                 obj = payload["obj"].cpu().numpy()
@@ -868,20 +893,24 @@ class DeviceExecutor:
                                                         obj, boxes)
             del obj, boxes
             with spans.span("route.wait"):
-                evidence = payload["patch_out"].cpu().numpy()
+                gathered = payload["patch_out"].cpu().numpy()
 
-            def crop(i, patch):
-                return evidence[i, :patch.h, :patch.w]
+            def evidence(i, patch):
+                # a copy: a view of the gathered slots would pin the
+                # whole batch
+                return np.array(gathered[i, :patch.h, :patch.w]), False
         # the host copies waited for the card: the trunk's device-timed
         # spans have ended
         spans.settle(payload.get("inv"))
         per_frame_pixels: Dict[object, List[np.ndarray]] = {}
+        views = 0
         with spans.span("route.evidence"):
             for i, patch in enumerate(inv.patches):
-                # a copy: the staging buffer goes back to its pool, and a
-                # view of the gathered slots would pin the whole batch
-                per_frame_pixels.setdefault(patch.frame_id, []).append(
-                    np.array(crop(i, patch)))
+                px, view = evidence(i, patch)
+                views += view
+                per_frame_pixels.setdefault(patch.frame_id, []).append(px)
+        self.evidence_views += views
+        self.evidence_copies += len(inv.patches) - views
         # the outputs' host copies waited for the card, so the staging
         # copy has read the buffer
         staged.release()

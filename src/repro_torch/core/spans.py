@@ -25,7 +25,7 @@ Records and what reads them (``tangram_bench/metrics/``):
 | record | where | value |
 |---|---|---|
 | ``stage``, children ``stage.plan`` / ``.pack`` / ``.h2d`` / ``.launch`` | ``DeviceExecutor._queue`` | canvases (``stage.h2d``: bytes shipped) |
-| ``route``, children ``route.wait`` / ``.fused`` / ``.evidence`` | ``DeviceExecutor.submit`` / ``resolve`` | canvases |
+| ``route``, children ``route.wait`` / ``.fused`` / ``.evidence`` (each patch's evidence: a view of its frame on the fused path, else a copy) | ``DeviceExecutor.submit`` / ``resolve`` | canvases |
 | ``fire`` (zero length) | ``ServingEngine._dispatch`` | the invocation's reason |
 | ``engine.late`` (due -> taken) | ``ServingEngine.offer`` / ``advance`` on a clock that is not virtual | ``"arrival"``, ``"timer"``, ``"completion"`` |
 | ``engine.sleep`` | ``WallClock.advance_to`` | - |

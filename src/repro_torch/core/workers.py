@@ -430,6 +430,14 @@ class WorkerPoolExecutor:
         return self._sum("evidence_bytes")
 
     @property
+    def evidence_views(self) -> int:
+        return self._sum("evidence_views")
+
+    @property
+    def evidence_copies(self) -> int:
+        return self._sum("evidence_copies")
+
+    @property
     def h2d_bytes(self) -> int:
         return self._sum("h2d_bytes")
 

@@ -3,7 +3,9 @@
 (``lay_out_slots``), from reused host buffers (``HostStaging``).  Held
 against the padded host packing (``pack_plan_host``) and against a copy of
 the executor that stages with it: the same slots, padding included, and
-the same completions, bit for bit."""
+the same completions, bit for bit.  The fused path's evidence is a
+read-only view of the frame where that equals the padded slot, else a
+private copy (``crop_evidence``)."""
 import collections
 
 import numpy as np
@@ -103,13 +105,11 @@ def test_crop_larger_than_its_slot_raises(pack):
 # ------------------------------------------------------------ executor ----
 
 class _PaddedCrops:
-    """What the padded staging leaves for routing: the host slots."""
+    """What the padded staging leaves for routing: the host slots, each
+    cut to its patch (the evidence routing copied out of them)."""
 
-    def __init__(self, slots):
-        self.slots = slots
-
-    def crop(self, i, patch):
-        return self.slots[i, :patch.h, :patch.w]
+    def __init__(self, slots, patches):
+        self.crops = [slots[i, :p.h, :p.w] for i, p in enumerate(patches)]
 
     def release(self):
         pass
@@ -123,7 +123,7 @@ class _PaddedStaging:
         host = ops.pack_plan_host(self._crops(inv), plan)
         return (torch.from_numpy(host).to(self.device),
                 torch.from_numpy(plan.records).to(self.device),
-                _PaddedCrops(host))
+                _PaddedCrops(host, inv.patches))
 
 
 class _PaddedDevice(_PaddedStaging, DeviceExecutor):
@@ -173,6 +173,21 @@ def _invocations(n, seed=11):
     return frames, invs
 
 
+def _by_patch(comp):
+    """A completion's evidence arrays in its invocation's patch order."""
+    left = {fid: iter(px) for fid, px in comp.outputs[1].items()}
+    return [next(left[p.frame_id]) for p in comp.invocation.patches]
+
+
+def _is_view(frames, patch):
+    """Whether the fused path hands out a view of the patch's frame: the
+    frame is stored, float32, and holds the whole patch."""
+    frame = frames.get(patch.frame_id)
+    return (frame is not None and frame.dtype == np.float32
+            and frame[patch.y0:patch.y1, patch.x0:patch.x1].shape[:2]
+            == (patch.h, patch.w))
+
+
 def _serve(ex, frames, invs):
     """Submit in order, holding at most ``max_inflight`` unresolved (as the
     engine does); the completions in submit order, and the executor's
@@ -195,15 +210,20 @@ def _serve(ex, frames, invs):
 @pytest.mark.parametrize("kind", ["device", "async_device"])
 def test_executor_completions_equal_padded_staging(kind, fuse):
     """Detections and evidence equal, bit for bit, those of the executor
-    staging padded slots; ``h2d_bytes`` is the crops' and the records'
-    bytes; the pool stops allocating once ``max_inflight`` invocations
-    have been held, and never holds more buffers than that plus one."""
+    staging padded slots; the fused path's evidence is a read-only view
+    of its frame wherever the frame is stored and holds the whole patch,
+    the frame stays writeable, and every other patch's (and the unfused
+    path's) is a private copy, each counted; ``h2d_bytes`` is the crops'
+    and the records' bytes; the pool stops allocating once
+    ``max_inflight`` invocations have been held, and never holds more
+    buffers than that plus one."""
     cls, ref_cls = ((DeviceExecutor, _PaddedDevice) if kind == "device"
                     else (AsyncDeviceExecutor, _PaddedAsync))
     frames, invs = _invocations(2 * (MAX_INFLIGHT + 2))
     ex = _executor(cls, fuse)
     comps, (allocs, n_buffers) = _serve(ex, frames, invs)
-    ref, _ = _serve(_executor(ref_cls, fuse), frames, invs)
+    ref_ex = _executor(ref_cls, fuse)
+    ref, _ = _serve(ref_ex, frames, invs)
 
     assert len(comps) == len(ref) == len(invs)
     for got, want in zip(comps, ref):
@@ -217,9 +237,20 @@ def test_executor_completions_equal_padded_staging(kind, fuse):
             for a, b in zip(pixels[fid], want_pixels[fid]):
                 assert a.dtype == b.dtype and a.shape == b.shape
                 np.testing.assert_array_equal(_bits(a), _bits(b))
-                assert a.flags.owndata       # a copy, not a view
-
+        for p, a in zip(got.invocation.patches, _by_patch(got)):
+            if fuse and _is_view(frames, p):
+                assert np.shares_memory(a, frames[p.frame_id])
+                assert not a.flags.writeable
+            else:
+                assert a.flags.owndata and a.flags.writeable
+    assert all(px.flags.writeable for px in frames.values())
     patches = [p for inv in invs for p in inv.patches]
+    views = sum(fuse and _is_view(frames, p) for p in patches)
+    assert 0 < views < len(patches) or not fuse
+    assert (ex.evidence_views, ex.evidence_copies) == (
+        views, len(patches) - views)
+    assert ex.evidence_bytes == ref_ex.evidence_bytes > 0
+
     crops = [frames[p.frame_id][p.y0:p.y1, p.x0:p.x1] if p.frame_id in frames
              else np.zeros((p.h, p.w, 3)) for p in patches]
     assert any(px.shape[:2] != (p.h, p.w) for px, p in zip(crops, patches))
@@ -231,6 +262,42 @@ def test_executor_completions_equal_padded_staging(kind, fuse):
     assert ex.staging.n_buffers == n_buffers
     assert ex.pinned_allocs == allocs
     assert len(ex.staging.free) == ex.staging.n_buffers
+
+
+@pytest.mark.parametrize("case", ["inside", "missing", "edge", "uint8"])
+def test_fused_evidence_is_a_view_only_where_it_equals_the_slot(case):
+    """Patches inside a stored float32 frame: read-only views of it.  A
+    frame the store never held, a patch cut short at the frame's edge and
+    a uint8 frame: private float32 arrays.  Each equals, bit for bit, the
+    padded slot's evidence, and is counted as a view or a copy."""
+    rng = np.random.default_rng(5)
+    shape = (40, 60, 3) if case == "edge" else (96, 128, 3)
+    frame = (rng.integers(0, 256, shape).astype(np.uint8) if case == "uint8"
+             else rng.random(shape, dtype=np.float32))
+    frames = {} if case == "missing" else {0: frame}
+    patches = [Patch(4, 8, 36, 40, frame_id=0),
+               Patch(40, 20, 72, 52, frame_id=0),
+               Patch(16, 4, 40, 20, frame_id=0)]
+    inv = Invocation(0.0, stitch(patches, M, M), patches, 0.0, "timer")
+    ex = _executor(DeviceExecutor, True)
+    (got,), _ = _serve(ex, frames, [inv])
+    (want,), _ = _serve(_executor(_PaddedDevice, True), frames, [inv])
+
+    views = [_is_view(frames, p) for p in patches]
+    assert views == ([True] * 3 if case == "inside" else
+                     [True, False, True] if case == "edge" else [False] * 3)
+    for p, view, a, b in zip(patches, views, _by_patch(got),
+                             _by_patch(want)):
+        assert a.dtype == np.float32 and a.shape == b.shape == (p.h, p.w, 3)
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+        if view:
+            assert np.shares_memory(a, frame) and not a.flags.writeable
+        else:
+            assert a.flags.owndata and a.flags.writeable
+            assert not np.shares_memory(a, frame)
+    assert frame.flags.writeable
+    assert (ex.evidence_views, ex.evidence_copies) == (sum(views),
+                                                       3 - sum(views))
 
 
 def test_staging_pool_reuses_and_grows_only_when_short():
@@ -258,6 +325,11 @@ def test_worker_pool_sums_staging_counters():
     pool = WorkerPoolExecutor(workers)
     assert pool.h2d_bytes == sum(w.h2d_bytes for w in workers) > 0
     assert pool.pinned_allocs == 2
+    for name in ("evidence_views", "evidence_copies"):
+        assert getattr(pool, name) == sum(getattr(w, name) for w in workers)
+        assert all(getattr(w, name) > 0 for w in workers)
+    assert pool.evidence_views + pool.evidence_copies == sum(
+        len(inv.patches) for inv in invs)
 
 
 def test_make_executor_stages_through_its_pool():

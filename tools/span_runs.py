@@ -17,8 +17,11 @@ idle seconds under each innermost span and the
 ``breakdown``'s idle gaps named by span.  Where the executor stages
 through a pool (``DeviceExecutor._stage``), the line adds ``staging``:
 the staging buffers allocated or grown (``pinned_allocs``) when the
-window opened and when its last invocation was staged, and the window's
-bytes shipped (``h2d_bytes``) against the padded slots' bytes.
+window opened and when its last invocation was staged, the window's
+bytes shipped (``h2d_bytes``) against the padded slots' bytes, and the
+patches whose evidence the window's routing handed out as views of
+their frames and as copies (``evidence_views``, ``evidence_copies``;
+null where the executor counts neither).
 
 Runs at ``--spans 0`` and ``--spans 1`` with ``--trace 0``, the same seeds,
 in turns on one card, give what the log costs the end-to-end metrics.
@@ -75,10 +78,11 @@ def report(data) -> dict:
     return out
 
 
-def watch_staging(harness, stages: list) -> None:
+def watch_staging(harness, stages: list, workers: list) -> None:
     """Wrap ``harness.build_program`` so that each staging of the worker
     appends (in the window, ``pinned_allocs``, bytes shipped, padded slot
-    bytes) to ``stages``."""
+    bytes, ``evidence_views``, ``evidence_copies``) to ``stages``; the
+    worker goes into ``workers``."""
     build_program = harness.build_program
 
     def build(cfg, weights, device, recorder):
@@ -87,6 +91,7 @@ def watch_staging(harness, stages: list) -> None:
         stage = getattr(worker, "_stage", None)
         if stage is None:
             return program
+        workers.append(worker)
 
         def staged(inv, plan, rt):
             before = worker.h2d_bytes
@@ -94,7 +99,8 @@ def watch_staging(harness, stages: list) -> None:
             slot_bytes = (4 * out[0].shape[-1] * plan.slot_capacity
                           * plan.hmax * plan.wmax)
             stages.append((recorder.recording, worker.pinned_allocs,
-                           worker.h2d_bytes - before, slot_bytes))
+                           worker.h2d_bytes - before, slot_bytes,
+                           *evidence_counts(worker)))
             return out
 
         worker._stage = staged
@@ -103,11 +109,20 @@ def watch_staging(harness, stages: list) -> None:
     harness.build_program = build
 
 
-def staging_report(stages: list) -> dict:
+def evidence_counts(worker) -> tuple:
+    """The worker's ``evidence_views`` and ``evidence_copies`` so far (None
+    for a counter it does not keep)."""
+    return (getattr(worker, "evidence_views", None),
+            getattr(worker, "evidence_copies", None))
+
+
+def staging_report(stages: list, worker=None) -> dict:
     """``pinned_allocs`` after warm-up, at the first staging from the
     window's opening on and at the last, and the index among those
     stagings of the last that changed it; bytes shipped against the padded
-    slots' bytes over those stagings (the drain included)."""
+    slots' bytes over those stagings (the drain included); and the
+    patches routed from the first of them on whose evidence was a view of
+    its frame or a copy, read from ``worker`` at the end."""
     warm = [s for s in stages if not s[0]]
     served = [s for s in stages if s[0]]
     out = {"stagings": len(stages),
@@ -123,6 +138,11 @@ def staging_report(stages: list) -> dict:
                    last_growth_at=grew[-1] if grew else 0,
                    h2d_bytes=shipped, slot_bytes=slots,
                    shipped_share=shipped / slots)
+        for name, first, last in zip(
+                ("evidence_views", "evidence_copies"), served[0][4:],
+                evidence_counts(worker)):
+            out[name] = (None if first is None or last is None
+                         else last - first)
     return out
 
 
@@ -142,14 +162,14 @@ def main() -> int:
         return out
 
     harness.run_checked = keep
-    stages = []
-    watch_staging(harness, stages)
+    stages, workers = [], []
+    watch_staging(harness, stages, workers)
     rc = harness.main(rest, t0=T0)
     line = {"spans": args.spans}
     if "tangram_bench.program_spans" in sys.modules and "data" in kept:
         line.update(report(kept["data"]))
     if stages:
-        line["staging"] = staging_report(stages)
+        line["staging"] = staging_report(stages, workers[-1])
     print(json.dumps(line))
     return rc
 
